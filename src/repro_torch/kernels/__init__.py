@@ -1,0 +1,2 @@
+"""Hand-written CUDA kernels (sources in csrc/, built at first use) and
+their plain PyTorch versions."""
