@@ -5,21 +5,34 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernel from `src/repro_torch/kernels/csrc`, holds
-it against its plain PyTorch version on the card, then drives the port's
-scheduling path through the entry points a user calls — the batched GrIn
-target solver on (mu x mix) grids, a `SchedulerCore` routing bursts and
-pricing elastic what-ifs, and the batched closed-network engine comparing
-policies on the paper's Fig. 9 workload — and checks each result by the
-repository's own means. It prints the card's name and power limit, one
-JSON line describing every kernel (launches on the main path, error
-against the plain version, times and bound), and last a JSON status line.
+It builds the port's CUDA kernels from `src/repro_torch/kernels/csrc` (one
+nvcc per source, all started together), holds each against its plain
+PyTorch version on the card at the shapes its path gives it, then drives
+the port's paths through the entry points a user calls, each with the
+launch counts set to 0 just before it and read just after:
+
+  * scheduling — the batched GrIn target solver on (mu x mix) grids, a
+    `SchedulerCore` routing bursts and pricing elastic what-ifs, and the
+    batched closed-network engine comparing policies on the paper's Fig. 9
+    workload (block-move scorer kernel);
+  * serving — zamba2-7b at full width and depth (81 Mamba2 layers, a shared
+    attention block applied 13 times, d_model 3584; random weights from a
+    seed) in a `ServeEngine`: 4 prompts of 8192 tokens and 64 greedy decode
+    steps (flash-attention and SSD-scan kernels), a decode-vs-forward check,
+    then CAB against LB over two pools of that engine in virtual time;
+  * `ops.rmsnorm`, the RMSNorm kernel's only entry point;
+
+and checks each result by the repository's own means. It prints the card's
+name and power limit, one JSON line describing every kernel (launches on
+its path, error against the plain version, times and bounds), and last a
+JSON status line.
 Details go to `chiprun_out/chip_smoke_detail.json`. Exits non-zero, with no
 result lines, when there is no CUDA device, when the repository is not
 beside the script, or when any phase fails. Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -30,6 +43,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM HBM3 (data sheet)
 FP32_OPS_PER_S = 67e12              # H100 SXM float32, non-tensor (data sheet)
+BF16_OPS_PER_S = 989e12             # H100 SXM bf16 tensor cores, dense
 GAIN_TOL = 1e-5                     # gains: |kernel - plain| <= tol*(1+|g|)
 K, L, N_TASKS = 4, 6, 6000          # the solver benchmark's 4x6, N = 6000
 
@@ -469,6 +483,507 @@ def phase_engine(dev, n_mus, seeds, n_completions, warmup, detail):
         raise AssertionError("simulation outside the conformance gates")
 
 
+# ------------------------------------------------------------ model kernels
+
+# bf16 attention, kernel vs plain: |d| <= ATTN_TOL * (rms of the output row
+# + |out|). The reference sweep's 2e-2, taken relative to each row's rms:
+# at S = 8192 a row averages ~4096 unit-variance values, so |out| ~ 0.03
+# and an absolute 2e-2 would pass a kernel that drops a 64-key tile.
+ATTN_TOL = 2e-2
+ATTN_FAULT_KEYS = 64    # the negative control's fault: one 64-key tile
+SSD_Y_TOL = 5e-2        # bf16 SSD y (the reference sweep's)
+SSD_STATE_TOL = 1e-4    # float32 SSD final state (the reference's)
+RMS_TOL = 2e-2          # bf16 RMSNorm (the reference sweep's)
+SERVE_ARCH = "zamba2-7b"
+SERVE_B, SERVE_S, SERVE_STEPS = 4, 8192, 64
+CHECK_S = 4600          # decode-vs-forward prompt, longer than the 4096 window
+# decode-vs-forward: the largest gap between the logits prefill + decode_step
+# give for the last token and forward's last position, bf16 through 81
+# Mamba2 layers and 13 attention applications (the two paths round
+# differently: chunked SSD kernel vs the step recurrence, flash kernel vs the
+# plain decode attention over the bf16 ring). On an H100 the sound gaps over
+# the 4 prompts were 0.156-0.191 and the gaps against a forward without the
+# window 0.328-0.398 (PERF.md); the limit lies between the two.
+LOGIT_TOL = 0.25
+
+
+def _bound(nbytes, ops, ops_per_s):
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = ops / ops_per_s * 1e3
+    return (max(t_b, t_o), "bytes" if t_b >= t_o else "operations", nbytes,
+            ops)
+
+
+def attention_pairs(s: int, window: int) -> int:
+    """(query, key) pairs causal attention over s positions attends."""
+    if not window or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def attention_bound(b, s, h, kv, dh, window):
+    """q, k, v read once and out written once (bf16); 4*dh FLOP per
+    attended pair (q.k and p*v), at the bf16 tensor-core rate."""
+    nbytes = 2 * (2 * b * s * h * dh + 2 * b * s * kv * dh)
+    return _bound(nbytes, 4 * dh * b * h * attention_pairs(s, window),
+                  BF16_OPS_PER_S)
+
+
+def ssd_bound(b, s, h, dk, dv, chunk, shared_qk):
+    """q, k (stored once for all heads when shared), v, y bf16; log_a, beta
+    float32; the final state float32. Operations of the chunked form the
+    function is defined by (chunk c): per chunk and row the causal half of
+    q k^T and of the intra-chunk product, plus q S and the state update,
+    at the bf16 tensor-core rate."""
+    c = min(chunk, s)
+    n = -(-s // c)
+    pairs = c * (c + 1) // 2
+    ops = b * h * n * (2 * pairs * dk + 2 * pairs * dv + 4 * c * dk * dv)
+    qk = 2 * 2 * b * s * dk * (1 if shared_qk else h)
+    nbytes = qk + 2 * 2 * b * s * h * dv + 2 * 4 * b * s * h \
+        + 4 * b * h * dk * dv
+    return _bound(nbytes, ops, BF16_OPS_PER_S)
+
+
+def _close(a, b, tol):
+    """max |a - b| and whether |a - b| <= tol + tol * |b| everywhere."""
+    d = (a.float() - b.float()).abs()
+    return float(d.max()), bool((d <= tol + tol * b.float().abs()).all())
+
+
+def _close_rows(a, b, tol):
+    """Attention outputs (..., dh): max |a - b|, max |a - b| over the rms of
+    b's row, and whether |a - b| <= tol * (rms(b row) + |b|) everywhere."""
+    b = b.float()
+    d = (a.float() - b).abs()
+    rms = b.square().mean(-1, keepdim=True).sqrt().clamp_min(1e-30)
+    return (float(d.max()), float((d / rms).max()),
+            bool((d <= tol * (rms + b.abs())).all()))
+
+
+def _attn_inputs(dev, seed, b, s, h, kv, dh):
+    """q contiguous (as rope leaves it), k contiguous, v a strided view of a
+    wider projection (as the model splits it), bf16."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bf = dict(dtype=torch.bfloat16, device=dev, generator=g)
+    q = torch.randn((b, s, h, dh), **bf)
+    k = torch.randn((b, s, kv, dh), **bf)
+    v = torch.randn((b, s, 2 * kv * dh), **bf)[..., kv * dh:].reshape(
+        b, s, kv, dh)
+    return q, k, v
+
+
+def ssd_inputs(dev, seed, b, s, h, d):
+    """SSD inputs as a Mamba2 layer forms them: q = C and k = B shared by
+    all heads (expanded views, head stride 0), v the head-split x, dt =
+    softplus(. - 2), log_a = dt * A with A = -linspace(1, 16)."""
+    import torch
+    import torch.nn.functional as F
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bf = dict(dtype=torch.bfloat16, device=dev, generator=g)
+    Bc = F.silu(torch.randn((b, s, d), **bf))
+    Cc = F.silu(torch.randn((b, s, d), **bf))
+    x = torch.randn((b, s, h * d), **bf).reshape(b, s, h, d)
+    dtv = F.softplus(torch.randn((b, s, h), device=dev, generator=g) - 2.0)
+    A = -torch.linspace(1.0, 16.0, h, device=dev)
+    return (Cc[:, :, None].expand(b, s, h, d), Bc[:, :, None].expand(
+        b, s, h, d), x, dtv * A, dtv)
+
+
+def phase_model_kernels(dev, detail):
+    """The flash-attention, SSD-scan and RMSNorm kernels against their plain
+    versions on the card, bf16, at the shapes the serving path gives them
+    (and B = 1 causal, windowed and GQA cases); kernel, plain and library
+    times and bounds. Returns the three summary entries."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import rmsnorm as RN
+    from repro_torch.kernels import ssd_scan as SSD
+    rows = {"flash_attention": [], "ssd_scan": [], "rmsnorm": []}
+
+    # (B, S, H, KV, dh, window): the serving prefill's call first
+    for i, (b, s, h, kv, dh, win) in enumerate([
+            (SERVE_B, SERVE_S, 32, 32, 112, 4096), (1, SERVE_S, 32, 32, 112,
+                                                    4096),
+            (1, SERVE_S, 32, 32, 112, 0), (1, SERVE_S, 32, 4, 128, 0)]):
+        q, k, v = _attn_inputs(dev, 100 + i, b, s, h, kv, dh)
+        out = FA.flash_attention_cuda(q, k, v, window=win)
+        plain = FA.flash_attention_plain(q, k, v, window=win)
+        torch.cuda.synchronize()
+        err, rel, ok = _close_rows(out, plain, ATTN_TOL)
+        # negative control: the plain version with a one-tile fault (the
+        # window edge 64 keys early; without a window, the 64 newest keys
+        # dropped, rows past the first 128) must fail the same check
+        if win:
+            bad = FA.flash_attention_plain(q, k, v,
+                                           window=win - ATTN_FAULT_KEYS)
+        else:
+            bad = FA.flash_attention_plain(q, k, v, q_offset=-ATTN_FAULT_KEYS)
+        cut = 2 * ATTN_FAULT_KEYS
+        _, bad_rel, bad_ok = _close_rows(bad[:, cut:], plain[:, cut:],
+                                         ATTN_TOL)
+        del bad
+        if not ok:
+            raise AssertionError(f"flash attention off by {err:.3g} "
+                                 f"({rel:.3g} of a row's rms; B={b}, H={h}, "
+                                 f"KV={kv}, dh={dh}, window={win})")
+        if bad_ok:
+            raise AssertionError(f"the attention check passes a one-tile "
+                                 f"fault ({bad_rel:.3g} of a row's rms; "
+                                 f"window={win})")
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        if win:
+            ones = torch.ones((s, s), dtype=torch.bool, device=dev)
+            mask = torch.tril(ones) & ~torch.tril(ones, diagonal=-win)
+            del ones
+
+            def lib():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, enable_gqa=h != kv)
+        else:
+            def lib():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=h != kv)
+        lib_err = float((lib().transpose(1, 2).float() - plain.float())
+                        .abs().max())
+        ms = cuda_ms(lambda: FA.flash_attention_cuda(q, k, v, window=win),
+                     iters=10, warmup=2)
+        plain_ms = cuda_ms(lambda: FA.flash_attention_plain(
+            q, k, v, window=win), iters=2, warmup=1)
+        lib_ms = cuda_ms(lib, iters=10, warmup=2)
+        bound, by, nbytes, ops = attention_bound(b, s, h, kv, dh, win)
+        rows["flash_attention"].append({
+            "B": b, "S": s, "H": h, "KV": kv, "dh": dh, "window": win,
+            "max_abs_err": err, "max_err_over_row_rms": rel,
+            "fault_err_over_row_rms": bad_rel, "library_err": lib_err,
+            "ms": ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound,
+            "bound_by": by, "bytes": nbytes, "ops": ops,
+            "tflops": ops / ms / 1e9})
+        print(f"  flash B={b} S={s} H={h} KV={kv} dh={dh} window={win}: "
+              f"err {err:.2e} = {rel:.2e} x row rms (one-tile fault "
+              f"{bad_rel:.2e}, rejected) ms {ms:.3f} plain {plain_ms:.1f} sdpa "
+              f"{lib_ms:.3f} bound {bound:.3f} ({by}) "
+              f"{ops / ms / 1e9:.1f} TFLOP/s")
+        del q, k, v, out, plain, qt, kt, vt
+        mask = None
+
+    b, s, h, d, chunk = SERVE_B, SERVE_S, 112, 64, 256
+    q, k, v, la, beta = ssd_inputs(dev, 200, b, s, h, d)
+    y, st = SSD.ssd_scan_cuda(q, k, v, la, beta, chunk=chunk)
+    yp, sp = SSD.ssd_scan_plain(q, k, v, la, beta, chunk=chunk)
+    torch.cuda.synchronize()
+    err_y, ok_y = _close(y, yp, SSD_Y_TOL)
+    err_s, ok_s = _close(st, sp, SSD_STATE_TOL)
+    if not (ok_y and ok_s):
+        raise AssertionError(f"SSD scan off: y {err_y:.3g}, state "
+                             f"{err_s:.3g}")
+    ms = cuda_ms(lambda: SSD.ssd_scan_cuda(q, k, v, la, beta, chunk=chunk),
+                 iters=5, warmup=1)
+    plain_ms = cuda_ms(lambda: SSD.ssd_scan_plain(q, k, v, la, beta,
+                                                  chunk=chunk),
+                       iters=2, warmup=1)
+    bound, by, nbytes, ops = ssd_bound(b, s, h, d, d, chunk, True)
+    rows["ssd_scan"].append({
+        "B": b, "S": s, "H": h, "dk": d, "dv": d, "chunk": chunk,
+        "max_abs_err": max(err_y, err_s), "y_err": err_y,
+        "state_err": err_s, "ms": ms, "plain_ms": plain_ms,
+        "library_ms": None, "bound_ms": bound, "bound_by": by,
+        "bytes": nbytes, "ops": ops})
+    print(f"  ssd B={b} S={s} H={h} dk=dv={d} chunk={chunk}: y err "
+          f"{err_y:.2e} state err {err_s:.2e} ms {ms:.3f} plain "
+          f"{plain_ms:.1f} bound {bound:.3f} ({by})")
+    del q, k, v, la, beta, y, st, yp, sp
+
+    g = torch.Generator(device=dev).manual_seed(300)
+    for d in (3584, 7168):
+        x = torch.randn((SERVE_B * SERVE_S, d), dtype=torch.bfloat16,
+                        device=dev, generator=g)
+        w = (0.1 * torch.randn((d,), device=dev, generator=g)).to(
+            torch.bfloat16)
+        w1 = (1.0 + w.float()).to(torch.bfloat16)
+        out = RN.rmsnorm_cuda(x, w)
+        plain = RN.rmsnorm_plain(x, w)
+        torch.cuda.synchronize()
+        err, ok = _close(out, plain, RMS_TOL)
+        if not ok:
+            raise AssertionError(f"rmsnorm off by {err:.3g} (D={d})")
+        ms = cuda_ms(lambda: RN.rmsnorm_cuda(x, w))
+        plain_ms = cuda_ms(lambda: RN.rmsnorm_plain(x, w), iters=5)
+        lib_ms = cuda_ms(lambda: F.rms_norm(x, (d,), weight=w1, eps=1e-5))
+        bound, by, nbytes, ops = _bound(2 * 2 * x.numel() + 2 * d,
+                                        4 * x.numel(), FP32_OPS_PER_S)
+        rows["rmsnorm"].append({
+            "T": x.shape[0], "D": d, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound,
+            "bound_by": by, "bytes": nbytes, "ops": ops})
+        print(f"  rmsnorm ({x.shape[0]}, {d}) bf16: err {err:.2e} ms "
+              f"{ms:.4f} plain {plain_ms:.3f} F.rms_norm {lib_ms:.4f} bound "
+              f"{bound:.4f} ({by})")
+        del x, out, plain
+    torch.cuda.empty_cache()
+    detail["model_kernel_rows"] = rows
+
+    def entry(name, source, replaces, main):
+        r = rows[name][0]
+        return {"name": name, "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{source}",
+                "replaces": replaces, "launches": 0,
+                "max_abs_err": max(x["max_abs_err"] for x in rows[name]),
+                "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": r["library_ms"], "shape": main}
+    return {
+        "flash_attention": dict(entry(
+            "flash_attention", "flash_attention.cu",
+            "src/repro/kernels/flash_attention.py:105",
+            f"B={SERVE_B},S={SERVE_S},H=KV=32,dh=112,window=4096,bf16"),
+            max_err_over_row_rms=max(
+                x["max_err_over_row_rms"] for x in rows["flash_attention"])),
+        "ssd_scan": entry(
+            "ssd_scan", "ssd_scan.cu", "src/repro/kernels/ssd_scan.py:85",
+            f"B={SERVE_B},S={SERVE_S},H=112,dk=dv=64,chunk=256,bf16,"
+            f"q/k head-broadcast"),
+        "rmsnorm": entry(
+            "rmsnorm", "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:33",
+            f"T={SERVE_B * SERVE_S},D=3584,bf16"),
+    }
+
+
+def reset_all_launches():
+    from repro_torch.kernels import flash_attention, grin_moves, rmsnorm
+    from repro_torch.kernels import ssd_scan
+    for mod in (grin_moves, flash_attention, ssd_scan, rmsnorm):
+        mod.reset_launches()
+
+
+def all_launches() -> dict:
+    from repro_torch.kernels import flash_attention, grin_moves, rmsnorm
+    from repro_torch.kernels import ssd_scan
+    out = {}
+    for mod in (grin_moves, flash_attention, ssd_scan, rmsnorm):
+        out.update(mod.launches)
+    return out
+
+
+def phase_serve(dev, state, detail, cfg=None):
+    """zamba2-7b at full width and depth in a ServeEngine: 4 requests of
+    8192-token prompts and 64 greedy decode steps through `generate` (the
+    counted path), then timed prefill and decode runs, profiles, and the
+    decode-vs-forward check on 4 requests of 4600 tokens, with a forward
+    that leaves the window out as its negative control. `cfg` replaces the
+    model (a reduced one for a rehearsal on a CPU)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import Model
+    from repro_torch.serve.engine import ServeEngine
+    cfg = cfg or get_arch(SERVE_ARCH)
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    engine = ServeEngine(model, max_len=SERVE_S + SERVE_STEPS + 8)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    print(f"  {cfg.name}: {n_params / 1e9:.3f} B params, "
+          f"{len(model.mamba)} Mamba2 blocks + shared attention x "
+          f"{cfg.n_layers // cfg.attn_every}, d_model {cfg.d_model}; "
+          f"init + bf16 cast {t_init:.1f} s, weights "
+          f"{weight_bytes / 1e9:.2f} GB")
+    state["engine"] = engine
+    tg = torch.Generator(device=dev).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (SERVE_B, SERVE_S), device=dev,
+                         generator=tg)
+    batch = {"tokens": toks}
+    # warm-up at a short prompt: cuBLAS handles, allocator (not counted)
+    engine.generate({"tokens": toks[:1, :256]}, steps=2)
+    engine.synchronize()
+
+    reset_all_launches()                 # the serving path's count starts
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    out = engine.generate(batch, steps=SERVE_STEPS)
+    engine.synchronize()
+    t_gen = time.perf_counter() - t0
+    launches = all_launches()            # ... and ends here
+    peak = torch.cuda.max_memory_allocated(dev)
+    if out.shape != (SERVE_B, SERVE_STEPS) or not bool(
+            ((out >= 0) & (out < cfg.vocab_size)).all()):
+        raise AssertionError(f"generate returned {tuple(out.shape)} / ids "
+                             f"out of range")
+
+    t0 = time.perf_counter()
+    logits, cache = engine.prefill(batch)
+    engine.synchronize()
+    t_prefill = time.perf_counter() - t0
+    if logits.shape != (SERVE_B, 1, cfg.vocab_size) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError("prefill logits not finite / wrong shape")
+    first, feed = engine._greedy_next(logits)
+    t0 = time.perf_counter()
+    dec, cache = engine.decode_run(feed, cache, SERVE_S, SERVE_STEPS)
+    engine.synchronize()
+    t_dec = time.perf_counter() - t0
+    same = bool(torch.equal(out[:, 0], first)) and bool(
+        torch.equal(out[:, 1:], dec[:, :SERVE_STEPS - 1]))
+    del cache
+
+    hold = {}
+
+    def prefill_once():
+        hold["lc"] = engine.prefill(batch)
+    prof_prefill = device_busy(prefill_once)
+    lg, cache = hold.pop("lc")
+    _, feed = engine._greedy_next(lg)
+    prof_decode = device_busy(lambda: engine.decode_run(feed, cache, SERVE_S,
+                                                        8))
+    del cache
+    torch.cuda.empty_cache()
+
+    # decode-vs-forward on SERVE_B requests longer than the window, and the
+    # same decode against a forward that leaves the window out (the gap a
+    # window or ring-cache fault would show; it must exceed the limit)
+    ct = toks[:, :CHECK_S]
+    with torch.no_grad():
+        full = model.forward({"tokens": ct})[:, -1]
+        model.cfg = dataclasses.replace(cfg, sliding_window=0)
+        try:
+            no_window = model.forward({"tokens": ct})[:, -1]
+        finally:
+            model.cfg = cfg
+    _, c = engine.prefill({"tokens": ct[:, :-1]})
+    dl, _ = model.decode_step(ct[:, -1:], c, CHECK_S - 1)
+    dl = dl[:, -1]
+    gaps = [float(x) for x in (dl - full).abs().amax(-1)]
+    fault_gaps = [float(x) for x in (dl - no_window).abs().amax(-1)]
+    gap, fault_gap = max(gaps), min(fault_gaps)
+    argmax_eq = [bool(x) for x in dl.argmax(-1) == full.argmax(-1)]
+    top2 = torch.topk(full, 2, dim=-1).values
+    margins = [float(x) for x in top2[:, 0] - top2[:, 1]]
+    del c, full, no_window, dl
+    torch.cuda.empty_cache()
+
+    res = {"arch": cfg.name, "params": n_params, "weight_bytes": weight_bytes,
+           "init_s": t_init, "batch": SERVE_B, "prompt": SERVE_S,
+           "steps": SERVE_STEPS, "generate_s": t_gen,
+           "prefill_s": t_prefill,
+           "prefill_tok_per_s": SERVE_B * SERVE_S / t_prefill,
+           "decode_s": t_dec,
+           "decode_tok_per_s": SERVE_B * SERVE_STEPS / t_dec,
+           "decode_ms_per_step": t_dec / SERVE_STEPS * 1e3,
+           "peak_bytes": peak, "launches": launches,
+           "generate_equals_prefill_plus_decode": same,
+           "profile_prefill": prof_prefill, "profile_decode_8": prof_decode,
+           "check_prompt": CHECK_S, "check_requests": len(gaps),
+           "decode_vs_forward_gaps": gaps, "decode_vs_forward_max_gap": gap,
+           "decode_vs_forward_tol": LOGIT_TOL,
+           "decode_vs_no_window_forward_gaps": fault_gaps,
+           "decode_vs_forward_argmax_equal": argmax_eq,
+           "forward_top2_margins": margins}
+    detail["serve"] = res
+    print(f"  generate 4 x {SERVE_S} + {SERVE_STEPS} steps: {t_gen:.2f} s; "
+          f"launches {launches}; peak {peak / 1e9:.2f} GB")
+    print(f"  prefill (time to first token) {t_prefill:.3f} s = "
+          f"{res['prefill_tok_per_s']:.0f} tok/s; decode "
+          f"{res['decode_tok_per_s']:.1f} tok/s, "
+          f"{res['decode_ms_per_step']:.2f} ms/step; generate == prefill + "
+          f"decode_run: {same}")
+    print(f"  profiled prefill: wall {prof_prefill['wall_s']:.3f} s, device "
+          f"{prof_prefill['device_s']} s, busy {prof_prefill['busy_share']}")
+    print(f"  profiled 8 decode steps: wall {prof_decode['wall_s']:.3f} s, "
+          f"device {prof_decode['device_s']} s, busy "
+          f"{prof_decode['busy_share']}")
+    print(f"  decode vs forward ({len(gaps)} x {CHECK_S}): gaps "
+          f"{[round(x, 4) for x in gaps]} (tol {LOGIT_TOL}); against a "
+          f"forward without the window {[round(x, 4) for x in fault_gaps]}; "
+          f"argmax equal {argmax_eq}, forward top-2 margins "
+          f"{[round(x, 4) for x in margins]}")
+    if launches["flash_attention"] <= 0 or launches["ssd_scan"] <= 0:
+        raise AssertionError(f"serving path launched no model kernel: "
+                             f"{launches}")
+    if gap > LOGIT_TOL:
+        raise AssertionError(f"decode vs forward gap {gap:.4f} > "
+                             f"{LOGIT_TOL}")
+    if fault_gap <= LOGIT_TOL:
+        raise AssertionError(f"decode vs a forward without the window: gap "
+                             f"{fault_gap:.4f} <= {LOGIT_TOL}; the check "
+                             f"cannot see a window fault")
+    return launches
+
+
+def phase_serve_sched(dev, state, detail):
+    """CAB against LB over two pools of the full-width engine in virtual
+    time (the reference launcher's --heterogeneous experiment): 1 x 1024
+    prompts, measured 2 x 2 rates, 60 completions after 10 warmup."""
+    import numpy as np
+    import torch
+    from repro_torch.core import classify_2x2
+    from repro_torch.sched import SchedulerCore, get_policy
+    from repro_torch.sched.virtual import VirtualTimeCluster
+    from repro_torch.serve.engine import request_service_fns
+    engine = state["engine"]
+    tg = torch.Generator(device=dev).manual_seed(2)
+    toks = torch.randint(0, engine.cfg.vocab_size, (1, 1024), device=dev,
+                         generator=tg)
+    before = all_launches()
+    fns = request_service_fns(engine, {"tokens": toks}, toks)
+    t0 = time.perf_counter()
+    mu = VirtualTimeCluster(fns).measure_rates(2, reps=3)
+    t_mu = time.perf_counter() - t0
+    case = classify_2x2(mu).value
+    types = [0] * 4 + [1] * 4
+    xs = {}
+    for name in ("cab", "lb"):
+        sched = SchedulerCore(get_policy(name), mu, device=dev)
+        t0 = time.perf_counter()
+        m = VirtualTimeCluster(fns).run_closed(sched, types,
+                                               n_completions=60, warmup=10)
+        xs[sched.name] = {"X": m.throughput, "mean_response_s":
+                          m.mean_response_time,
+                          "per_pool_tasks": m.per_pool_tasks.tolist(),
+                          "wall_s": time.perf_counter() - t0}
+    after = all_launches()
+    detail["serve_sched"] = {"mu": mu.tolist(), "case": case,
+                             "measure_s": t_mu, "policies": xs,
+                             "launches": {k: after[k] - before[k]
+                                          for k in after}}
+    print(f"  measured mu (req/s) {np.round(mu, 3).tolist()} ({case}) in "
+          f"{t_mu:.1f} s")
+    for name, r in xs.items():
+        print(f"  {name}: X={r['X']:.3f} req/s, mean response "
+              f"{r['mean_response_s']:.3f} s, per pool {r['per_pool_tasks']}")
+    if not all(np.isfinite(r["X"]) and r["X"] > 0 for r in xs.values()):
+        raise AssertionError("serve-sched throughput not positive")
+
+
+def phase_ops_rmsnorm(dev, detail):
+    """The RMSNorm kernel's one entry point, `ops.rmsnorm`, on a serving-
+    sized hidden state (4 x 8192 x 3584, bf16); checked against the plain
+    version."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rmsnorm as RN
+    g = torch.Generator(device=dev).manual_seed(400)
+    x = torch.randn((SERVE_B, SERVE_S, 3584), dtype=torch.bfloat16,
+                    device=dev, generator=g)
+    w = (0.1 * torch.randn((3584,), device=dev, generator=g)).to(
+        torch.bfloat16)
+    reset_all_launches()
+    out = ops.rmsnorm(x, w)
+    torch.cuda.synchronize()
+    n = all_launches()["rmsnorm"]
+    err, ok = _close(out, RN.rmsnorm_plain(x, w), RMS_TOL)
+    detail["ops_rmsnorm"] = {"launches": n, "max_abs_err": err}
+    print(f"  ops.rmsnorm {tuple(x.shape)}: launches {n}, err {err:.2e}")
+    if n <= 0 or not ok or out.shape != x.shape:
+        raise AssertionError("ops.rmsnorm did not run the kernel correctly")
+    return n
+
+
 # ------------------------------------------------------------------- main
 
 def main() -> int:
@@ -493,18 +1008,30 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
 
-    from repro_torch.kernels import build, grin_moves
+    from repro_torch.kernels import (build, flash_attention, grin_moves,
+                                     rmsnorm, ssd_scan)
     t0 = time.perf_counter()
-    handles = {"grin_moves": build.start_build("grin_moves",
-                                               grin_moves.SOURCES)}
+    mods = {"grin_moves": (grin_moves, build.NVCC_FLAGS),
+            "flash_attention": (flash_attention, build.MODEL_NVCC_FLAGS),
+            "ssd_scan": (ssd_scan, build.MODEL_NVCC_FLAGS),
+            "rmsnorm": (rmsnorm, build.MODEL_NVCC_FLAGS)}
+    handles = {name: build.start_build(name, mod.SOURCES, flags)
+               for name, (mod, flags) in mods.items()}
     for name, h in handles.items():     # one nvcc per source, in parallel
         build.finish_build(name, h)
-    grin_moves._kernel_lib()
+    for mod, _ in mods.values():
+        mod._kernel_lib()
     t_build = time.perf_counter() - t0
-    print(f"build: {t_build:.1f} s")
-    print(build.build_log["grin_moves"]["ptxas"].strip()[-600:])
+    print(f"build: {t_build:.1f} s "
+          f"{ {n: round(b['seconds'], 1) for n, b in build.build_log.items()} }")
+    for name in mods:
+        used = [ln.split("info    : ")[-1] for ln in
+                build.build_log[name]["ptxas"].splitlines() if "Used" in ln]
+        print(f"  {name}: {'; '.join(sorted(set(used)))[:400]}")
 
-    detail = {"card": smi, "build_s": t_build}
+    detail = {"card": smi, "build_s": t_build,
+              "build": {n: {"seconds": b["seconds"], "ptxas": b["ptxas"]}
+                        for n, b in build.build_log.items()}}
     failed = []
 
     def run(name, fn, *args):
@@ -523,7 +1050,8 @@ def main() -> int:
     entry = run("kernel", phase_kernel, dev,
                 [(256, K, L, N_TASKS), (4096, K, L, N_TASKS),
                  (1001, 3, 3, 30)], detail)
-    grin_moves.reset_launches()         # the main path's count starts here
+    model_entries = run("model-kernels", phase_model_kernels, dev, detail)
+    reset_all_launches()                # the scheduling path's count starts
     per_phase = {}
     for name, fn, args in (
             ("solver", phase_solver, (dev, [(16, 16, 1), (64, 64, 2)], 64,
@@ -535,18 +1063,30 @@ def main() -> int:
         run(name, fn, *args)
         per_phase[name] = grin_moves.launches["block_move_gains"] - before
     launches = grin_moves.launches["block_move_gains"]
-    print(f"kernel launches on the main path: {launches} {per_phase}")
+    print(f"scorer launches on the scheduling path: {launches} {per_phase}")
     if per_phase.get("solver", 0) <= 0:
         failed.append("launches")
     detail["launches"] = {"total": launches, **per_phase}
+
+    state = {}                          # the serving engine, shared
+    serve_launches = run("serve", phase_serve, dev, state, detail)
+    run("serve-sched", phase_serve_sched, dev, state, detail)
+    state.clear()
+    torch.cuda.empty_cache()
+    rms_launches = run("ops-rmsnorm", phase_ops_rmsnorm, dev, detail)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_detail.json").write_text(
         json.dumps(detail, indent=1, default=str))
-    if failed or entry is None:
+    if failed or entry is None or model_entries is None \
+            or serve_launches is None or rms_launches is None:
         _fail(f"phases failed: {failed}")
     entry["launches"] = launches
-    print(json.dumps({"kernels": [entry]}))
+    model_entries["flash_attention"]["launches"] = \
+        serve_launches["flash_attention"]
+    model_entries["ssd_scan"]["launches"] = serve_launches["ssd_scan"]
+    model_entries["rmsnorm"]["launches"] = rms_launches
+    print(json.dumps({"kernels": [entry, *model_entries.values()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,10 +1,15 @@
 """PyTorch + CUDA port of the heterogeneous-multicore scheduler.
 
-Mirrors the module layout of the JAX package `repro`: the closed-form
-throughput/energy model (`core`), the block-move GrIn solver whose per-step
-move scoring runs in a hand-written CUDA kernel (`kernels.grin_moves`), the
-largest-deficit `SchedulerCore` (`sched.api`) and the batched closed-network
-simulator (`sim.engine_torch`). Imports torch, numpy and scipy only.
+Mirrors the module layout of the JAX package `repro`. The scheduling path:
+the closed-form throughput/energy model (`core`), the block-move GrIn
+solver whose per-step move scoring runs in a hand-written CUDA kernel
+(`kernels.grin_moves`), the largest-deficit `SchedulerCore` (`sched.api`)
+and the batched closed-network simulator (`sim.engine_torch`). The serving
+path: model configs (`configs`), the dense and hybrid model stack
+(`models`) whose prefill runs hand-written flash-attention and SSD-scan
+kernels (`kernels.ops`), the `ServeEngine` (`serve.engine`), the
+virtual-time pools (`sched.virtual`) and the serve CLI (`launch.serve`).
+Imports torch, numpy and scipy only.
 
 Every entry point takes `device=` and runs on the GPU unless the caller asks
 for the CPU explicitly (`device="cpu"`): a tensor on the CPU takes the plain

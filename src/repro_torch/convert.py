@@ -1,8 +1,8 @@
 """Carry state across from the reference package as plain values.
 
-The scheduler has no weights; what carries over between the JAX package and
-this one is configuration and live scheduling state. Both cross as plain
-Python / NumPy values, so neither package imports the other:
+What carries over between the JAX package and this one is configuration,
+live scheduling state and model weights. All cross as plain Python / NumPy
+values, so neither package imports the other:
 
   * `sim_config_from_reference(fields)` builds a `SimConfig` from a dict of
     plain values (the reference config's fields, with the distribution and
@@ -10,11 +10,15 @@ Python / NumPy values, so neither package imports the other:
   * `scheduler_core_state(core)` exports a SchedulerCore's routing state —
     from either package, read through the attributes they share — as NumPy
     arrays, and `scheduler_core_from_state(arrays, policy, device)` rebuilds
-    a port core from them that routes identically from there on.
+    a port core from them that routes identically from there on;
+  * `model_params_from_reference(cfg, tree)` builds a port `Model` from the
+    reference's parameter pytree given as nested dicts of NumPy arrays,
+    unstacking its scanned layer stacks into the port's module lists.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch.core.affinity import PowerModel
 from repro_torch.sched.api import SchedulerCore
@@ -107,3 +111,54 @@ def scheduler_core_from_state(arrays: dict, policy, device=None,
     if "mix" in arrays:
         core.notify_type_counts(arrays["mix"])
     return core
+
+
+@torch.no_grad()
+def _load(module: torch.nn.Module, tree: dict, index=(), prefix="") -> int:
+    """Copy `tree`'s leaves (indexed by `index` along their leading stacked
+    axes) into the same-named parameters of `module`; returns how many."""
+    n = 0
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            n += _load(getattr(module, key), val, index, f"{prefix}{key}.")
+            continue
+        p = getattr(module, key, None)
+        if not isinstance(p, torch.Tensor):
+            raise KeyError(f"the port has no parameter {prefix}{key}")
+        arr = np.asarray(val)[index]
+        if tuple(arr.shape) != tuple(p.shape):
+            raise ValueError(f"{prefix}{key}: reference {arr.shape} vs port "
+                             f"{tuple(p.shape)}")
+        p.copy_(torch.from_numpy(np.array(arr, order="C")))
+        n += 1
+    return n
+
+
+def model_params_from_reference(cfg, tree: dict, device=None):
+    """A port `Model` for `cfg` holding the reference's parameters `tree`
+    (nested dicts of NumPy arrays, e.g. `jax.tree.map(np.asarray,
+    params)`). The scanned stacks unstack along their leading axes:
+    `stack` (n_layers, ...) into the dense blocks, `stack_groups` (groups,
+    attn_every, ...) and `stack_tail` (rest, ...) into the hybrid's Mamba2
+    blocks in order, `shared` into its shared block. Every port parameter
+    must be filled."""
+    from repro_torch.models.model import Model
+    model = Model(cfg, device=device)
+    n = _load(model, {k: tree[k] for k in ("embed", "lm_head", "ln_f")
+                      if k in tree})
+    if cfg.family == "dense":
+        for i, blk in enumerate(model.layers):
+            n += _load(blk, tree["stack"], (i,))
+    else:
+        ae = cfg.attn_every
+        g = cfg.n_layers // ae
+        for i, blk in enumerate(model.mamba):
+            if i < g * ae:
+                n += _load(blk, tree["stack_groups"], divmod(i, ae))
+            else:
+                n += _load(blk, tree["stack_tail"], (i - g * ae,))
+        n += _load(model.shared, tree["shared"])
+    expected = sum(1 for _ in model.parameters())
+    if n != expected:
+        raise ValueError(f"filled {n} of the port's {expected} parameters")
+    return model

@@ -32,6 +32,13 @@ def test_port_imports_neither_jax_nor_the_reference_package():
         "import repro_torch, repro_torch.convert, repro_torch.obs\n"
         "import repro_torch.core, repro_torch.sched, repro_torch.sim\n"
         "import repro_torch.kernels.grin_moves, repro_torch.train\n"
+        "import repro_torch.configs, repro_torch.kernels.ops\n"
+        "import repro_torch.kernels.ref, repro_torch.kernels.flash_attention\n"
+        "import repro_torch.kernels.ssd_scan, repro_torch.kernels.rmsnorm\n"
+        "import repro_torch.models.attention, repro_torch.models.linear_scan\n"
+        "import repro_torch.models.layers, repro_torch.models.model\n"
+        "import repro_torch.serve.engine, repro_torch.sched.virtual\n"
+        "import repro_torch.launch.serve\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'repro') or\n"
         "             m.startswith(('jax.', 'jaxlib', 'repro.')))\n"
         "assert not bad, bad\n"
@@ -72,6 +79,24 @@ def test_kernel_sources_are_in_the_package():
     assert any("sm_90a" in f for f in build.NVCC_FLAGS)
 
 
+@pytest.mark.parametrize("name,entry,replaces", [
+    ("flash_attention", "flash_attention_fwd", "flash_attention_pallas"),
+    ("ssd_scan", "ssd_scan_fwd", "ssd_scan_pallas"),
+    ("rmsnorm", "rmsnorm_fwd", "rmsnorm_pallas")])
+def test_model_kernel_sources_are_in_the_package(name, entry, replaces):
+    import importlib
+    text = (PORT / "kernels" / "csrc" / f"{name}.cu").read_text()
+    assert f'extern "C" int {entry}' in text
+    assert replaces in text                         # names what it replaces
+    assert "cudaGetLastError" in text
+    mod = importlib.import_module(f"repro_torch.kernels.{name}")
+    from repro_torch.kernels import build
+    assert mod.SOURCES == (f"{name}.cu",)
+    assert set(mod.launches) == {name}
+    assert any("sm_90a" in f for f in build.MODEL_NVCC_FLAGS)
+    assert "--use_fast_math" not in build.MODEL_NVCC_FLAGS
+
+
 def test_smoke_refuses_to_run_without_a_card(monkeypatch):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the smoke would run")
@@ -97,6 +122,10 @@ def _entry_points():
     from repro_torch.sched import (BaselineClusterScheduler, SchedulerCore,
                                    solve_targets_grid_torch,
                                    solve_targets_torch)
+    from repro_torch.configs import get_arch, smoke_config
+    from repro_torch.convert import model_params_from_reference
+    from repro_torch.models.model import Model
+    from repro_torch.sched.virtual import VirtualTimeCluster
     from repro_torch.sim import (SimConfig, compare_policies,
                                  make_distribution, simulate_batch,
                                  simulate_policy, sweep)
@@ -121,13 +150,20 @@ def _entry_points():
         "simulate_policy": lambda: simulate_policy(cfg, "grin"),
         "sweep": lambda: sweep(cfg, "lb"),
         "compare_policies": lambda: compare_policies(cfg, ["grin", "lb"]),
+        "Model": lambda: Model(smoke_config(get_arch("yi-6b"))),
+        "model_params_from_reference": lambda: model_params_from_reference(
+            smoke_config(get_arch("zamba2-7b")), {}),
+        "VirtualTimeCluster.run_closed": lambda: VirtualTimeCluster(
+            [{0: lambda s: 1.0}], measure_real=False).run_closed(
+                "lb", [0], n_completions=2, warmup=1, mu=np.ones((1, 1))),
     }
 
 
 @pytest.mark.parametrize("name", [
     "SchedulerCore", "BaselineClusterScheduler", "solve_targets_torch",
     "solve_targets_grid_torch", "grin_solve_batch_torch", "grin_solve_torch",
-    "simulate_batch", "simulate_policy", "sweep", "compare_policies"])
+    "simulate_batch", "simulate_policy", "sweep", "compare_policies",
+    "Model", "model_params_from_reference", "VirtualTimeCluster.run_closed"])
 def test_entry_point_without_device_raises_where_there_is_no_cuda(
         name, monkeypatch):
     call = _entry_points()[name]
