@@ -14,6 +14,7 @@ from repro_torch.core.energy import (edp, edp_batch_torch, expected_delay,
 from repro_torch.core.exhaustive import exhaustive_count, exhaustive_solve
 from repro_torch.core.grin import (GrInBlockResult, GrInResult,
                                    grin_block_solve, grin_init, grin_solve,
+                                   grin_solve_batch_steps_torch,
                                    grin_solve_batch_torch, grin_solve_torch)
 from repro_torch.core.grin_energy import GrInEnergyResult, grin_energy_solve
 from repro_torch.core.slsqp import round_largest_remainder

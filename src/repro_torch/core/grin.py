@@ -32,7 +32,10 @@ Three implementations: NumPy single-move (host scheduler), NumPy block-move
 (host mirror of the device solver, with a per-move X_sys history), and
 batched torch: `grin_solve_torch` (single-move steepest ascent) and
 `grin_solve_batch_torch` (block-move, batched over (mu, mix) instances — the
-production path for device target grids, scoring moves in the CUDA kernel).
+production path for device target grids: on the card one launch of the
+fused CUDA solve, on the CPU the per-step loop `grin_block_steps`, which
+`grin_solve_batch_steps_torch` also runs on the card, one scorer launch a
+step).
 """
 from __future__ import annotations
 
@@ -233,13 +236,15 @@ def grin_block_solve(mu: np.ndarray, n_tasks: np.ndarray,
 
 
 # ---------------------------------------------------------------------------
-# Batched torch GrIn: the device production path. Each loop iteration
-# advances a whole (mu, mix) batch by one move per instance; converged
+# Batched torch GrIn: the device production path. On the card the block
+# solver is one launch of the fused kernel: each instance runs to its own
+# convergence in its own warp. The per-step loops below advance a whole
+# (mu, mix) batch by one move per instance per iteration; converged
 # instances carry a mask so they stop mutating (and stop counting moves)
-# while the rest of the batch drains. The loops couple instances only
-# through "is any instance still moving": reading that flag waits for the
-# device, so it is read every _SYNC_EVERY steps — the masked extra steps
-# change nothing.
+# while the rest of the batch drains. They couple instances only through
+# "is any instance still moving": reading that flag waits for the device,
+# so it is read every _SYNC_EVERY steps — the masked extra steps change
+# nothing.
 # ---------------------------------------------------------------------------
 
 _SYNC_EVERY = 8
@@ -338,40 +343,73 @@ def grin_solve_torch(mu, n_tasks, max_moves: int | None = None,
     return N[0]
 
 
-def _grin_block_core(mus, mixes, Ps, n_sizes: int, cap: int, objective: int):
-    from repro_torch.core.energy import (edp_batch_torch,
-                                         expected_energy_batch_torch)
-    from repro_torch.kernels.grin_moves import (OBJ_E_GUARD, OBJ_EDP, OBJ_X,
-                                                OBJ_XE, block_move_scores)
-    B, k, l = mus.shape
-    dirs = k * l * l
-    # Largest size first: argmax ties prefer the biggest improving block.
-    sizes = 2.0 ** torch.arange(n_sizes - 1, -1, -1, dtype=torch.float32,
-                                device=mus.device)
-    N0 = _grin_init_torch(mus, mixes)
+def phase_scale(N, mus, Ps, objective: int) -> torch.Tensor:
+    """Per-instance magnitude a phase's float32 convergence threshold is
+    relative to: X_sys for the throughput objectives, |E[E]| (eq. 19) or
+    |EDP| (eq. 21) for the energy ones (inf where X_sys is 0). Summed row by
+    row and column by column from the left, the order the fused kernel
+    sums in, so the per-step loop and the kernel draw the same threshold."""
+    from repro_torch.kernels.grin_moves import OBJ_EDP, OBJ_X, OBJ_XE
+    k, l = N.shape[-2:]
+    energy = objective not in (OBJ_X, OBJ_XE)
+    c = N[:, 0]
+    wx = mus[:, 0] * N[:, 0]
+    wp = Ps[:, 0] * N[:, 0] if energy else None
+    for i in range(1, k):
+        c = c + N[:, i]
+        wx = wx + mus[:, i] * N[:, i]
+        if energy:
+            wp = wp + Ps[:, i] * N[:, i]
+    cc = torch.clamp(c, min=1.0)
+    X = torch.where(c > 0, wx / cc, 0.0)
+    xs = X[:, 0]
+    for j in range(1, l):
+        xs = xs + X[:, j]
+    if not energy:
+        return xs
+    W = torch.where(c > 0, wp / cc, 0.0)
+    ws = W[:, 0]
+    for j in range(1, l):
+        ws = ws + W[:, j]
+    xc = torch.clamp(xs, min=1e-30)
+    e = ws / xc
+    if objective == OBJ_EDP:
+        e = e * (N.sum(dim=(-2, -1)) / xc)
+    return torch.where(xs > 0, e.abs(), torch.inf)
 
-    def scale_for(N, obj):
-        """Per-instance objective magnitude the float32 noise threshold is
-        relative to: X_sys for throughput objectives, E / EDP for energy."""
-        if obj in (OBJ_X, OBJ_XE):
-            return system_throughput_torch(N, mus)
-        if obj == OBJ_EDP:
-            return edp_batch_torch(N, mus, Ps).abs()
-        return expected_energy_batch_torch(N, mus, Ps).abs()
+
+def grin_block_steps(N0, mus, sizes, cap: int, *, P=None, objective: int,
+                     scorer=None):
+    """The block-move loop one step at a time over a batch — the plain
+    version of the fused solve (`kernels.grin_moves.grin_block_solve_cuda`).
+
+    Each step scores every instance's moves with `scorer` (by default
+    `block_move_scores`: the plain scorer on the CPU, one launch of the
+    scorer kernel on the card; `block_move_scores_reference` is the plain
+    scorer on any device), and an instance whose steepest m=1 gain clears
+    _TOL32_BLOCK * (1 + scale) takes the selected move; the others stop. A
+    phase ends when no instance moves or after `cap` steps; under OBJ_XE
+    the X-plateau energy phase follows. Returns (N, converged (B,) bool,
+    moves (B,) int32)."""
+    from repro_torch.kernels.grin_moves import (OBJ_E_GUARD, OBJ_XE,
+                                                block_move_scores)
+    scorer = block_move_scores if scorer is None else scorer
+    B, k, l = N0.shape
+    dirs = k * l * l
 
     def run_phase(N, moves, obj):
-        active = torch.ones(B, dtype=torch.bool, device=mus.device)
+        active = torch.ones(B, dtype=torch.bool, device=N.device)
         it = 0
         while it < cap:
-            _, bi, _, base = block_move_scores(N, mus, sizes,
-                                               return_gains=False, P=Ps,
-                                               objective=obj)
+            _, bi, _, base = scorer(N, mus, sizes, return_gains=False, P=P,
+                                    objective=obj)
             bi = bi.to(torch.int64)
             mi, r = bi // dirs, bi % dirs
             p, s, d = r // (l * l), (r // l) % l, r % l
             # Convergence is the m=1 signal: exhausted => single-move local
             # optimum of the phase objective.
-            do = active & (base > _TOL32_BLOCK * (1.0 + scale_for(N, obj)))
+            do = active & (base > _TOL32_BLOCK
+                           * (1.0 + phase_scale(N, mus, P, obj)))
             upd = (sizes[mi][:, None, None] * _one_hot(p, k)[:, :, None]
                    * (_one_hot(d, l) - _one_hot(s, l))[:, None, :])
             N = torch.where(do[:, None, None], N + upd, N)
@@ -383,13 +421,13 @@ def _grin_block_core(mus, mixes, Ps, n_sizes: int, cap: int, objective: int):
         return N, moves, ~active
 
     N, moves, conv = run_phase(
-        N0, torch.zeros(B, dtype=torch.int32, device=mus.device), objective)
+        N0, torch.zeros(B, dtype=torch.int32, device=N0.device), objective)
     if objective == OBJ_XE:
         # Phase 2 of max-X-E: slide along the X plateau (moves whose dX
         # stays within float32 noise of zero) toward lower energy.
         N, moves, conv2 = run_phase(N, moves, OBJ_E_GUARD)
         conv = conv & conv2
-    return N, system_throughput_torch(N, mus), conv, moves
+    return N, conv, moves
 
 
 _OBJECTIVE_KEYS = ("max-x", "max-x-e", "min-e", "min-edp")
@@ -404,26 +442,10 @@ def _objective_id(objective: str) -> int:
     return ids[objective]
 
 
-def grin_solve_batch_torch(mu, n_tasks_batch, *, n_sizes: int | None = None,
-                           max_moves: int | None = None,
-                           objective: str = "max-x", power=None, P=None,
-                           device=None):
-    """Block-move GrIn over a batch of instances on the device.
-
-    mu: (k, l) shared or (B, k, l) per-instance affinities; n_tasks_batch:
-    (B, k) type mixes. Returns torch tensors on the device: (N (B, k, l)
-    float32, x_sys (B,), converged (B,) bool, moves (B,) int32). `n_sizes`
-    is the doubling-ladder length (derived from the mixes when omitted).
-    `max_moves=None` caps the loop at the batch's max population + 64 —
-    hitting the cap (converged False) signals a degenerate instance.
-
-    `objective`: "max-x" (throughput ascent), "max-x-e" (throughput ascent
-    with energy tie-breaks, then an X-plateau energy polish — GrIn-E),
-    "min-e" (E[E] descent, eq. 19) or "min-edp" (EDP descent, eq. 21), with
-    the power matrix P = coeff * mu**alpha from `power` (a PowerModel;
-    default proportional). `P` ((k, l) or (B, k, l)) overrides the priced
-    power matrix for callers whose mu is not the physical rate matrix.
-    """
+def _batch_inputs(mu, n_tasks_batch, n_sizes, max_moves, objective, power,
+                  P, device):
+    """Device tensors for a batched solve: (initial placements N0, mus, Ps |
+    None, sizes (descending ladder), cap, objective id)."""
     dev = resolve_device(device)
     mixes_np = np.asarray(n_tasks_batch)
     if mixes_np.ndim != 2:
@@ -453,5 +475,61 @@ def grin_solve_batch_torch(mu, n_tasks_batch, *, n_sizes: int | None = None,
     if n_sizes is None:
         n_sizes = len(_ladder(total))
     cap = int(max_moves) if max_moves is not None else total + 64
+    # Largest size first: argmax ties prefer the biggest improving block.
+    sizes = 2.0 ** torch.arange(int(n_sizes) - 1, -1, -1,
+                                dtype=torch.float32, device=dev)
     mixes = torch.as_tensor(mixes_np, dtype=torch.float32, device=dev)
-    return _grin_block_core(mus, mixes, Ps, int(n_sizes), cap, obj)
+    return _grin_init_torch(mus, mixes), mus, Ps, sizes, cap, obj
+
+
+def grin_solve_batch_torch(mu, n_tasks_batch, *, n_sizes: int | None = None,
+                           max_moves: int | None = None,
+                           objective: str = "max-x", power=None, P=None,
+                           device=None):
+    """Block-move GrIn over a batch of instances on the device.
+
+    mu: (k, l) shared or (B, k, l) per-instance affinities; n_tasks_batch:
+    (B, k) type mixes. Returns torch tensors on the device: (N (B, k, l)
+    float32, x_sys (B,), converged (B,) bool, moves (B,) int32). `n_sizes`
+    is the doubling-ladder length (derived from the mixes when omitted).
+    `max_moves=None` caps each phase at the batch's max population + 64
+    steps — hitting the cap (converged False) signals a degenerate
+    instance.
+
+    `objective`: "max-x" (throughput ascent), "max-x-e" (throughput ascent
+    with energy tie-breaks, then an X-plateau energy polish — GrIn-E),
+    "min-e" (E[E] descent, eq. 19) or "min-edp" (EDP descent, eq. 21), with
+    the power matrix P = coeff * mu**alpha from `power` (a PowerModel;
+    default proportional). `P` ((k, l) or (B, k, l)) overrides the priced
+    power matrix for callers whose mu is not the physical rate matrix.
+
+    On the card the whole solve is one launch of the fused kernel
+    (`grin_block_solve_cuda`), with no host sync inside; on the CPU it runs
+    the per-step loop (`grin_block_steps`) with the plain scorer.
+    """
+    N0, mus, Ps, sizes, cap, obj = _batch_inputs(
+        mu, n_tasks_batch, n_sizes, max_moves, objective, power, P, device)
+    if N0.device.type == "cuda":
+        from repro_torch.kernels.grin_moves import grin_block_solve_cuda
+        N, conv, moves = grin_block_solve_cuda(N0, mus, sizes, cap, P=Ps,
+                                               objective=obj)
+    else:
+        N, conv, moves = grin_block_steps(N0, mus, sizes, cap, P=Ps,
+                                          objective=obj)
+    return N, system_throughput_torch(N, mus), conv, moves
+
+
+def grin_solve_batch_steps_torch(mu, n_tasks_batch, *,
+                                 n_sizes: int | None = None,
+                                 max_moves: int | None = None,
+                                 objective: str = "max-x", power=None,
+                                 P=None, device=None, scorer=None):
+    """`grin_solve_batch_torch` through the per-step loop on any device: the
+    fused solve's plain version, kept to hold the kernel against. `scorer`
+    as in `grin_block_steps` (by default one scorer launch per step on the
+    card). Same arguments and returns otherwise."""
+    N0, mus, Ps, sizes, cap, obj = _batch_inputs(
+        mu, n_tasks_batch, n_sizes, max_moves, objective, power, P, device)
+    N, conv, moves = grin_block_steps(N0, mus, sizes, cap, P=Ps,
+                                      objective=obj, scorer=scorer)
+    return N, system_throughput_torch(N, mus), conv, moves

@@ -24,6 +24,10 @@ whose prefix of doubling slopes stays >= max(runner-up m=1 gain, 0).
 plain PyTorch version (`_gains_body` / `_energy_gains_body` /
 `_select_body`, op for op the reference package's jnp bodies); CUDA tensors
 launch the kernel in `csrc/grin_moves.cu` or raise.
+
+`grin_block_solve_cuda` launches the same source's fused solver: the whole
+block-move loop of `core.grin`, one warp per instance, in one launch. Its
+plain version is that loop itself (`core.grin.grin_block_steps`).
 """
 from __future__ import annotations
 
@@ -48,9 +52,9 @@ _NEG = float("-inf")
 OBJ_X, OBJ_XE, OBJ_E, OBJ_EDP, OBJ_E_GUARD = 0, 1, 2, 3, 4
 _XE_TIE = 4e-6          # float32 near-tie band, matches grin._TOL32
 
-# Launches of the CUDA kernel (one per call on CUDA tensors); the plain
-# version never counts.
-launches = {"block_move_gains": 0}
+# Launches of the CUDA kernels (one per call on CUDA tensors); the plain
+# versions never count.
+launches = {"block_move_gains": 0, "grin_solve": 0}
 
 
 def reset_launches() -> None:
@@ -194,12 +198,36 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
+MAX_SIZES = 32          # ladder entries: one a lane in the kernel
+
+
 def _kernel_lib():
     lib = load_library("grin_moves", SOURCES)
     fn = lib.grin_block_move_scores
     fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
     fn.restype = _I
     return fn
+
+
+def _solve_lib():
+    fn = load_library("grin_moves", SOURCES).grin_block_solve
+    fn.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+    fn.restype = _I
+    return fn
+
+
+def _check_inputs(ins, shape):
+    """Every (name, tensor) a contiguous float32 CUDA tensor on the first
+    one's device; mu and P of `shape`."""
+    dev = ins[0][1].device
+    for name, t in ins:
+        if t.device != dev or t.device.type != "cuda":
+            raise ValueError(f"{name} must be a CUDA tensor on {dev}")
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous float32")
+        if name in ("mu", "P") and tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}; got "
+                             f"{tuple(t.shape)}")
 
 
 def block_move_gains_cuda(N, mu, sizes, *, return_gains=True, P=None,
@@ -218,16 +246,10 @@ def block_move_gains_cuda(N, mu, sizes, *, return_gains=True, P=None,
         if P is None:
             raise ValueError("energy objectives need the power matrix P")
         ins.append(("P", P))
-    for name, t in ins:
-        if t.device != N.device or t.device.type != "cuda":
-            raise ValueError(f"{name} must be a CUDA tensor on {N.device}")
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous float32")
-        if name in ("mu", "P") and tuple(t.shape) != (b, k, l):
-            raise ValueError(f"{name} must be {(b, k, l)}; got "
-                             f"{tuple(t.shape)}")
-    if sizes.dim() != 1 or sizes.numel() < 1:
-        raise ValueError("sizes must be a non-empty (M,) ladder")
+    _check_inputs(ins, (b, k, l))
+    if sizes.dim() != 1 or not 1 <= sizes.numel() <= MAX_SIZES:
+        raise ValueError(f"sizes must be a (M,) ladder, 1 <= M <= "
+                         f"{MAX_SIZES}")
     msz = sizes.numel()
     f = msz * k * l * l
     dev = N.device
@@ -252,6 +274,52 @@ def block_move_gains_cuda(N, mu, sizes, *, return_gains=True, P=None,
                            f"error {err}")
     launches["block_move_gains"] += 1
     return gains, bi, bg, base
+
+
+def grin_block_solve_cuda(N0, mu, sizes, cap, *, P=None, objective=OBJ_X):
+    """The whole block-move solve in one launch of the fused kernel, on the
+    current stream, with no host sync: from the initial placements N0
+    (B, k, l) under mu (and P for the energy objectives), the steps of
+    `core.grin.grin_block_steps` per instance until no move clears the
+    convergence threshold or `cap` steps; OBJ_XE runs its energy phase
+    (OBJ_E_GUARD, its own cap) in the same launch. Inputs are contiguous
+    float32 CUDA tensors, sizes (M,) descending with sizes[-1] == 1.
+    Returns (N (B, k, l), converged (B,) bool, moves (B,) int32)."""
+    if objective not in (OBJ_X, OBJ_XE, OBJ_E, OBJ_EDP):
+        raise ValueError(f"the fused solve takes OBJ_X, OBJ_XE, OBJ_E or "
+                         f"OBJ_EDP; got {objective!r}")
+    if N0.dim() != 3:
+        raise ValueError(f"N0 must be (B, k, l); got {tuple(N0.shape)}")
+    b, k, l = N0.shape
+    ins = [("N0", N0), ("mu", mu), ("sizes", sizes)]
+    if objective != OBJ_X:
+        if P is None:
+            raise ValueError("energy objectives need the power matrix P")
+        ins.append(("P", P))
+    _check_inputs(ins, (b, k, l))
+    if sizes.dim() != 1 or not 1 <= sizes.numel() <= MAX_SIZES:
+        raise ValueError(f"sizes must be a (M,) ladder, 1 <= M <= "
+                         f"{MAX_SIZES}")
+    if int(cap) < 0:
+        raise ValueError(f"cap must be >= 0; got {cap}")
+    dev = N0.device
+    N = N0.clone()
+    moves = torch.zeros(b, dtype=torch.int32, device=dev)
+    conv = torch.zeros(b, dtype=torch.int32, device=dev)
+    if b == 0:
+        return N, conv.bool(), moves
+    fn = _solve_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(N.data_ptr(), mu.data_ptr(),
+                 P.data_ptr() if objective != OBJ_X else None,
+                 sizes.data_ptr(), moves.data_ptr(), conv.data_ptr(),
+                 b, k, l, sizes.numel(), int(cap), objective, stream)
+    if err != 0:
+        raise RuntimeError(f"grin_block_solve launch failed: CUDA error "
+                           f"{err}")
+    launches["grin_solve"] += 1
+    return N, conv.bool(), moves
 
 
 def block_move_scores(N, mu, sizes, *, return_gains: bool = True, P=None,

@@ -2,13 +2,14 @@
 version.
 
 `ssd_scan_cuda` launches `csrc/ssd_scan.cu`, the counterpart of the TPU
-kernel `ssd_scan_pallas`: one block per (batch, head) row walks the
-sequence with the float32 state in shared memory and writes y and the final
-state. It reads the model layout (B, S, H, d) in place through strides; a
-head stride of 0 (Mamba2's B and C expanded over heads) is read without a
-copy. The plain version is `models.linear_scan.linear_scan_chunked`. The
-public entry point is `kernels.ops.ssd_scan`, which picks one by the
-tensor's device.
+kernel `ssd_scan_pallas`: one block per (batch, head, slice of 64 dv
+columns; the whole serving head) walks the sequence in sub-tiles on the
+tensor cores, with its slice of the float32 state in registers, and
+writes y and the final state. It reads the model layout (B, S, H, d) in
+place through strides; a head stride of 0 (Mamba2's B and C expanded over
+heads) is read without a copy. The plain version is
+`models.linear_scan.linear_scan_chunked`. The public entry point is
+`kernels.ops.ssd_scan`, which picks one by the tensor's device.
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ from repro_torch.kernels.build import MODEL_NVCC_FLAGS, load_library
 from repro_torch.models.linear_scan import linear_scan_chunked
 
 SOURCES = ("ssd_scan.cu",)
-MAX_DIM = 128           # dk, dv: the state must fit in shared memory
+MAX_DIM = 128           # dk, dv: the state's shared copy must fit
 MAX_TILE = 64           # tokens per sub-tile inside the kernel
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -48,8 +49,8 @@ def ssd_scan_cuda(q, k, v, log_a, beta, *, chunk=256):
     """q, k: (B, S, H, dk); v: (B, S, H, dv), one dtype (float32 or
     bfloat16), unit stride on the last axis; log_a, beta: (B, S, H) float32;
     dk, dv <= 128. The kernel walks each chunk in sub-tiles of
-    min(chunk, 64) tokens. Returns (y (B, S, H, dv) in v's dtype, final
-    state (B, H, dk, dv) float32)."""
+    min(chunk, 64) tokens, one block per 64 columns of dv. Returns
+    (y (B, S, H, dv) in v's dtype, final state (B, H, dk, dv) float32)."""
     ts = (q, k, v, log_a, beta)
     if any(t.device.type != "cuda" or t.device != q.device for t in ts):
         raise ValueError("ssd_scan_cuda takes CUDA tensors on one device")

@@ -76,6 +76,77 @@ def test_block_move_kernel_selection_only_matches_with_gains(cuda):
         G.block_move_gains_cuda(args[0].double(), *args[1:])
 
 
+def _grid(seed, B, k=4, l=6, n=600, shared=True):
+    rng = np.random.default_rng(seed)
+    mus = rng.uniform(1.0, 30.0, size=(1 if shared else B, k, l))
+    mixes = np.array([rng.multinomial(n, p)
+                      for p in rng.dirichlet([0.3] * k, size=B)])
+    return (mus[0] if shared else mus), mixes
+
+
+@pytest.mark.parametrize("objective", ["max-x", "max-x-e", "min-e",
+                                       "min-edp"])
+@pytest.mark.parametrize("shared", [True, False])
+def test_fused_solve_matches_per_step_loop(cuda, objective, shared):
+    """One launch of the fused solve gives the per-step loop's targets,
+    moves and converged flags: both score with the same device functions
+    and draw the same threshold."""
+    from repro_torch.core.grin import (grin_solve_batch_steps_torch,
+                                       grin_solve_batch_torch)
+    mu, mixes = _grid(21 + shared, B=300, shared=shared)
+    before = dict(G.launches)
+    N, xs, conv, moves = grin_solve_batch_torch(mu, mixes,
+                                                objective=objective,
+                                                device=cuda)
+    assert G.launches["grin_solve"] == before["grin_solve"] + 1
+    assert G.launches["block_move_gains"] == before["block_move_gains"]
+    Ns, xss, convs, movess = grin_solve_batch_steps_torch(
+        mu, mixes, objective=objective, device=cuda)
+    assert G.launches["block_move_gains"] > before["block_move_gains"]
+    assert conv.all() and convs.all()
+    assert torch.equal(N, Ns) and torch.equal(moves, movess)
+    assert torch.equal(xs, xss)
+    assert torch.equal(N.sum(dim=2).cpu(),
+                       torch.as_tensor(mixes, dtype=torch.float32))
+
+
+@pytest.mark.parametrize("objective", ["max-x", "max-x-e"])
+def test_fused_solve_reports_the_cap(cuda, objective):
+    """An instance that needs more than `max_moves` steps stops there and
+    reports converged False, as the per-step loop does."""
+    from repro_torch.core.grin import (grin_solve_batch_steps_torch,
+                                       grin_solve_batch_torch)
+    mu, mixes = _grid(5, B=64)
+    full = grin_solve_batch_torch(mu, mixes, objective=objective,
+                                  device=cuda)
+    cap = 2
+    N, _, conv, moves = grin_solve_batch_torch(
+        mu, mixes, objective=objective, max_moves=cap, device=cuda)
+    Ns, _, convs, movess = grin_solve_batch_steps_torch(
+        mu, mixes, objective=objective, max_moves=cap, device=cuda)
+    long = full[3] > cap
+    assert long.any() and not conv[long].any()
+    assert torch.equal(conv, convs) and torch.equal(moves, movess)
+    assert torch.equal(N, Ns)
+    phases = 2 if objective == "max-x-e" else 1
+    assert (moves <= phases * cap).all()
+
+
+def test_fused_solve_wrapper_checks_its_inputs(cuda):
+    mu, mixes = _grid(3, B=8)
+    N0 = torch.zeros((8, 4, 6), device=cuda)
+    mus = torch.as_tensor(np.broadcast_to(mu, (8, 4, 6)).copy(),
+                          dtype=torch.float32, device=cuda)
+    sizes = 2.0 ** torch.arange(3, -1, -1, dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError, match="power matrix"):
+        G.grin_block_solve_cuda(N0, mus, sizes, 10, objective=G.OBJ_E)
+    with pytest.raises(ValueError, match="OBJ_X, OBJ_XE"):
+        G.grin_block_solve_cuda(N0, mus, sizes, 10, P=mus,
+                                objective=G.OBJ_E_GUARD)
+    with pytest.raises(ValueError, match="mu must be"):
+        G.grin_block_solve_cuda(N0, mus[:, :3].contiguous(), sizes, 10)
+
+
 # ------------------------------------------------------------ model kernels
 #
 # Tolerances (the reference sweep's, tests/test_kernels.py): attention
@@ -175,6 +246,56 @@ def test_ssd_scan_kernel_reads_head_broadcast_views(cuda):
     torch.testing.assert_close(y.float().cpu(), yp.float(), atol=5e-2,
                                rtol=5e-2)
     torch.testing.assert_close(state.cpu(), sp, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("b,s,h,dk,dv,chunk", [
+    (2, 77, 3, 24, 40, 64), (1, 200, 2, 64, 72, 256), (3, 45, 2, 16, 24, 16),
+    (1, 130, 1, 128, 128, 128), (2, 90, 2, 32, 100, 64)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_scan_kernel_ragged_slices_and_tails(cuda, b, s, h, dk, dv, chunk,
+                                                 dtype):
+    """dv not a multiple of the 64-column slice (one or two slices, the
+    last ragged), S not a multiple of the sub-tile, dk not a multiple of
+    16."""
+    from repro_torch.kernels import ssd_scan as SSD
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(s + dv)
+    q = _rand(rng, (b, s, h, dk), dt, cuda)
+    k = _rand(rng, (b, s, h, dk), dt, cuda)
+    v = _rand(rng, (b, s, h, dv), dt, cuda)
+    log_a = -torch.nn.functional.softplus(_rand(rng, (b, s, h), torch.float32,
+                                                cuda))
+    beta = torch.sigmoid(_rand(rng, (b, s, h), torch.float32, cuda))
+    y, state = SSD.ssd_scan_cuda(q, k, v, log_a, beta, chunk=chunk)
+    yp, sp = SSD.ssd_scan_plain(q, k, v, log_a, beta, chunk=chunk)
+    torch.cuda.synchronize()
+    tol = 2e-4 if dtype == "float32" else 5e-2
+    torch.testing.assert_close(y.float(), yp.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(state, sp, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_scan_kernel_head_broadcast_views_both_dtypes(cuda, dtype):
+    """Head stride 0 q and k (Mamba2's B and C) in both dtypes, with the
+    serving path's dk = dv = 64 and a ragged tail."""
+    from repro_torch.kernels import ssd_scan as SSD
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(17)
+    b, s, h, d = 2, 333, 5, 64
+    Bc = _rand(rng, (b, s, d), dt, cuda)
+    Cc = _rand(rng, (b, s, d), dt, cuda)
+    x = _rand(rng, (b, s, h * d), dt, cuda).reshape(b, s, h, d)
+    dtv = torch.nn.functional.softplus(_rand(rng, (b, s, h), torch.float32,
+                                             cuda) - 2.0)
+    log_a = dtv * -torch.linspace(1.0, 16.0, h, device=cuda)
+    Bh = Bc[:, :, None].expand(b, s, h, d)
+    Ch = Cc[:, :, None].expand(b, s, h, d)
+    y, state = SSD.ssd_scan_cuda(Ch, Bh, x, log_a, dtv, chunk=256)
+    yp, sp = SSD.ssd_scan_plain(Ch, Bh, x, log_a, dtv, chunk=256)
+    torch.cuda.synchronize()
+    tol = 2e-4 if dtype == "float32" else 5e-2
+    torch.testing.assert_close(y.float(), yp.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(state, sp, atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.parametrize("shape", [(64, 256), (2, 37, 256), (5, 128),

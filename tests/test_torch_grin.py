@@ -93,6 +93,76 @@ def test_batched_block_solver_matches_reference(objective):
     assert moves.dtype == torch.int32 and (moves >= 0).all()
 
 
+@pytest.mark.parametrize("objective", ["max-x", "max-x-e", "min-e",
+                                       "min-edp"])
+def test_batched_block_solver_per_instance_mu_matches_reference(objective):
+    """(B, k, l) per-instance affinities and an explicit P, as the grid
+    solves pass them."""
+    mus, mixes = _grid(12)
+    P = 0.5 * mus ** 0.75
+    N, xs, conv, _ = tg.grin_solve_batch_torch(
+        mus, mixes, objective=objective, P=P, device="cpu")
+    Nr, xr, convr, _ = rg.grin_solve_batch_jax(mus, mixes,
+                                               objective=objective, P=P)
+    np.testing.assert_array_equal(conv.numpy(), np.asarray(convr))
+    np.testing.assert_allclose(xs.numpy(), np.asarray(xr), rtol=RTOL32)
+    np.testing.assert_array_equal(N.numpy().sum(axis=2), mixes)
+
+
+@pytest.mark.parametrize("objective", ["max-x", "max-x-e", "min-e",
+                                       "min-edp"])
+def test_per_step_entry_point_is_the_cpu_path(objective):
+    """On the CPU `grin_solve_batch_torch` runs the per-step loop, so the
+    entry point that always runs it gives the same tensors."""
+    mus, mixes = _grid(13, B=6)
+    a = tg.grin_solve_batch_torch(mus, mixes, objective=objective,
+                                  device="cpu")
+    b = tg.grin_solve_batch_steps_torch(mus, mixes, objective=objective,
+                                        device="cpu")
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("objective", ["max-x", "max-x-e", "min-e",
+                                       "min-edp"])
+def test_per_step_loop_takes_the_plain_scorer_on_any_device(objective):
+    """The fused solve's plain version on the card is the per-step loop with
+    the plain scorer passed in; on the CPU that is the default scorer."""
+    from repro_torch.kernels.grin_moves import block_move_scores_reference
+    mus, mixes = _grid(17, B=5)
+    a = tg.grin_solve_batch_steps_torch(mus, mixes, objective=objective,
+                                        device="cpu")
+    b = tg.grin_solve_batch_steps_torch(mus, mixes, objective=objective,
+                                        device="cpu",
+                                        scorer=block_move_scores_reference)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_phase_scale_matches_the_closed_forms():
+    """The threshold's scale, summed in the fused kernel's order, agrees
+    with X_sys, |E[E]| and |EDP| to float32 resolution."""
+    from repro_torch.core.energy import (edp_batch_torch,
+                                         expected_energy_batch_torch)
+    from repro_torch.core.throughput import system_throughput_torch
+    from repro_torch.kernels import grin_moves as G
+    rng = np.random.default_rng(4)
+    N = torch.as_tensor(rng.integers(0, 40, size=(16, 4, 6)),
+                        dtype=torch.float32)
+    N[0] = 0.0                                  # X_sys = 0: inf scale
+    mus = torch.as_tensor(rng.uniform(1, 30, size=(16, 4, 6)),
+                          dtype=torch.float32)
+    Ps = 0.7 * mus ** 0.5
+    want = {G.OBJ_X: system_throughput_torch(N, mus),
+            G.OBJ_XE: system_throughput_torch(N, mus),
+            G.OBJ_E: expected_energy_batch_torch(N, mus, Ps).abs(),
+            G.OBJ_E_GUARD: expected_energy_batch_torch(N, mus, Ps).abs(),
+            G.OBJ_EDP: edp_batch_torch(N, mus, Ps).abs()}
+    for obj, w in want.items():
+        got = tg.phase_scale(N, mus, Ps, obj)
+        torch.testing.assert_close(got, w, rtol=RTOL32, atol=0)
+
+
 def test_block_dominates_single_move_and_tracks_host_mirror():
     mus, mixes = _grid(11, B=12, n=480)
     N, _, conv, _ = tg.grin_solve_batch_torch(mus, mixes, device="cpu")

@@ -145,3 +145,26 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     N, mu, _, sizes = _case(5, B=4)
     with pytest.raises(ValueError, match="CUDA tensor"):
         port.block_move_gains_cuda(_t(N), _t(mu), _t(sizes))
+
+
+def test_fused_solve_wrapper_refuses_cpu_tensors_and_bad_inputs():
+    """The fused solve's wrapper launches on CUDA tensors only; on the CPU
+    it raises (the per-step loop is the CPU's path) and counts nothing."""
+    N, mu, P, _ = _case(6, B=4)
+    sizes = _t((2.0 ** np.arange(3, -1, -1)).astype(np.float32))
+    before = dict(port.launches)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        port.grin_block_solve_cuda(_t(N), _t(mu), sizes, 10)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        port.grin_block_solve_cuda(_t(N), _t(mu), sizes, 10, P=_t(P),
+                                   objective=port.OBJ_EDP)
+    with pytest.raises(ValueError, match="power matrix"):
+        port.grin_block_solve_cuda(_t(N), _t(mu), sizes, 10,
+                                   objective=port.OBJ_E)
+    with pytest.raises(ValueError, match="OBJ_X, OBJ_XE"):
+        port.grin_block_solve_cuda(_t(N), _t(mu), sizes, 10, P=_t(P),
+                                   objective=port.OBJ_E_GUARD)
+    with pytest.raises(ValueError, match="N0 must be"):
+        port.grin_block_solve_cuda(_t(N[0]), _t(mu), sizes, 10)
+    assert port.launches == before
+    assert set(port.launches) == {"block_move_gains", "grin_solve"}

@@ -79,6 +79,35 @@ def test_kernel_sources_are_in_the_package():
     assert any("sm_90a" in f for f in build.NVCC_FLAGS)
 
 
+def test_fused_solve_source_is_in_the_package():
+    """The fused GrIn solve is a second entry point of the scorer's source,
+    built with the same flags, and names the loop it replaces."""
+    text = (PORT / "kernels" / "csrc" / "grin_moves.cu").read_text()
+    assert 'extern "C" int grin_block_solve' in text
+    assert "_grin_block_core" in text and "lax.while_loop" in text
+    assert "cudaGetLastError" in text
+    from repro_torch.kernels import grin_moves
+    assert set(grin_moves.launches) == {"block_move_gains", "grin_solve"}
+    assert callable(grin_moves.grin_block_solve_cuda)
+
+
+def test_smoke_solve_bound_counts_the_steps_taken():
+    """The fused solve's bound counts operations over the steps these
+    inputs took, and bytes read and written once."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("chip_smoke", SMOKE)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    b1 = smoke.solve_bound(4096, 4, 6, 14, 0, 1_000_000)
+    b2 = smoke.solve_bound(4096, 4, 6, 14, 0, 2_000_000)
+    assert b2[3] == 2 * b1[3] and b1[2] == b2[2]
+    assert b1[3] == 1_000_000 * ((4 * 36 + 14) * 11 + 3 * 24 * 2)
+    assert b1[2] == 4 * (4096 * 24 * 2 + 14) + 4 * 4096 * 24 + 8 * 4096
+    assert b2[1] == "operations" and b2[0] > b1[0]
+    energy = smoke.solve_bound(4096, 4, 6, 14, 1, 1_000_000)
+    assert energy[3] > b1[3] and energy[2] > b1[2]
+
+
 @pytest.mark.parametrize("name,entry,replaces", [
     ("flash_attention", "flash_attention_fwd", "flash_attention_pallas"),
     ("ssd_scan", "ssd_scan_fwd", "ssd_scan_pallas"),
