@@ -744,6 +744,11 @@ SSD_STATE_TOL = 1e-4    # float32 SSD final state (the reference's)
 # HBM3 at 700 W: quoted from PERF.md's kernel table, printed beside this
 # run's time as such and not a reading of this run.
 SSD_PREVIOUS_MS_QUOTED = 6.09
+# The flash kernel's earlier design (mma.sync, 64 x 64 tiles, synchronous
+# loads) at the four attention cases below, on an NVIDIA H100 80GB HBM3 at
+# 700 W: quoted from PERF.md's kernel table, printed beside this run's
+# times as such and not a reading of this run.
+FLASH_PREVIOUS_MS_QUOTED = (12.28, 3.33, 4.76, 5.07)
 RMS_TOL = 2e-2          # bf16 RMSNorm (the reference sweep's)
 SERVE_ARCH = "zamba2-7b"
 SERVE_B, SERVE_S, SERVE_STEPS = 4, 8192, 64
@@ -778,6 +783,47 @@ def attention_bound(b, s, h, kv, dh, window):
     nbytes = 2 * (2 * b * s * h * dh + 2 * b * s * kv * dh)
     return _bound(nbytes, 4 * dh * b * h * attention_pairs(s, window),
                   BF16_OPS_PER_S)
+
+
+def attention_padded_bound(b, s, h, kv, dh, window, dh_pad):
+    """attention_bound with the tensor work the kernel does at its padded
+    head dim: Q K^T over dh, P V over dh_pad columns."""
+    nbytes = 2 * (2 * b * s * h * dh + 2 * b * s * kv * dh)
+    return _bound(nbytes, 2 * (dh + dh_pad) * b * h * attention_pairs(
+        s, window), BF16_OPS_PER_S)
+
+
+def ptxas_kernel_stats(log: str) -> dict:
+    """{kernel name: {"registers", "spill_stores", "spill_loads"}} from a
+    `-Xptxas=-v` log."""
+    import re
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            out[name].update(spill_stores=int(m.group(1)),
+                             spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def flash_kernel_stats(dh: int) -> dict:
+    """ptxas's registers and spills for the flash kernel instantiated at
+    head dim dh (empty when no ptxas report was kept)."""
+    from repro_torch.kernels import build
+    log = build.build_log.get("flash_attention", {}).get("ptxas", "")
+    for name, st in ptxas_kernel_stats(log).items():
+        if "flash_fwd" in name and f"ILi{dh}E" in name:
+            return st
+    return {}
 
 
 def ssd_bound(b, s, h, dk, dv, chunk, shared_qk):
@@ -905,19 +951,28 @@ def phase_model_kernels(dev, detail):
             q, k, v, window=win), iters=2, warmup=1)
         lib_ms = cuda_ms(lib, iters=10, warmup=2)
         bound, by, nbytes, ops = attention_bound(b, s, h, kv, dh, win)
+        padded, _, _, padded_ops = attention_padded_bound(
+            b, s, h, kv, dh, win, FA.padded_head_dim(dh))
+        st = flash_kernel_stats(dh)
+        tiles = FA.kernel_tiles()       # as the built kernel reports them
         rows["flash_attention"].append({
             "B": b, "S": s, "H": h, "KV": kv, "dh": dh, "window": win,
             "max_abs_err": err, "max_err_over_row_rms": rel,
             "fault_err_over_row_rms": bad_rel, "library_err": lib_err,
-            "ms": ms,
-            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound,
             "bound_by": by, "bytes": nbytes, "ops": ops,
-            "tflops": ops / ms / 1e9})
+            "tflops": ops / ms / 1e9, "bound_share": bound / ms,
+            "dh_padded": FA.padded_head_dim(dh), "padded_ops": padded_ops,
+            "padded_bound_ms": padded, **tiles, **st})
         print(f"  flash B={b} S={s} H={h} KV={kv} dh={dh} window={win}: "
               f"err {err:.2e} = {rel:.2e} x row rms (one-tile fault "
-              f"{bad_rel:.2e}, rejected) ms {ms:.3f} plain {plain_ms:.1f} sdpa "
-              f"{lib_ms:.3f} bound {bound:.3f} ({by}) "
-              f"{ops / ms / 1e9:.1f} TFLOP/s")
+              f"{bad_rel:.2e}, rejected) ms {ms:.3f} (earlier design "
+              f"{FLASH_PREVIOUS_MS_QUOTED[i]} ms, quoted from PERF.md, not "
+              f"measured here) plain {plain_ms:.1f} sdpa {lib_ms:.3f} bound "
+              f"{bound:.3f} ({by}; {padded:.3f} at dh padded to "
+              f"{FA.padded_head_dim(dh)}) {ops / ms / 1e9:.1f} TFLOP/s = "
+              f"{bound / ms:.2f} of the bound; tiles {tiles['block_q']} x "
+              f"{tiles['block_k']}, {tiles['stages']} stages; ptxas {st}")
         del q, k, v, out, plain, qt, kt, vt
         mask = None
 
@@ -996,7 +1051,8 @@ def phase_model_kernels(dev, detail):
                 x["max_err_over_row_rms"] for x in rows["flash_attention"]),
             causal_shape=f"B=1,S={SERVE_S},H=KV=32,dh=112,causal,bf16",
             causal_ms=rows["flash_attention"][2]["ms"],
-            causal_library_ms=rows["flash_attention"][2]["library_ms"]),
+            causal_library_ms=rows["flash_attention"][2]["library_ms"],
+            bound_share=rows["flash_attention"][0]["bound_share"]),
         "ssd_scan": entry(
             "ssd_scan", "ssd_scan.cu", "src/repro/kernels/ssd_scan.py:85",
             f"B={SERVE_B},S={SERVE_S},H=112,dk=dv=64,chunk=256,bf16,"
@@ -1157,6 +1213,11 @@ def phase_serve(dev, state, detail, cfg=None):
           f"forward without the window {[round(x, 4) for x in fault_gaps]}; "
           f"argmax equal {argmax_eq}, forward top-2 margins "
           f"{[round(x, 4) for x in margins]}")
+    # generate runs one prefill; decode never calls the flash kernel
+    print(f"  flash-attention launches per prefill: "
+          f"{launches['flash_attention']} (shared attention applied "
+          f"{cfg.n_layers // max(cfg.attn_every, 1)} times)")
+    res["flash_launches_per_prefill"] = launches["flash_attention"]
     if launches["flash_attention"] <= 0 or launches["ssd_scan"] <= 0:
         raise AssertionError(f"serving path launched no model kernel: "
                              f"{launches}")

@@ -58,9 +58,14 @@ def _library_path(name: str, sources: tuple[str, ...],
 def start_build(name: str, sources: tuple[str, ...],
                 flags: tuple[str, ...] = NVCC_FLAGS):
     """Start `nvcc` for one library in the background; returns a handle for
-    `finish_build`, or None when the library is already built."""
+    `finish_build`, or None when the library is already built (its ptxas
+    report, left beside it, then goes into `build_log`)."""
     so = _library_path(name, sources, flags)
     if so.exists():
+        log = so.with_suffix(".ptxas.txt")
+        build_log.setdefault(name, {
+            "seconds": 0.0, "cached": True,
+            "ptxas": log.read_text() if log.exists() else ""})
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
@@ -72,15 +77,14 @@ def start_build(name: str, sources: tuple[str, ...],
 
 
 def finish_build(name: str, handle) -> None:
-    if handle is None:
-        build_log.setdefault(name, {"seconds": 0.0, "cached": True,
-                                    "ptxas": ""})
+    if handle is None:              # built before
         return
     proc, tmp, so, t0 = handle
     out, err = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name} (exit "
                            f"{proc.returncode}):\n{out}{err}")
+    so.with_suffix(".ptxas.txt").write_text(err)
     os.replace(tmp, so)             # atomic: concurrent builds agree
     build_log[name] = {"seconds": time.perf_counter() - t0, "cached": False,
                        "ptxas": err}

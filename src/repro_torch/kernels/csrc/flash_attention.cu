@@ -1,4 +1,6 @@
-// Causal flash attention forward: online softmax in float32, GQA, optional
+// Causal flash attention forward for Hopper (sm_90a): TMA loads into an
+// mbarrier-guarded ring, wgmma for both products, one producer warpgroup
+// and two consumer warpgroups. Online softmax in float32, GQA, optional
 // sliding window, padded-key masking.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py::
@@ -6,35 +8,62 @@
 // function: for query row i and key j (0-based positions),
 //   s_ij = (q_i . k_j) * scale, masked to NEG_INF = -1e30 unless j < Sk,
 //   (causal) j <= i and (window) j > i - window;
-//   out_i = sum_j softmax_j(s_ij) v_j, accumulated in float32;
+//   out_i = sum_j softmax_j(s_ij) v_j / max(l_i, 1e-30), in float32;
 // query head h reads kv head h / (H / KV) (no repeated K/V in memory). The
 // mask constant is finite on purpose, as in the reference: a row whose first
-// processed tile is fully masked gathers exp(0) terms, and the correction
+// visited tile is fully masked gathers exp(0) terms, and the correction
 // exp(-1e30 - m) = 0 at its first real key wipes them; -inf would give NaN.
 // Whole tiles above the causal diagonal or left of the window are skipped.
 //
-// Layout: q (B, Sq, H, dh), k/v (B, Sk, KV, dh), out (B, Sq, H, dh), each
-// with element strides for batch, sequence and head and a unit stride on
-// dh; so the model's views (k and v split out of one qkv projection) are
-// read in place, with no fold to (B*H, S, dh) and no padding in memory.
+// Layout: q (B, Sq, H, dh), k/v (B, Sk, KV, dh), out (B, Sq, H, dh). q, k
+// and v are read in place by TMA through rank-4 tensor maps over
+// (dh, heads, S, B) with the tensors' own strides in bytes, so the model's
+// views (k and v split out of one qkv projection) need no copy. The maps are
+// encoded on the host for every call from the dims, strides and boxes that
+// the Python wrapper computes (`kernels/flash_attention.py::tensor_maps`).
 //
 // Bound on the card: operations. At the serving shapes (S = 8192, dh = 112,
-// window 4096) each query row attends up to 4096 keys at 4*dh FLOP each,
-// ~60 FLOP per byte of q/k/v/out even if K/V were read once per q tile:
-// above the H100's ~300 FLOP/byte line only because tiles re-read K/V from
-// L2, so the tensor cores, not HBM, set the bound.
+// window 4096) a query row attends up to 4096 keys at 4*dh FLOP each;
+// reading q, k, v and writing out once is ~60x less time than the bf16
+// tensor-core work, so the design is about keeping the tensor cores fed:
 //
-// One kernel, bfloat16 in and out (the serving path; the engine serves in
-// bfloat16): one block of 4 warps per (batch*head, 64-row q tile). Each warp
-// owns 16 query rows, keeps its Q fragments in registers, and runs mma.sync
-// m16n8k16 (bf16 in, f32 accumulate) for S = Q K^T and O += P V over 64-key
-// tiles staged in shared memory (rows padded by 8 elements so the fragment
-// loads are free of bank conflicts). The S accumulator's register layout is
-// the A-operand layout of the P V product, so P never leaves registers. Row
-// max and row sum are reduced over the 4 threads that share a row with two
-// shuffles. dh must be a multiple of 16 (32, 64, 96, 112, 128 are
-// instantiated; no padding of dh = 112 to 128 as the TPU needs).
-// Not yet here: TMA, wgmma, warp specialisation, pipelined tile loads.
+//  * Warpgroup 0 is the producer: after `setmaxnreg.dec` one thread issues
+//    TMA loads of the block's Q tile once and of each K and V tile into a
+//    ring of kStages stages. Each stage has "full" mbarriers for K and for V
+//    (expect_tx; Q K^T starts before V lands) and "empty" mbarriers for K
+//    and for V that the consumers arrive on, K as soon as Q K^T is done.
+//  * Warpgroups 1 and 2 are consumers (`setmaxnreg.inc`), 64 query rows
+//    each of the block's 128. S = Q K^T is `wgmma.mma_async m64n128k16`
+//    with Q and K from shared memory (K-major, 128-byte swizzle). P stays in
+//    registers: the f32 S accumulator packed to bf16 pairs is the register
+//    A fragment of `wgmma m64n{DHP}k16` for O += P V, whose B operand is V
+//    in shared memory in its MN-major form (trans-b). The two consumers run
+//    free of each other, so one's softmax can overlap the other's wgmma.
+//  * Softmax in the log2 domain: one multiply by scale*log2(e) folded into
+//    the exponent, exp2 on the special-function unit. The mask is tested
+//    only on tiles that cross the causal diagonal, the window's left edge or
+//    Sk; interior tiles take no per-element test.
+//  * dh is padded in shared memory only, to DHP = the next multiple of 64
+//    (112 and 96 -> 128, 32 -> 64): the TMA box is 64 columns (128 bytes,
+//    the swizzle's width) and its out-of-bounds fill supplies the zeros past
+//    dh. Q K^T runs ceil(dh / 16) k-steps, so only P V pays for the padding
+//    (N = DHP): 1/14 more tensor work in all at dh = 112.
+//  * Blocks are one flat index over (batch, head, q tile), so B*H has no
+//    grid limit, and the blocks in flight together share one head's K and V
+//    in L2; in the causal case each head's longest q tiles go first.
+//
+// What still bounds it (PERF.md has the numbers): the exp2 work (one MUFU
+// op per score) and the two products do not overlap; the kernel runs at
+// about half its bound. Overlapping tile i's softmax with tile i+1's Q K^T
+// inside a warpgroup keeps S, P and O live beside the in-flight wgmma, and
+// ptxas then serialises the wgmma (C7512, "insufficient register
+// resources") at BK = 128, though it stays under the 240 registers that
+// setmaxnreg grants. That overlap at BK = 96 or 64, ping-pong turns on
+// named barriers, 3 stages and a 288-thread layout measured no faster. So:
+// BK = 128, 2 stages, one wgmma group at a time per consumer, O rescaled
+// only when a row max moved. Q 32 KB + 2 x (K 32 KB + V 32 KB) = 160 KB of
+// shared memory at DHP = 128, 168 registers a thread, no spills.
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -42,23 +71,25 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kBQ = 128;            // query rows per block (2 x 64)
+constexpr int kBK = 128;            // keys per tile
+constexpr int kStages = 2;          // K/V ring depth
+constexpr int kThreads = 384;       // producer + 2 consumer warpgroups
+constexpr int kConsumerRegs = 240;
+constexpr int kProducerRegs = 24;
 
-struct AttnArgs {
-  const void* q;
-  const void* k;
-  const void* v;
+struct FwdArgs {
   void* o;
-  int Sq, Sk, H, KV;
-  long long q_sb, q_ss, q_sh;
-  long long k_sb, k_ss, k_sh;
-  long long v_sb, v_ss, v_sh;
   long long o_sb, o_ss, o_sh;
+  int B, Sq, Sk, H, KV;
   int causal, window;
-  float scale;
+  int n_qtiles;
+  float scale_log2;                 // scale * log2(e)
 };
 
 // Key-tile range [begin, end) a q tile [q0, q0 + bq) must visit.
-__device__ __forceinline__ void tile_range(const AttnArgs& a, int q0, int bq,
+__device__ __forceinline__ void tile_range(const FwdArgs& a, int q0, int bq,
                                            int bk, int* begin, int* end) {
   int e = (a.Sk + bk - 1) / bk;
   if (a.causal) e = min(e, (q0 + bq - 1) / bk + 1);
@@ -71,220 +102,563 @@ __device__ __forceinline__ void tile_range(const AttnArgs& a, int q0, int bq,
   *end = e;
 }
 
-__device__ __forceinline__ bool key_ok(const AttnArgs& a, int qp, int kp) {
-  bool ok = kp < a.Sk;
-  if (a.causal) ok = ok && kp <= qp;
-  if (a.window > 0) ok = ok && kp > qp - a.window;
-  return ok;
+// --------------------------------------------------------------- mbarrier
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// ------------------------------------------------------------- bf16 / mma
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t ok;
+  asm volatile(
+      "{\n .reg .pred p;\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      " selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok) : "r"(bar), "r"(parity) : "memory");
+  return ok != 0;
+}
+
+// Wait for the phase of `bar` with the given parity to complete. A wait
+// that outlasts ~2^32 cycles (seconds) can only be a broken protocol: trap,
+// so the launch fails with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(bar, parity)) {
+    if (clock64() - t0 > (1ll << 32)) __trap();
+  }
+}
+
+// TMA: a 4-d box of the tensor map into shared memory, completion counted
+// in bytes on `bar`.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// ------------------------------------------------------------------ wgmma
+
+// Shared-memory matrix descriptor, 128-byte swizzle. K-major tiles (Q, K):
+// rows of 128 bytes, 8-row groups 1024 bytes apart (SBO); LBO unused.
+// MN-major tiles (V as the B operand of P V): LBO is the distance between
+// 64-column panels, SBO between 8-key groups.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr,
+                                               uint32_t lbo_bytes,
+                                               uint32_t sbo_bytes) {
+  uint64_t d = 0;
+  d |= static_cast<uint64_t>((saddr & 0x3FFFF) >> 4);
+  d |= static_cast<uint64_t>((lbo_bytes >> 4) & 0x3FFF) << 16;
+  d |= static_cast<uint64_t>((sbo_bytes >> 4) & 0x3FFF) << 32;
+  d |= static_cast<uint64_t>(1) << 62;
+  return d;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep the compiler from moving reads or writes of accumulator registers
+// across the asynchronous wgmma (its asm does not name them at the wait).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define FA_R8(b)                                                          \
+  "+f"(d[b + 0]), "+f"(d[b + 1]), "+f"(d[b + 2]), "+f"(d[b + 3]),         \
+      "+f"(d[b + 4]), "+f"(d[b + 5]), "+f"(d[b + 6]), "+f"(d[b + 7])
+#define FA_R32 FA_R8(0), FA_R8(8), FA_R8(16), FA_R8(24)
+#define FA_R64 FA_R32, FA_R8(32), FA_R8(40), FA_R8(48), FA_R8(56)
+#define FA_D32                                                            \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31"
+#define FA_D64                                                            \
+  FA_D32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
+         "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, " \
+         "%57, %58, %59, %60, %61, %62, %63"
+
+// S (64 x 128, f32) = A (64 x 16, smem, K-major) * B (16 x 128, smem,
+// K-major) + (scale_d ? S : 0).
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" FA_D64
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : FA_R64
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// O (64 x 128, f32) += A (64 x 16, registers) * B (16 x 128, smem, MN-major).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                              const uint32_t* a,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" FA_D64
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : FA_R64
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// O (64 x 64, f32) += A (64 x 16, registers) * B (16 x 64, smem, MN-major).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" FA_D32
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : FA_R32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int DHP>
+__device__ __forceinline__ void wgmma_pv(float (&o)[DHP / 2],
+                                         const uint32_t* a, uint64_t db) {
+  if constexpr (DHP == 128) {
+    wgmma_rs_n128(o, a, db);
+  } else {
+    static_assert(DHP == 64, "DHP is 64 or 128");
+    wgmma_rs_n64(o, a, db);
+  }
+}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&p);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  __nv_bfloat162 p;
-  p.x = lo;
-  p.y = hi;
-  return *reinterpret_cast<uint32_t*>(&p);
-}
-
-// D = A(16x16, row) * B(16x8, col) + D, bf16 inputs, f32 accumulators.
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-constexpr int kBQ = 64;       // query rows per block (4 warps x 16)
-constexpr int kBK = 64;       // keys per tile
+// ----------------------------------------------------------------- kernel
 
 template <int DH>
-__global__ __launch_bounds__(128) void flash_fwd_bf16(AttnArgs a) {
-  constexpr int KPAD = DH + 8;      // smem row stride (elements)
-  constexpr int KS = DH / 16;       // k-steps over dh for S = Q K^T
-  constexpr int NT = kBK / 8;       // n-tiles of S per warp
-  constexpr int DT = DH / 8;        // n-tiles of O per warp
-  __shared__ __align__(16) __nv_bfloat16 Ks[kBK * KPAD];
-  __shared__ __align__(16) __nv_bfloat16 Vs[kBK * KPAD];
+struct Tile {
+  static constexpr int DHP = (DH + 63) / 64 * 64;   // dh padded in smem
+  static constexpr int NP = DHP / 64;               // 64-column panels
+  static constexpr int KSTEPS = (DH + 15) / 16;     // Q K^T k-steps
+  static constexpr int Q_PANEL = kBQ * 128;         // bytes per panel
+  static constexpr int KV_PANEL = kBK * 128;
+  static constexpr int Q_BYTES = NP * Q_PANEL;
+  static constexpr int KV_BYTES = NP * KV_PANEL;    // one K or V tile
+  // Q, then K and V per stage; barriers after; 1 KB of slack to align the
+  // base to the swizzle's 1024-byte pattern.
+  static constexpr int BAR_OFF = Q_BYTES + 2 * kStages * KV_BYTES;
+  static constexpr int SMEM = BAR_OFF + 8 * (1 + 4 * kStages) + 1024;
+};
 
-  const int bh = blockIdx.y;
-  const int b = bh / a.H, h = bh % a.H;
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Online softmax of one S tile in the log2 domain. Element e of sc is row
+// (e & 2 ? row1 : row0), key k0 + 8 (e / 4) + 2 t + (e & 1). The mask is
+// applied only when `edge`. Leaves the unnormalised P in sc, updates the row
+// maxima and this thread's share of the row sums, and returns in c0, c1 the
+// corrections O must take before P V is added.
+struct Rows {
+  int row0, row1, t;
+  float m0, m1, l0, l1;
+};
+
+__device__ __forceinline__ void softmax_tile(float (&sc)[kBK / 2], Rows& r,
+                                             const FwdArgs& a, int k0,
+                                             bool edge, float sl2, float& c0,
+                                             float& c1) {
+  if (edge) {
+#pragma unroll
+    for (int e = 0; e < kBK / 2; ++e) {
+      const int kp = k0 + 8 * (e / 4) + 2 * r.t + (e & 1);
+      const int qp = (e & 2) ? r.row1 : r.row0;
+      bool ok = kp < a.Sk;
+      if (a.causal) ok = ok && kp <= qp;
+      if (a.window > 0) ok = ok && kp > qp - a.window;
+      if (!ok) sc[e] = kNegInf;
+    }
+  }
+  float mx0 = r.m0, mx1 = r.m1;
+#pragma unroll
+  for (int e = 0; e < kBK / 2; e += 4) {
+    mx0 = fmaxf(mx0, fmaxf(sc[e], sc[e + 1]));
+    mx1 = fmaxf(mx1, fmaxf(sc[e + 2], sc[e + 3]));
+  }
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+  if (edge) {
+    // (s - m) first: a row masked so far has s = m = -1e30 and must gather
+    // exp(0) = 1 terms, as the reference does.
+    c0 = fast_exp2((r.m0 - mx0) * sl2);
+    c1 = fast_exp2((r.m1 - mx1) * sl2);
+#pragma unroll
+    for (int e = 0; e < kBK / 2; ++e)
+      sc[e] = fast_exp2((sc[e] - ((e & 2) ? mx1 : mx0)) * sl2);
+  } else {
+    // every key valid for every row: the row max is a real logit, so one
+    // fused multiply-add per element
+    const float b0 = mx0 * sl2, b1 = mx1 * sl2;
+    c0 = fast_exp2(fmaf(r.m0, sl2, -b0));
+    c1 = fast_exp2(fmaf(r.m1, sl2, -b1));
+#pragma unroll
+    for (int e = 0; e < kBK / 2; ++e)
+      sc[e] = fast_exp2(fmaf(sc[e], sl2, (e & 2) ? -b1 : -b0));
+  }
+  float ls0 = 0.f, ls1 = 0.f;
+#pragma unroll
+  for (int e = 0; e < kBK / 2; e += 4) {
+    ls0 += sc[e] + sc[e + 1];
+    ls1 += sc[e + 2] + sc[e + 3];
+  }
+  r.l0 = r.l0 * c0 + ls0;
+  r.l1 = r.l1 * c1 + ls1;
+  r.m0 = mx0;
+  r.m1 = mx1;
+}
+
+// P in bf16 as the register A fragments of P V, 16 keys each.
+__device__ __forceinline__ void pack_p(const float (&sc)[kBK / 2],
+                                       uint32_t (&pa)[kBK / 16][4]) {
+#pragma unroll
+  for (int j = 0; j < kBK / 16; ++j) {
+    pa[j][0] = pack_bf16(sc[8 * j + 0], sc[8 * j + 1]);
+    pa[j][1] = pack_bf16(sc[8 * j + 2], sc[8 * j + 3]);
+    pa[j][2] = pack_bf16(sc[8 * j + 4], sc[8 * j + 5]);
+    pa[j][3] = pack_bf16(sc[8 * j + 6], sc[8 * j + 7]);
+  }
+}
+
+// One block per (batch, head, q tile): flat index (b*H + h) * n_qtiles +
+// rank, so the blocks in flight together share their head's K and V in L2;
+// within a head the q tile is counted from the last in the causal case, so
+// the longest tiles start first. `flash_attention_block_tile` below calls
+// the same function on the host, for the tests.
+__host__ __device__ __forceinline__ void block_tile(unsigned block,
+                                                    int n_qtiles, int H,
+                                                    int causal, int* b,
+                                                    int* h, int* qt) {
+  const int bh = block / n_qtiles, rank = block % n_qtiles;
+  *qt = causal ? n_qtiles - 1 - rank : rank;
+  *b = bh / H;
+  *h = bh % H;
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v,
+                   const FwdArgs a) {
+  using T = Tile<DH>;
+  constexpr int DHP = T::DHP;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sq = (smem_u32(smem_raw) + 1023u) & ~1023u;   // Q panels
+  const uint32_t bars = sq + T::BAR_OFF;
+  const uint32_t q_full = bars;
+  // per stage: K and V landed (TMA bytes), K and V free again (consumers)
+  auto full_k = [&](int s) { return bars + 8u * (1 + s); };
+  auto full_v = [&](int s) { return bars + 8u * (1 + kStages + s); };
+  auto empty_k = [&](int s) { return bars + 8u * (1 + 2 * kStages + s); };
+  auto empty_v = [&](int s) { return bars + 8u * (1 + 3 * kStages + s); };
+  auto k_tile = [&](int s) {
+    return sq + T::Q_BYTES + static_cast<uint32_t>(s) * 2 * T::KV_BYTES;
+  };
+
+  int b, h, qt;
+  block_tile(blockIdx.x, a.n_qtiles, a.H, a.causal, &b, &h, &qt);
   const int kvh = h / (a.H / a.KV);
-  const int q0 = blockIdx.x * kBQ;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const __nv_bfloat16* Q =
-      static_cast<const __nv_bfloat16*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const __nv_bfloat16* K =
-      static_cast<const __nv_bfloat16*>(a.k) + b * a.k_sb + kvh * a.k_sh;
-  const __nv_bfloat16* V =
-      static_cast<const __nv_bfloat16*>(a.v) + b * a.v_sb + kvh * a.v_sh;
+  const int q0 = qt * kBQ;
+  int kt0, kt1;
+  tile_range(a, q0, kBQ, kBK, &kt0, &kt1);
+  const int n_tiles = max(kt1 - kt0, 0);
 
-  const int qp0 = q0 + warp * 16 + g, qp1 = qp0 + 8;
-  uint32_t qa[KS][4];
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    const uint32_t* r0 =
-        reinterpret_cast<const uint32_t*>(Q + (long long)qp0 * a.q_ss + c);
-    const uint32_t* r1 =
-        reinterpret_cast<const uint32_t*>(Q + (long long)qp1 * a.q_ss + c);
-    qa[kk][0] = qp0 < a.Sq ? r0[0] : 0u;
-    qa[kk][1] = qp1 < a.Sq ? r1[0] : 0u;
-    qa[kk][2] = qp0 < a.Sq ? r0[4] : 0u;      // columns c + 8, c + 9
-    qa[kk][3] = qp1 < a.Sq ? r1[4] : 0u;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full_k(s), 1);
+      mbar_init(full_v(s), 1);
+      mbar_init(empty_k(s), 2 * 128);     // every consumer thread arrives
+      mbar_init(empty_v(s), 2 * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  float o[DT][4];
+  if (threadIdx.x < 128) {
+    // ------------------------------------------------------- producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, T::Q_BYTES);
 #pragma unroll
-  for (int i = 0; i < DT; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
-  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
-
-  int kt_begin, kt_end;
-  tile_range(a, q0, kBQ, kBK, &kt_begin, &kt_end);
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();                      // previous tile fully consumed
-    constexpr int CPR = DH / 8;           // 16-byte chunks per row
-    for (int i = threadIdx.x; i < kBK * CPR; i += 128) {
-      const int r = i / CPR, c = (i % CPR) * 8;
-      uint4 kv4 = make_uint4(0, 0, 0, 0), vv4 = make_uint4(0, 0, 0, 0);
-      if (k0 + r < a.Sk) {
-        kv4 = *reinterpret_cast<const uint4*>(K + (long long)(k0 + r) * a.k_ss
-                                              + c);
-        vv4 = *reinterpret_cast<const uint4*>(V + (long long)(k0 + r) * a.v_ss
-                                              + c);
-      }
-      *reinterpret_cast<uint4*>(&Ks[r * KPAD + c]) = kv4;
-      *reinterpret_cast<uint4*>(&Vs[r * KPAD + c]) = vv4;
-    }
-    __syncthreads();
-
-    float s[NT][4];
+      for (int p = 0; p < T::NP; ++p)
+        tma_load_4d(sq + p * T::Q_PANEL, &tm_q, q_full, 64 * p, h, q0, b);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % kStages;
+        const uint32_t par = (i / kStages) & 1;
+        const int k0 = (kt0 + i) * kBK;
+        const uint32_t ks = k_tile(s), vs = ks + T::KV_BYTES;
+        mbar_wait(empty_k(s), par ^ 1);   // a fresh barrier passes parity 1
+        mbar_expect_tx(full_k(s), T::KV_BYTES);
 #pragma unroll
-    for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+        for (int p = 0; p < T::NP; ++p)
+          tma_load_4d(ks + p * T::KV_PANEL, &tm_k, full_k(s), 64 * p, kvh,
+                      k0, b);
+        mbar_wait(empty_v(s), par ^ 1);
+        mbar_expect_tx(full_v(s), T::KV_BYTES);
 #pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        const __nv_bfloat16* kp = &Ks[(n * 8 + g) * KPAD + kk * 16 + 2 * t];
-        mma_bf16(s[n], qa[kk], *reinterpret_cast<const uint32_t*>(kp),
-                 *reinterpret_cast<const uint32_t*>(kp + 8));
+        for (int p = 0; p < T::NP; ++p)
+          tma_load_4d(vs + p * T::KV_PANEL, &tm_v, full_v(s), 64 * p, kvh,
+                      k0, b);
       }
     }
+  } else {
+    // ------------------------------------------------------- consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int cw = (threadIdx.x - 128) / 128;   // consumer warpgroup 0 / 1
+    const int lt = threadIdx.x % 128;
+    const int warp = lt / 32, lane = lt % 32;
+    const int r_lo = q0 + cw * 64;               // this warpgroup's rows
+    const int r_hi = min(r_lo + 63, a.Sq - 1);
+    Rows r;
+    r.row0 = r_lo + warp * 16 + (lane >> 2);
+    r.row1 = r.row0 + 8;
+    r.t = lane & 3;
+    r.m0 = r.m1 = kNegInf;
+    r.l0 = r.l1 = 0.f;
+    const float sl2 = a.scale_log2;
+    const uint32_t qa = sq + cw * 64 * 128;      // its 64 rows of Q
 
-    float mx0 = m0, mx1 = m1;
+    // Does key tile k0 need the mask for this warpgroup's rows?
+    auto edge_tile = [&](int k0) {
+      return k0 + kBK > a.Sk || (a.causal && k0 + kBK - 1 > r_lo) ||
+             (a.window > 0 && k0 <= r_hi - a.window);
+    };
+    // S = Q K^T of stage s, issued asynchronously
+    auto issue_qk = [&](float (&sc)[kBK / 2], int s) {
+      const uint32_t ks = k_tile(s);
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kp = k0 + n * 8 + 2 * t + (e & 1);
-        const int qp = e < 2 ? qp0 : qp1;
-        s[n][e] = key_ok(a, qp, kp) ? s[n][e] * a.scale : kNegInf;
+      for (int kk = 0; kk < T::KSTEPS; ++kk) {
+        const uint32_t off = (kk % 4) * 32;      // 16 columns = 32 bytes
+        wgmma_ss_n128(sc,
+                      sw128_desc(qa + (kk / 4) * T::Q_PANEL + off, 16, 1024),
+                      sw128_desc(ks + (kk / 4) * T::KV_PANEL + off, 16, 1024),
+                      kk > 0);
       }
-      mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
-    }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    const float c0 = __expf(m0 - mx0), c1 = __expf(m1 - mx1);
-    float ls0 = 0.f, ls1 = 0.f;
+    };
+    // O += P V of stage s, V as the MN-major B operand
+    auto issue_pv = [&](float (&o)[DHP / 2], uint32_t (&pa)[kBK / 16][4],
+                        int s) {
+      const uint32_t vs = k_tile(s) + T::KV_BYTES;
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      s[n][0] = __expf(s[n][0] - mx0);
-      s[n][1] = __expf(s[n][1] - mx0);
-      s[n][2] = __expf(s[n][2] - mx1);
-      s[n][3] = __expf(s[n][3] - mx1);
-      ls0 += s[n][0] + s[n][1];
-      ls1 += s[n][2] + s[n][3];
-    }
-    l0 = l0 * c0 + ls0;                   // this thread's share of the row
-    l1 = l1 * c1 + ls1;
-    m0 = mx0;
-    m1 = mx1;
-#pragma unroll
-    for (int i = 0; i < DT; ++i) {
-      o[i][0] *= c0;
-      o[i][1] *= c0;
-      o[i][2] *= c1;
-      o[i][3] *= c1;
-    }
-#pragma unroll
-    for (int j = 0; j < kBK / 16; ++j) {
-      uint32_t pa[4] = {pack_bf16(s[2 * j][0], s[2 * j][1]),
-                        pack_bf16(s[2 * j][2], s[2 * j][3]),
-                        pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
-                        pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
-#pragma unroll
-      for (int i = 0; i < DT; ++i) {
-        const __nv_bfloat16* vp = &Vs[(16 * j + 2 * t) * KPAD + i * 8 + g];
-        mma_bf16(o[i], pa, pack_bf16(vp[0], vp[KPAD]),
-                 pack_bf16(vp[8 * KPAD], vp[9 * KPAD]));
-      }
-    }
-  }
+      for (int j = 0; j < kBK / 16; ++j)
+        wgmma_pv<DHP>(o, pa[j],
+                      sw128_desc(vs + j * 16 * 128, T::KV_PANEL, 1024));
+    };
 
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
-  __nv_bfloat16* O =
-      static_cast<__nv_bfloat16*>(a.o) + b * a.o_sb + h * a.o_sh;
+    float o[DHP / 2];
 #pragma unroll
-  for (int i = 0; i < DT; ++i) {
-    const int c = i * 8 + 2 * t;
-    if (qp0 < a.Sq)
-      *reinterpret_cast<uint32_t*>(O + (long long)qp0 * a.o_ss + c) =
-          pack_bf16(o[i][0] * inv0, o[i][1] * inv0);
-    if (qp1 < a.Sq)
-      *reinterpret_cast<uint32_t*>(O + (long long)qp1 * a.o_ss + c) =
-          pack_bf16(o[i][2] * inv1, o[i][3] * inv1);
+    for (int e = 0; e < DHP / 2; ++e) o[e] = 0.f;
+    float sc[kBK / 2];
+    uint32_t pa[kBK / 16][4];
+    float c0, c1;
+
+    mbar_wait(q_full, 0);
+    for (int i = 0; i < n_tiles; ++i) {
+      const int s = i % kStages;
+      const uint32_t par = (i / kStages) & 1;
+      const int k0 = (kt0 + i) * kBK;
+      mbar_wait(full_k(s), par);
+      wgmma_fence();
+      issue_qk(sc, s);
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(sc);
+      mbar_arrive(empty_k(s));            // K may be refilled already
+      softmax_tile(sc, r, a, k0, edge_tile(k0), sl2, c0, c1);
+      pack_p(sc, pa);
+      if (c0 != 1.f || c1 != 1.f) {       // a row max moved: rescale O
+#pragma unroll
+        for (int e = 0; e < DHP / 2; ++e) o[e] *= (e & 2) ? c1 : c0;
+      }
+      mbar_wait(full_v(s), par);
+      fence_regs(o);
+      wgmma_fence();
+      issue_pv(o, pa, s);
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(o);
+      mbar_arrive(empty_v(s));
+    }
+
+    float l0 = r.l0, l1 = r.l1;
+    const int row0 = r.row0, row1 = r.row1, t = r.t;
+
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+    l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+    const float inv0 = 1.f / fmaxf(l0, 1e-30f);
+    const float inv1 = 1.f / fmaxf(l1, 1e-30f);
+    __nv_bfloat16* O = static_cast<__nv_bfloat16*>(a.o) + b * a.o_sb +
+                       h * a.o_sh;
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j) {    // columns past dh are padding
+      const int c = 8 * j + 2 * t;
+      if (row0 < a.Sq)
+        *reinterpret_cast<uint32_t*>(O + row0 * a.o_ss + c) =
+            pack_bf16(o[4 * j] * inv0, o[4 * j + 1] * inv0);
+      if (row1 < a.Sq)
+        *reinterpret_cast<uint32_t*>(O + row1 * a.o_ss + c) =
+            pack_bf16(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
+    }
   }
 }
 
+// ------------------------------------------------------------------- host
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver through the runtime, so the library
+// needs no -lcuda.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &res);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                            cudaEnableDefault, &res);
+#endif
+    if (e == cudaSuccess && res == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
 template <int DH>
-cudaError_t launch(const AttnArgs& a, int BH, cudaStream_t s) {
-  dim3 grid((a.Sq + kBQ - 1) / kBQ, BH);
-  flash_fwd_bf16<DH><<<grid, 128, 0, s>>>(a);
+cudaError_t launch(const CUtensorMap* maps, const FwdArgs& a, int blocks,
+                   cudaStream_t s) {
+  using T = Tile<DH>;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_sm90<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      T::SMEM);
+  if (e != cudaSuccess) return e;
+  flash_fwd_sm90<DH><<<blocks, kThreads, T::SMEM, s>>>(maps[0], maps[1],
+                                                        maps[2], a);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q, k, v, out as described above, all bfloat16; strides in elements. The
-// caller guarantees 16-byte aligned rows (strides and base pointers multiple
-// of 8 elements). Returns a cudaError_t (0 on a clean launch).
+// Error codes besides cudaError_t values: the driver has no tensor-map
+// encoder; or encoding map q, k or v failed.
+enum { kErrNoEncoder = -1, kErrEncodeQ = -2, kErrEncodeK = -3,
+       kErrEncodeV = -4 };
+
+// q, k, v, out bfloat16 as described above. `maps` holds 11 values for each
+// of q, k and v in turn: dims (dh, heads, S, B) in elements, strides of
+// heads, S and B in bytes, and the box (64, 1, rows, 1). out is written
+// through element strides. Returns 0 on a clean launch, a cudaError_t, or
+// one of the codes above.
 extern "C" int flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, int B, int Sq,
-    int Sk, int H, int KV, int dh, long long q_sb, long long q_ss,
-    long long q_sh, long long k_sb, long long k_ss, long long k_sh,
-    long long v_sb, long long v_ss, long long v_sh, long long o_sb,
-    long long o_ss, long long o_sh, int causal, int window, float scale,
-    void* stream) {
-  if (B <= 0 || Sq <= 0 || Sk <= 0 || KV <= 0 || H % KV != 0 ||
-      (long long)B * H > 65535)
+    const void* q, const void* k, const void* v, void* o,
+    const unsigned long long* maps, int B, int Sq, int Sk, int H, int KV,
+    int dh, long long o_sb, long long o_ss, long long o_sh, int causal,
+    int window, float scale, void* stream) {
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || KV <= 0 || H % KV != 0)
     return (int)cudaErrorInvalidValue;
-  AttnArgs a{q,    k,    v,    o,    Sq,   Sk,     H,      KV,
-             q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,   v_sb,   v_ss,
-             v_sh, o_sb, o_ss, o_sh, causal, window, scale};
+  const int rows[3] = {kBQ, kBK, kBK};
+  for (int i = 0; i < 3; ++i) {
+    const unsigned long long* m = maps + 11 * i;
+    if (m[0] != (unsigned long long)dh || m[7] != 64 || m[8] != 1 ||
+        m[9] != (unsigned long long)rows[i] || m[10] != 1)
+      return (int)cudaErrorInvalidValue;
+  }
+  const long long n_qtiles = (Sq + kBQ - 1) / kBQ;
+  const long long blocks = n_qtiles * B * H;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return kErrNoEncoder;
+  CUtensorMap tm[3];
+  const void* ptrs[3] = {q, k, v};
+  for (int i = 0; i < 3; ++i) {
+    const unsigned long long* m = maps + 11 * i;
+    const cuuint64_t dims[4] = {m[0], m[1], m[2], m[3]};
+    const cuuint64_t strides[3] = {m[4], m[5], m[6]};
+    const cuuint32_t box[4] = {(cuuint32_t)m[7], (cuuint32_t)m[8],
+                               (cuuint32_t)m[9], (cuuint32_t)m[10]};
+    const cuuint32_t unit[4] = {1, 1, 1, 1};
+    if (enc(&tm[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+            const_cast<void*>(ptrs[i]), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return kErrEncodeQ - i;
+  }
+  FwdArgs a{o,  o_sb,   o_ss,   o_sh,          B,
+            Sq, Sk,     H,      KV,            causal,
+            window, (int)n_qtiles, scale * kLog2e};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dh) {
-    case 32: return (int)launch<32>(a, B * H, s);
-    case 64: return (int)launch<64>(a, B * H, s);
-    case 96: return (int)launch<96>(a, B * H, s);
-    case 112: return (int)launch<112>(a, B * H, s);
-    case 128: return (int)launch<128>(a, B * H, s);
+    case 32: return (int)launch<32>(tm, a, (int)blocks, s);
+    case 64: return (int)launch<64>(tm, a, (int)blocks, s);
+    case 96: return (int)launch<96>(tm, a, (int)blocks, s);
+    case 112: return (int)launch<112>(tm, a, (int)blocks, s);
+    case 128: return (int)launch<128>(tm, a, (int)blocks, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The kernel's tiles as compiled: query rows per block, keys per tile and
+// depth of the K/V ring.
+extern "C" void flash_attention_tiles(int* out) {
+  out[0] = kBQ;
+  out[1] = kBK;
+  out[2] = kStages;
+}
+
+// (batch, head, q tile) that block `block` of a launch with these
+// parameters computes, as the kernel decodes it.
+extern "C" void flash_attention_block_tile(unsigned block, int n_qtiles,
+                                           int H, int causal, int* out) {
+  block_tile(block, n_qtiles, H, causal, out, out + 1, out + 2);
 }

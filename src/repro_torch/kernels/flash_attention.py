@@ -3,13 +3,22 @@ kernel and its plain version.
 
 `flash_attention_cuda` launches `csrc/flash_attention.cu`, the counterpart
 of the TPU kernel `flash_attention_pallas`, for bfloat16 inputs (the
-serving engine's dtype) on the tensor cores (mma.sync, float32
-accumulation); it raises on float32, which no path on the card sends. It
-reads the model layout (B, S, heads, dh) in place through strides and
-writes a contiguous bfloat16 (B, Sq, H, dh) output. The
-plain version is `models.attention.chunked_attention`, the online-softmax
-recurrence in PyTorch. The public entry point is
+serving engine's dtype); it raises on float32, which no path on the card
+sends. The kernel is written for Hopper: TMA loads q, k and v through
+tensor maps into a shared-memory ring that one producer warpgroup keeps
+filled, and two consumer warpgroups run `wgmma` for Q K^T and P V with the
+softmax in between (float32). It reads the model layout (B, S, heads, dh)
+in place through strides and writes a contiguous bfloat16 (B, Sq, H, dh)
+output. The plain version is `models.attention.chunked_attention`, the
+online-softmax recurrence in PyTorch. The public entry point is
 `kernels.ops.flash_attention`, which picks one by the tensor's device.
+
+What the kernel is told lives in plain functions on shapes and strides, so
+that the CPU tests reach it: `tensor_map` (dims, strides in bytes and box
+of each TMA map), `padded_head_dim` and `check_inputs` (what the kernel
+refuses). What the kernel decides itself, its ring depth and which (batch,
+head, q tile) each block takes, is read from the built library
+(`kernel_tiles`, `block_tile`).
 """
 from __future__ import annotations
 
@@ -26,6 +35,16 @@ SOURCES = ("flash_attention.cu",)
 # zamba2-7b, 128 for yi / qwen / granite), the reference sweep's 64 and 96,
 # and 32, the reduced `smoke_config` models' (the serve CLI on a card).
 HEAD_DIMS = (32, 64, 96, 112, 128)
+# The rows of the kernel's TMA boxes (csrc/flash_attention.cu: kBQ, kBK;
+# its entry point refuses maps with other boxes): 128 query rows per block
+# (64 per consumer warpgroup), 128 keys per tile. A box is PANEL columns
+# wide: 128 bytes of bfloat16, the width of the 128-byte swizzle.
+BLOCK_Q, BLOCK_K, PANEL = 128, 128, 64
+ELEM_BYTES = 2
+_ERRORS = {-1: "the driver has no cuTensorMapEncodeTiled",
+           -2: "encoding the tensor map of q failed",
+           -3: "encoding the tensor map of k failed",
+           -4: "encoding the tensor map of v failed"}
 
 # Launches of the CUDA kernel; the plain version never counts.
 launches = {"flash_attention": 0}
@@ -39,40 +58,94 @@ def reset_launches() -> None:
 flash_attention_plain = chunked_attention
 
 
+def _library():
+    return load_library("flash_attention", SOURCES, MODEL_NVCC_FLAGS)
+
+
 def _kernel_lib():
-    fn = load_library("flash_attention", SOURCES,
-                      MODEL_NVCC_FLAGS).flash_attention_fwd
+    fn = _library().flash_attention_fwd
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [P, P, P, P, I, I, I, I, I, I] + [L] * 12 + [
-        I, I, ctypes.c_float, P]
+    fn.argtypes = [P, P, P, P, ctypes.POINTER(ctypes.c_ulonglong)] + [
+        I] * 6 + [L] * 3 + [I, I, ctypes.c_float, P]
     fn.restype = I
     return fn
 
 
+def padded_head_dim(dh: int) -> int:
+    """dh as the kernel holds it in shared memory: the next multiple of the
+    64-column TMA box (112 and 96 -> 128, 32 -> 64). Nothing is padded in
+    device memory; the box's out-of-bounds fill gives the zeros."""
+    return -(-dh // PANEL) * PANEL
+
+
 def kernel_takes_strides(*tensors) -> bool:
     """True when the kernel can read these bfloat16 tensors in place: unit
-    stride on dh, and other strides and base pointers 16-byte aligned (the
-    tile loads are 16 bytes wide)."""
+    stride on dh, base pointers 16-byte aligned and the other strides
+    positive multiples of 16 bytes where their extent exceeds 1 (what a
+    TMA tensor map takes)."""
     for t in tensors:
-        if t.stride(-1) != 1 or t.data_ptr() % 16 or any(
-                s % 8 for s in t.stride()[:-1]):
+        if t.stride(-1) != 1 or t.data_ptr() % 16:
             return False
+        for n, s in zip(t.shape[:-1], t.stride()[:-1]):
+            if n > 1 and (s <= 0 or s % 8):
+                return False
     return True
 
 
-def flash_attention_cuda(q, k, v, *, causal=True, window=0):
-    """q: (B, Sq, H, dh); k, v: (B, Sk, KV, dh); CUDA bfloat16, dh in
-    HEAD_DIMS, H % KV == 0, strides the kernel takes
-    (`kernel_takes_strides`). Scale 1/sqrt(dh). Returns (B, Sq, H, dh)."""
-    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
-        raise ValueError("flash_attention_cuda takes CUDA tensors on one "
-                         "device")
+def tensor_map(shape, strides, rows: int):
+    """The TMA map of one (B, S, heads, dh) tensor with these element
+    strides: dims (dh, heads, S, B) innermost first, the strides of heads,
+    S and B in bytes, and the box (PANEL, 1, rows, 1). A dim of extent 1 is
+    only read at 0, so its stride is replaced by the packed one (TMA wants
+    a positive multiple of 16 bytes)."""
+    b, s, h, dh = shape
+    dims = (dh, h, s, b)
+    out, packed = [], dh * ELEM_BYTES
+    for n, st in zip((h, s, b), (strides[2], strides[1], strides[0])):
+        nbytes = st * ELEM_BYTES if n > 1 else -(-packed // 16) * 16
+        out.append(nbytes)
+        packed = n * nbytes
+    return dims, tuple(out), (PANEL, 1, rows, 1)
+
+
+def tensor_maps(q, k, v) -> list[int]:
+    """The 33 values the C entry point encodes its three maps from: for
+    each of q, k, v its dims, strides in bytes and box (`tensor_map`)."""
+    flat = []
+    for t, rows in ((q, BLOCK_Q), (k, BLOCK_K), (v, BLOCK_K)):
+        for part in tensor_map(tuple(t.shape), t.stride(), rows):
+            flat.extend(part)
+    return flat
+
+
+def kernel_tiles() -> dict:
+    """The built kernel's tiles: query rows per block, keys per tile and
+    the depth of its K/V ring (needs nvcc)."""
+    out = (ctypes.c_int * 3)()
+    _library().flash_attention_tiles(out)
+    return {"block_q": out[0], "block_k": out[1], "stages": out[2]}
+
+
+def block_tile(block: int, n_qtiles: int, h: int, causal: bool):
+    """(batch, head, q tile) that block `block` computes, as the built
+    kernel decodes its flat index (needs nvcc)."""
+    out = (ctypes.c_int * 3)()
+    _library().flash_attention_block_tile(block, n_qtiles, h, int(causal),
+                                          out)
+    return tuple(out)
+
+
+def check_inputs(q, k, v) -> None:
+    """Raise ValueError on what the kernel does not take: shapes other than
+    q (B, Sq, H, dh), k/v (B, Sk, KV, dh) with H % KV == 0; dh outside
+    HEAD_DIMS; any dtype but bfloat16; strides `kernel_takes_strides`
+    refuses."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"flash_attention_cuda: q (B, Sq, H, dh), k/v (B, "
                          f"Sk, KV, dh); got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
-    b, sq, h, dh = q.shape
-    _, sk, kv, _ = k.shape
+    b, _, h, dh = q.shape
+    kv = k.shape[2]
     if k.shape[0] != b or k.shape[3] != dh or kv == 0 or h % kv:
         raise ValueError(f"flash_attention_cuda: incompatible shapes "
                          f"{tuple(q.shape)} and {tuple(k.shape)}")
@@ -85,23 +158,30 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=0):
     if not kernel_takes_strides(q, k, v):
         raise ValueError("flash_attention_cuda: strides or alignment the "
                          "kernel does not take (see kernel_takes_strides)")
-    if b * h > 65535:
-        raise ValueError(f"flash_attention_cuda: B*H = {b * h} > 65535")
+
+
+def flash_attention_cuda(q, k, v, *, causal=True, window=0):
+    """q: (B, Sq, H, dh); k, v: (B, Sk, KV, dh); CUDA bfloat16 that
+    `check_inputs` accepts. Scale 1/sqrt(dh). Returns (B, Sq, H, dh)."""
+    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+        raise ValueError("flash_attention_cuda takes CUDA tensors on one "
+                         "device")
+    check_inputs(q, k, v)
+    b, sq, h, dh = q.shape
+    _, sk, kv, _ = k.shape
     out = torch.empty((b, sq, h, dh), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
+    maps = (ctypes.c_ulonglong * 33)(*tensor_maps(q, k, v))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _kernel_lib()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), maps,
             b, sq, sk, h, kv, dh,
-            q.stride(0), q.stride(1), q.stride(2),
-            k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2),
             out.stride(0), out.stride(1), out.stride(2),
             int(bool(causal)), int(window), 1.0 / math.sqrt(dh), stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error "
-                           f"{rc}")
+        raise RuntimeError(f"flash_attention_fwd launch failed: "
+                           f"{_ERRORS.get(rc, f'CUDA error {rc}')}")
     launches["flash_attention"] += 1
     return out

@@ -40,8 +40,9 @@ def flash_attention(q, k, v, *, causal=True, window=0,
     `block_q`/`block_k` are the reference's tile sizes (on the TPU; the
     model passes `cfg.attn_chunk_q`/`attn_chunk_k`, 1024 at full width).
     The CPU route uses them as its chunk sizes; the CUDA kernel ignores
-    them and tiles by its own 64 x 64. On the card it takes bfloat16 only
-    (the serving engine's dtype) and raises on float32."""
+    them and tiles by its own 128 query rows x 128 keys. On the card it
+    takes bfloat16 only (the serving engine's dtype) and raises on
+    float32."""
     if not _on_card(q):
         return chunked_attention(q, k, v, causal=causal, window=window,
                                  chunk_q=block_q, chunk_k=block_k)

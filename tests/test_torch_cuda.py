@@ -161,10 +161,16 @@ def _rand(rng, shape, dtype, dev):
 
 @pytest.mark.parametrize("b,s,h,kv,dh", [
     (1, 128, 4, 4, 128), (2, 200, 8, 2, 96), (2, 300, 6, 1, 64),
-    (1, 64, 4, 2, 112), (1, 333, 2, 2, 32)])
-@pytest.mark.parametrize("window", [0, 50])
+    (1, 64, 4, 2, 112), (1, 333, 2, 2, 32),
+    # the Hopper design's edges: S not a multiple of its 128-row / 128-key
+    # tiles, the padded-box head dims 112 and 96, GQA ratios 1, 4 and 8
+    (1, 1000, 4, 4, 112), (2, 333, 8, 2, 112), (1, 200, 8, 1, 96),
+    (1, 1000, 8, 1, 128)])
+@pytest.mark.parametrize("window", [0, 50, 130])
 def test_flash_attention_kernel_matches_plain_version(cuda, b, s, h, kv, dh,
                                                       window):
+    """Windows smaller than a key tile (50) and not a multiple of it
+    (130)."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels.ref import flash_attention_ref
     dt = torch.bfloat16
@@ -182,6 +188,45 @@ def test_flash_attention_kernel_matches_plain_version(cuda, b, s, h, kv, dh,
     for other in (plain, ref):
         torch.testing.assert_close(out.float(), other.float(), atol=2e-2,
                                    rtol=2e-2)
+
+
+@pytest.mark.parametrize("b,h,sq", [(1, 1, 1), (2, 3, 300), (1, 4, 1024),
+                                    (3, 2, 129), (129, 512, 40)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_blocks_cover_every_tile_once(cuda, b, h, sq,
+                                                      causal):
+    """The built kernel's block order: every (batch, head, q tile) once,
+    one head's q tiles together (they share its K and V in L2), the
+    longest causal tile first; its tiles are the wrapper's TMA boxes."""
+    from repro_torch.kernels import flash_attention as FA
+    tiles = FA.kernel_tiles()
+    assert (tiles["block_q"], tiles["block_k"]) == (FA.BLOCK_Q, FA.BLOCK_K)
+    assert tiles["stages"] >= 2
+    nq = -(-sq // FA.BLOCK_Q)
+    order = [FA.block_tile(i, nq, h, causal) for i in range(b * h * nq)]
+    assert sorted(order) == sorted((i, j, t) for i in range(b)
+                                   for j in range(h) for t in range(nq))
+    for start in range(0, len(order), nq):
+        assert len({o[:2] for o in order[start:start + nq]}) == 1
+        qt = [o[2] for o in order[start:start + nq]]
+        assert qt == (sorted(qt, reverse=True) if causal else sorted(qt))
+
+
+def test_flash_attention_kernel_takes_more_than_65535_heads(cuda):
+    """B*H = 66,048 blocks' worth of heads, which the earlier grid (B*H on
+    blockIdx.y) refused; small S, dh 32."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels.ref import flash_attention_ref
+    rng = np.random.default_rng(7)
+    b, s, h, kv, dh = 129, 40, 512, 128, 32
+    q = _rand(rng, (b, s, h, dh), torch.bfloat16, cuda)
+    k = _rand(rng, (b, s, kv, dh), torch.bfloat16, cuda)
+    v = _rand(rng, (b, s, kv, dh), torch.bfloat16, cuda)
+    out = FA.flash_attention_cuda(q, k, v, causal=True, window=0)
+    ref = flash_attention_ref(q, k, v, causal=True, window=0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
+                               rtol=2e-2)
 
 
 def test_flash_attention_kernel_reads_strided_views(cuda):

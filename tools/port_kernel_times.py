@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the port's SSD-scan kernel, its GrIn grid solve and zamba2-7b
-prefill from any checkout of the repository, on chip_smoke.py's inputs and
+"""Time the port's flash-attention and SSD-scan kernels, its GrIn grid
+solve and zamba2-7b prefill from any checkout of the repository, on chip_smoke.py's inputs and
 with its timer, so that two versions can be compared in one run on one
 NVIDIA GPU:
 
@@ -10,7 +10,10 @@ NVIDIA GPU:
 It imports `repro_torch` from ROOT/src (building that tree's kernels) and
 this tree's `chip_smoke.py` for the shapes, seeds, input makers and
 `cuda_ms`, and calls only entry points every version of the port has:
-`kernels.ssd_scan.ssd_scan_cuda` on the smoke's serving-shape SSD inputs,
+`kernels.flash_attention.flash_attention_cuda` on the smoke's serving
+call (B = 4, S = 8192, H = KV = 32, dh = 112, window 4096) and its causal
+B = 1 case, `kernels.ssd_scan.ssd_scan_cuda` on the smoke's serving-shape
+SSD inputs,
 `sched.solve_targets_grid_torch` on the smoke's 64 x 64 max-x grid, and
 `ServeEngine.prefill` of the smoke's model and prompts. Prints the card's
 name and power limit, then one JSON line. Imports nothing of JAX.
@@ -52,10 +55,17 @@ def _wall(fn, reps):
 def measure(sm, dev, reps):
     import torch
     from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ssd_scan as SSD
     from repro_torch.models.model import Model
     from repro_torch.sched import solve_targets_grid_torch
     from repro_torch.serve.engine import ServeEngine
+    flash = {}
+    for name, b, win in (("window_b4", sm.SERVE_B, 4096), ("causal_b1", 1, 0)):
+        q, k, v = sm._attn_inputs(dev, 100, b, sm.SERVE_S, 32, 32, 112)
+        flash[name] = sm.cuda_ms(lambda: FA.flash_attention_cuda(
+            q, k, v, window=win), iters=10 * reps)
+        del q, k, v
     q, k, v, la, beta = sm.ssd_inputs(dev, 200, sm.SERVE_B, sm.SERVE_S, 112,
                                       64)
     ssd = sm.cuda_ms(lambda: SSD.ssd_scan_cuda(q, k, v, la, beta,
@@ -81,7 +91,9 @@ def measure(sm, dev, reps):
         if not bool(torch.isfinite(engine.prefill({"tokens": toks})[0])
                     .all()):
             raise AssertionError("prefill logits not finite")
-    return {"ssd_ms": ssd, "grid_64x64_max_x_s": _wall(grid, reps),
+    return {"flash_window_b4_ms": flash["window_b4"],
+            "flash_causal_b1_ms": flash["causal_b1"], "ssd_ms": ssd,
+            "grid_64x64_max_x_s": _wall(grid, reps),
             "prefill_s": _wall(prefill, reps)}
 
 
