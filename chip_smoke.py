@@ -12,11 +12,15 @@ the port's paths through the entry points a user calls, each with the
 launch counts set to 0 just before it and read just after:
 
   * scheduling — the batched GrIn target solver on (mu x mix) grids, a
-    `SchedulerCore` routing bursts and pricing elastic what-ifs, and the
+    `SchedulerCore` routing bursts and pricing elastic what-ifs, the
     batched closed-network engine comparing policies on the paper's Fig. 9
-    workload (the fused GrIn solve kernel: one launch per grid solve; the
-    per-step block-move scorer kernel is off this path and held against
-    its plain version in the kernel phase only);
+    workload, and the priority classes: GrIn-P target grids on
+    class-weighted rows and the priority benchmark's two-class workload
+    under PS, PRIO and FCFS (the fused GrIn solve kernel: one launch per
+    grid solve; the per-step block-move scorer kernel is off this path and
+    held against its plain version in the kernel phase only). The engine
+    runs are held to the port's own host event core, run in a pool of
+    host processes;
   * serving — zamba2-7b at full width and depth (81 Mamba2 layers, a shared
     attention block applied 13 times, d_model 3584; random weights from a
     seed) in a `ServeEngine`: 4 prompts of 8192 tokens and 64 greedy decode
@@ -36,6 +40,8 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import multiprocessing
+import os
 import subprocess
 import sys
 import time
@@ -105,6 +111,31 @@ def device_busy(fn) -> dict:
             "busy_share": (total / wall) if total else None,
             "top": [{"kernel": k[:80], "device_s": us / 1e6, "calls": n}
                     for k, us, n in top if us > 0]}
+
+
+def host_run(job):
+    """One run of the port's host event core: job = (SimConfig, policy).
+    The loop, its routing and its target solves are host float64 code;
+    the core never touches the card (device "cpu"), so this runs in a pool
+    of host processes beside the card's work."""
+    from repro_torch.sim import ClosedNetworkSimulator
+    cfg, policy = job
+    return ClosedNetworkSimulator(cfg, device="cpu").run(policy)
+
+
+def host_grin_p(job):
+    """Weighted X of the host float64 GrIn-P: job = (mu, class mixes,
+    weights)."""
+    from repro_torch.core.priority import grin_priority_solve
+    return grin_priority_solve(*job).weighted_x
+
+
+def host_map(pool, fn, jobs):
+    """fn over jobs in the host pool (in order), or here without one."""
+    jobs = list(jobs)
+    if pool is None:
+        return [fn(j) for j in jobs]
+    return pool.map(fn, jobs, chunksize=1)
 
 
 def skewed_grid(seed: int, G: int, M: int, k: int, l: int, n: int):
@@ -317,18 +348,19 @@ def _ulps_from(base, thr):
     return (base.double() - thr.double()).abs() / ulp.double()
 
 
-def threshold_margin_ulps(mu_b, mix_b, objective, dev):
+def threshold_margin_ulps(mu_b, mix_b, objective, dev, P=None):
     """Replay the per-step loop (scorer kernel, the device functions the
     fused solve runs) for a batch of instances on the card and return, per
     instance, the smallest distance in float32 ulps of the threshold between
     a step's steepest m=1 gain and 1e-6 * (1 + scale): a fused-vs-per-step
-    difference is a near-threshold move when this is a few ulps."""
+    difference is a near-threshold move when this is a few ulps. `P` as in
+    `first_divergence`."""
     import torch
     from repro_torch.core import grin as GR
     from repro_torch.kernels.grin_moves import (OBJ_E_GUARD, OBJ_XE,
                                                 block_move_gains_cuda)
     N, mus, Ps, sizes, cap, obj = GR._batch_inputs(
-        mu_b, mix_b, None, None, objective, None, None, dev)
+        mu_b, mix_b, None, None, objective, None, P, dev)
     B, k, l = N.shape
     best = torch.full((B,), torch.inf, dtype=torch.float64, device=dev)
     for pobj in [obj] + ([OBJ_E_GUARD] if obj == OBJ_XE else []):
@@ -362,7 +394,7 @@ def _apply_moves(N, bi, sizes, do):
     return N
 
 
-def first_divergence(mu_b, mix_b, objective, dev):
+def first_divergence(mu_b, mix_b, objective, dev, P=None):
     """Replay the per-step loop for a batch of instances on the card, scoring
     each step's state with both the plain PyTorch body and the scorer kernel
     (the device functions the fused solve runs), up to the first step where
@@ -370,13 +402,14 @@ def first_divergence(mu_b, mix_b, objective, dev):
     the kind of that step: "threshold" (a steepest m=1 gain within 8
     float32 ulps of 1e-6 * (1 + scale)), "tie" (a near-tie of direction or
     block size by the kernel phase's margins), "other", or "" when they
-    never disagree."""
+    never disagree. `P` is the priced power matrix when mu_b is not the
+    physical one (the priority solves' weighted rows)."""
     import numpy as np
     import torch
     from repro_torch.core import grin as GR
     from repro_torch.kernels import grin_moves as GM
     N, mus, Ps, sizes, cap, obj = GR._batch_inputs(
-        mu_b, mix_b, None, None, objective, None, None, dev)
+        mu_b, mix_b, None, None, objective, None, P, dev)
     B, k, l = N.shape
     kind = np.array([""] * B, dtype=object)
     live = torch.ones(B, dtype=torch.bool, device=dev)   # not yet diverged
@@ -410,6 +443,89 @@ def first_divergence(mu_b, mix_b, objective, dev):
     return kind
 
 
+def energy_phase_fixed_points(mu_b, mix_b, N, P, dev):
+    """Hold max-x-e targets N (B, k, l) to the plain version's own stopping
+    rule: one plain float32 step of the energy phase (OBJ_E_GUARD) from N
+    must find no move whose energy drop clears the phase's threshold, 1e-6
+    * (1 + |E|). The plain bodies sum in the kernel's order, so a target the
+    fused solve reports converged passes exactly, with no tolerance.
+    Returns (points that fail, the largest (drop - threshold) / threshold)."""
+    from repro_torch.core import grin as GR
+    from repro_torch.kernels import grin_moves as GM
+    _, mus, Ps, sizes, _, _ = GR._batch_inputs(
+        mu_b, mix_b, None, None, "max-x-e", None, P, dev)
+    gains, tie = GM._energy_gains_body(N, mus, Ps, sizes, GM.OBJ_E_GUARD)
+    _, _, base = GM._select_body(gains, tie)
+    thr = GR._TOL32_BLOCK * (1.0 + GR.phase_scale(N, mus, Ps,
+                                                  GM.OBJ_E_GUARD))
+    return int((base > thr).sum()), float(((base - thr) / thr).max())
+
+
+def per_step_comparison(mu_b, mix_b, objective, dev, fused, P=None):
+    """Solve the points again through the per-step loop with the plain
+    scorer (the fused solve's plain version) and with the scorer kernel,
+    and hold the fused solve's (N, converged, moves) `fused` for the same
+    points to both: against the kernel loop, differences only at
+    near-threshold steps (only the threshold's scale is computed apart, in
+    the kernel and by phase_scale); against the plain loop, differences
+    only where the first divergence is a near-threshold step or a near-tie
+    (or the kernel loop explains it). `P` is the priced power matrix when
+    mu_b is not the physical one. Returns the counts and times, with
+    "failure" the first broken condition or None."""
+    import numpy as np
+    import torch
+    from repro_torch.core.grin import grin_solve_batch_steps_torch
+    from repro_torch.kernels import grin_moves as GM
+    Nf, cf, mvf = fused
+
+    def per_step(scorer):
+        t0 = time.perf_counter()
+        res = grin_solve_batch_steps_torch(mu_b, mix_b, objective=objective,
+                                           P=P, device=dev, scorer=scorer)
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3
+
+    def differing(res):
+        Ns, _, cs_, mvs = res
+        return np.flatnonzero((Nf != Ns).flatten(1).any(dim=1).cpu().numpy()
+                              | (mvf != mvs).cpu().numpy()
+                              | (cf != cs_).cpu().numpy())
+
+    def sub(a, idx):
+        return None if a is None else a[idx]
+
+    plain, plain_ms = per_step(GM.block_move_scores_reference)
+    steps_k, steps_ms = per_step(None)
+    d_plain, d_steps = differing(plain), differing(steps_k)
+    m_steps = (threshold_margin_ulps(mu_b[d_steps], mix_b[d_steps],
+                                     objective, dev, P=sub(P, d_steps))
+               if len(d_steps) else np.zeros(0))
+    near_steps = int((m_steps <= 8).sum())
+    kinds = (first_divergence(mu_b[d_plain], mix_b[d_plain], objective, dev,
+                              P=sub(P, d_plain))
+             if len(d_plain) else np.zeros(0, dtype=object))
+    ok_steps = set(d_steps[m_steps <= 8].tolist())
+    explained = np.array([kd in ("threshold", "tie") or i in ok_steps
+                          for i, kd in zip(d_plain, kinds)], bool)
+    n_thr = int(sum(kd == "threshold" for kd in kinds))
+    n_tie = int(sum(kd == "tie" for kd in kinds))
+    failure = None
+    if near_steps != len(d_steps):
+        failure = (f"{len(d_steps) - near_steps} points differ from the "
+                   f"scorer-kernel loop away from the threshold ({objective})")
+    elif not explained.all():
+        failure = (f"{int((~explained).sum())} points differ from the plain "
+                   f"loop away from the threshold and near-ties "
+                   f"({objective})")
+    elif not (bool(plain[2].all()) and bool(steps_k[2].all())
+              and bool(cf.all())):
+        failure = "the fused or a per-step solve did not converge"
+    return {"plain": plain, "plain_ms": plain_ms, "steps_ms": steps_ms,
+            "d_plain": len(d_plain), "d_steps": len(d_steps),
+            "near_steps": near_steps, "n_thr": n_thr, "n_tie": n_tie,
+            "failure": failure}
+
+
 def phase_solver(dev, grids, host_check, detail):
     """Batched GrIn grids under max-x and max-x-e through the user's entry
     point (`solve_targets_grid_torch`: one launch of the fused solve, both
@@ -430,8 +546,7 @@ def phase_solver(dev, grids, host_check, detail):
     import numpy as np
     import torch
     from repro_torch.core import grin_block_solve, system_throughput
-    from repro_torch.core.grin import (grin_solve_batch_steps_torch,
-                                       grin_solve_batch_torch)
+    from repro_torch.core.grin import grin_solve_batch_torch
     from repro_torch.kernels import grin_moves as GM
     from repro_torch.kernels.grin_moves import _gains_body
     from repro_torch.sched import solve_targets_grid_torch
@@ -479,39 +594,14 @@ def phase_solver(dev, grids, host_check, detail):
             torch.cuda.synchronize()
             ms = cuda_ms(fused, iters=3, warmup=1)
 
-            def per_step(scorer):
-                t0 = time.perf_counter()
-                res = grin_solve_batch_steps_torch(
-                    mu_b, mix_b, objective=objective, device=dev,
-                    scorer=scorer)
-                torch.cuda.synchronize()
-                return res, (time.perf_counter() - t0) * 1e3
-
-            def differing(res):
-                Ns, _, cs_, mvs = res
-                return np.flatnonzero(
-                    (Nf != Ns).flatten(1).any(dim=1).cpu().numpy()
-                    | (mvf != mvs).cpu().numpy()
-                    | (cf != cs_).cpu().numpy())
-
-            plain, plain_ms = per_step(GM.block_move_scores_reference)
-            steps_k, steps_ms = per_step(None)
-            d_plain, d_steps = differing(plain), differing(steps_k)
-            # fused vs the kernel loop: only the threshold's scale is
-            # computed apart (in the kernel, and by phase_scale)
-            m_steps = (threshold_margin_ulps(mu_b[d_steps], mix_b[d_steps],
-                                             objective, dev)
-                       if len(d_steps) else np.zeros(0))
-            near_steps = int((m_steps <= 8).sum())
-            kinds = (first_divergence(mu_b[d_plain], mix_b[d_plain],
-                                      objective, dev)
-                     if len(d_plain) else np.zeros(0, dtype=object))
-            ok_steps = set(d_steps[m_steps <= 8].tolist())
-            explained = np.array([kd in ("threshold", "tie") or i in ok_steps
-                                  for i, kd in zip(d_plain, kinds)], bool)
+            cmp = per_step_comparison(mu_b, mix_b, objective, dev,
+                                      (Nf, cf, mvf))
             GM.launches.update(counted)
-            n_thr = int(sum(kd == "threshold" for kd in kinds))
-            n_tie = int(sum(kd == "tie" for kd in kinds))
+            plain, plain_ms, steps_ms = (cmp["plain"], cmp["plain_ms"],
+                                         cmp["steps_ms"])
+            n_thr, n_tie, near_steps = (cmp["n_thr"], cmp["n_tie"],
+                                        cmp["near_steps"])
+            d_plain, d_steps = cmp["d_plain"], cmp["d_steps"]
             phases = 2 if objective == "max-x-e" else 1
             steps = int(mvf.sum()) + phases * len(mvf)
             M = _ladder_len(N_TASKS)
@@ -528,11 +618,11 @@ def phase_solver(dev, grids, host_check, detail):
                    "per_step_kernel_ms": steps_ms,
                    "per_step_kernel_solves_per_s": G_ * M_ / steps_ms * 1e3,
                    "max_moves": int(mvf.max()), "steps": steps,
-                   "points_differing_from_plain": len(d_plain),
+                   "points_differing_from_plain": d_plain,
                    "plain_first_divergence": {
                        "threshold": n_thr, "tie": n_tie,
-                       "other": int(len(d_plain) - n_thr - n_tie)},
-                   "points_differing_from_per_step_kernel": len(d_steps),
+                       "other": int(d_plain - n_thr - n_tie)},
+                   "points_differing_from_per_step_kernel": d_steps,
                    "near_threshold_vs_per_step_kernel": near_steps,
                    "max_abs_x_diff_vs_plain": err,
                    "bound_ms": bound, "bound_by": by, "bytes": nbytes,
@@ -553,28 +643,17 @@ def phase_solver(dev, grids, host_check, detail):
                   f"({row['per_step_kernel_solves_per_s']:.1f} solves/s); "
                   f"max moves {row['max_moves']}; bound {bound:.4f} ms "
                   f"({by})")
-            print(f"    points differing from the plain loop {len(d_plain)} "
+            print(f"    points differing from the plain loop {d_plain} "
                   f"(first divergence near-threshold {n_thr}, near-tie "
-                  f"{n_tie}); from the scorer-kernel loop {len(d_steps)} "
+                  f"{n_tie}); from the scorer-kernel loop {d_steps} "
                   f"(near-threshold {near_steps}); local-max margin "
                   f"{lm.max():.2e}; vs host ({len(gaps)} points) min "
                   f"{gaps.min():.2e} mean {gaps.mean():.2e}")
             if lm.max() > 2e-6:
                 raise AssertionError(f"a target is not a single-move local "
                                      f"maximum ({lm.max():.2e}, {objective})")
-            if near_steps != len(d_steps):
-                raise AssertionError(f"{len(d_steps) - near_steps} points "
-                                     f"differ from the scorer-kernel loop "
-                                     f"away from the threshold ({objective})")
-            if not explained.all():
-                raise AssertionError(f"{int((~explained).sum())} points "
-                                     f"differ from the plain loop away from "
-                                     f"the threshold and near-ties "
-                                     f"({objective})")
-            if not (bool(plain[2].all()) and bool(steps_k[2].all())
-                    and bool(cf.all())):
-                raise AssertionError("the fused or a per-step solve did not "
-                                     "converge")
+            if cmp["failure"]:
+                raise AssertionError(cmp["failure"])
             if (G_, M_) == tuple(grids[-1][:2]) and objective == "max-x":
                 entry = {"name": "grin_solve", "route": "cuda",
                          "source": "src/repro_torch/kernels/csrc/"
@@ -584,7 +663,7 @@ def phase_solver(dev, grids, host_check, detail):
                          "launches": 0, "max_abs_err": err, "ms": ms,
                          "plain_ms": plain_ms, "bound_ms": bound,
                          "bound_by": by, "library_ms": None,
-                         "points_differing_from_plain": len(d_plain),
+                         "points_differing_from_plain": d_plain,
                          "shape": f"B={len(mvf)},k={K},l={L},M={M},max-x,"
                                   f"whole solve"}
     mus, mixes = skewed_grid(grids[-1][2], grids[-1][0], grids[-1][1], K, L,
@@ -656,10 +735,13 @@ def phase_scheduler(dev, n_mixes, burst, detail):
           f"what-if {t_wi:.3f} s")
 
 
-def phase_engine(dev, n_mus, seeds, n_completions, warmup, detail):
+def phase_engine(dev, n_mus, seeds, n_completions, warmup, detail,
+                 pool=None):
     """Fig. 9 workload (3x3, N = 30 programs) on the batched engine: GrIn
     beats LB on the mean, and simulated X and E/task agree with the closed
-    form of the solved target at the conformance gates."""
+    form of the solved target and, run for run, with the port's own host
+    event core (same config and seed), at the conformance gates (15% per
+    run, 5% mean)."""
     import numpy as np
     from repro_torch.core import (PowerModel, expected_energy_per_task,
                                   random_affinity_matrix, system_throughput)
@@ -670,7 +752,7 @@ def phase_engine(dev, n_mus, seeds, n_completions, warmup, detail):
     rng = np.random.default_rng(3)
     mus = [random_affinity_matrix(rng, 3, 3) for _ in range(n_mus)]
     mix = np.array([10, 10, 10])
-    out, gaps_x, gaps_e = [], [], []
+    out, gaps_x, gaps_e, pairs = [], [], [], []
     t_all = time.perf_counter()
     for order in ("PS", "FCFS"):
         xg, xl = [], []
@@ -684,6 +766,11 @@ def phase_engine(dev, n_mus, seeds, n_completions, warmup, detail):
             rows = compare_policies(cfg, ["grin", "grin-e", "lb", "jsq"],
                                     seeds=seeds, device=dev)
             dt = time.perf_counter() - t0
+            for name, key in (("GrIn", "grin"), ("GrIn-E", "grin-e"),
+                              ("LB", "lb"), ("JSQ", "jsq")):
+                for s, m in zip(seeds, rows[name]):
+                    pairs.append((dataclasses.replace(cfg, seed=int(s)),
+                                  key, m))
             xg += [m.throughput for m in rows["GrIn"]]
             xl += [m.throughput for m in rows["LB"]]
             for name, key in (("GrIn", "grin"), ("GrIn-E", "grin-e")):
@@ -714,19 +801,430 @@ def phase_engine(dev, n_mus, seeds, n_completions, warmup, detail):
         cfg, ["grin", "grin-e", "lb", "jsq"], seeds=seeds, device=dev))
     print(f"  engine profile (500 completions): wall {prof['wall_s']:.3f} s, "
           f"device busy share {prof['busy_share']}")
+    t0 = time.perf_counter()
+    hosts = host_map(pool, host_run, [(c, key) for c, key, _ in pairs])
+    t_host = time.perf_counter() - t0
+    hx = np.array([abs(m.throughput - h.throughput) / h.throughput
+                   for (_, _, m), h in zip(pairs, hosts)])
+    he = np.array([abs(m.mean_energy - h.mean_energy) / h.mean_energy
+                   for (_, _, m), h in zip(pairs, hosts)])
     t_all = time.perf_counter() - t_all
     gx, ge = np.asarray(gaps_x), np.asarray(gaps_e)
     detail["engine"] = {"runs": out, "seconds": t_all,
                         "x_gap_max": float(gx.max()),
                         "x_gap_mean": float(gx.mean()),
                         "e_gap_max": float(ge.max()),
-                        "e_gap_mean": float(ge.mean())}
+                        "e_gap_mean": float(ge.mean()),
+                        "host_runs": len(hosts), "host_seconds": t_host,
+                        "x_gap_vs_host_max": float(hx.max()),
+                        "x_gap_vs_host_mean": float(hx.mean()),
+                        "e_gap_vs_host_max": float(he.max()),
+                        "e_gap_vs_host_mean": float(he.mean())}
     print(f"  engine: sim vs closed form X gap max {gx.max():.3f} mean "
           f"{gx.mean():.3f}; E gap max {ge.max():.3f} mean {ge.mean():.3f}; "
           f"{t_all:.1f} s")
+    print(f"  engine vs the host core ({len(hosts)} runs, {t_host:.1f} s): "
+          f"X gap max {hx.max():.3f} mean {hx.mean():.3f}; E gap max "
+          f"{he.max():.3f} mean {he.mean():.3f}")
     if gx.max() >= 0.15 or ge.max() >= 0.15 or gx.mean() >= 0.05 \
             or ge.mean() >= 0.05:
         raise AssertionError("simulation outside the conformance gates")
+    if hx.max() >= 0.15 or he.max() >= 0.15 or hx.mean() >= 0.05 \
+            or he.mean() >= 0.05:
+        raise AssertionError("engine vs host core outside the conformance "
+                             "gates")
+
+
+# --------------------------------------------------------------- priority
+
+PRIO_CLASS_N = (600, 5400)          # latency class, batch class (N = 6000)
+PRIO_W = (4.0, 1.0)
+PRIO_COMPARE, PRIO_HOST = 256, 64   # points held to the plain loop / host
+# benchmarks/fig_priority.py::run() at its defaults
+FIGP_WEIGHTS = (1.0, 2.0, 4.0, 8.0)
+FIGP_POLICIES = ("grin-p", "grin", "lb", "jsq")
+FIGP_CLASS_MIXES = ((2, 2, 2), (8, 8, 8))
+FIGP_SAMPLES, FIGP_SEEDS, FIGP_SEED = 4, (0, 1, 2), 5
+FIGP_COMPLETIONS, FIGP_WARMUP = 6000, 1200
+# PRIO alone runs longer: strict priority leaves the batch class about an
+# eighth of the completions, in long starved stretches, and single runs of
+# it at the benchmark's 6,000 scatter past P_PT_TOL between two correct
+# engines (PERF.md, section 6)
+FIGP_PRIO_COMPLETIONS, FIGP_PRIO_WARMUP = 48000, 9600
+P_PT_TOL, P_MEAN_TOL = 0.2, 0.08    # tests/test_conformance.py multi-class
+
+
+def priority_grid(seed: int, G: int, M: int, k: int, l: int):
+    """(G, k, l) affinities (`random_affinity_matrix`) and (M, C, k) class
+    mixes: each class's tasks (PRIO_CLASS_N) split Dirichlet(0.3) over the
+    types, as `skewed_grid` splits one class."""
+    import numpy as np
+    from repro_torch.core import random_affinity_matrix
+    rng = np.random.default_rng(seed)
+    mus = np.stack([random_affinity_matrix(rng, k, l) for _ in range(G)])
+    mixes = np.array([[rng.multinomial(n, rng.dirichlet([0.3] * k))
+                       for n in PRIO_CLASS_N] for _ in range(M)])
+    return mus, mixes
+
+
+def phase_priority(dev, G, M, detail, pool=None, fig=None):
+    """The priority subsystem at full size. (1) GrIn-P target grids: G x M
+    points of 4x6 affinities x two-class mixes (N = 6000, weights 4 : 1),
+    solved through `get_policy("grin-p")` and `solve_targets_grid_torch`
+    under max-x and max-x-e — one fused launch a grid on (C*k, l) = (8, 6)
+    class-weighted rows. Every point converged with exact per-(class,
+    type) row sums; every max-x target a single-move local maximum of the
+    weighted X at the solver's float32 threshold, and every max-x-e target
+    a fixed point of the plain float32 energy phase (its X margin is
+    reported: the X-plateau phase may end below an X maximum). The same
+    grid through `core.priority.grin_solve_priority_batch_torch` gives the
+    same targets; PRIO_COMPARE of its points held, as in the solver phase,
+    against the per-step loop with the plain scorer (differences only where
+    the first divergence is a near-threshold step or a near-tie, counted)
+    and with the scorer kernel (differences only at near-threshold steps);
+    the weighted-X gap to the host float64 GrIn-P on PRIO_HOST points
+    reported. (2) `priority_engine`: the priority benchmark's workload on
+    the batched engine, held run for run to the port's host core. Returns
+    the max-x solve's summary row."""
+    import numpy as np
+    import torch
+    from repro_torch.core import PROPORTIONAL_POWER, system_throughput
+    from repro_torch.core.priority import (flat_mu, flatten_mixes,
+                                           grin_solve_priority_batch_torch,
+                                           weighted_system_throughput)
+    from repro_torch.kernels import grin_moves as GM
+    from repro_torch.sched import get_policy, solve_targets_grid_torch
+    C = len(PRIO_CLASS_N)
+    pol = get_policy("grin-p", weights=PRIO_W)
+    mus, cmixes = priority_grid(11, G, M, K, L)
+    mus_f = np.stack([flat_mu(m, C) for m in mus])          # (G, C*K, L)
+    mus_w = np.stack([pol.device_mu(m) for m in mus_f])     # w_c * mu rows
+    mix_f = flatten_mixes(cmixes)                           # (M, C*K)
+    mu_b = np.repeat(mus_w, M, axis=0)
+    mix_b = np.tile(mix_f, (G, 1))
+    mus_g, cmix_g = np.repeat(mus, M, axis=0), np.tile(cmixes, (G, 1, 1))
+    pts = G * M
+    step = max(1, pts // PRIO_COMPARE)
+    sub = np.arange(0, pts, step)[:PRIO_COMPARE]
+    hstep = max(1, pts // PRIO_HOST)
+    hsub = np.arange(0, pts, hstep)[:PRIO_HOST]
+    t0 = time.perf_counter()
+    host_x = host_map(pool, host_grin_p, [
+        (mus[i // M], cmixes[i % M], PRIO_W) for i in hsub])
+    t_host = time.perf_counter() - t0
+    rows = []
+    for objective in ("max-x", "max-x-e"):
+        P = (None if objective == "max-x" else
+             np.stack([PROPORTIONAL_POWER.power_matrix(m) for m in mus_f]))
+        P_b = None if P is None else np.repeat(P, M, axis=0)
+        before = GM.launches["grin_solve"]
+        t0 = time.perf_counter()
+        targets, xs, conv = solve_targets_grid_torch(
+            mus_w, mix_f, objective=objective, P=P, device=dev)
+        dt = time.perf_counter() - t0
+        n_launch = GM.launches["grin_solve"] - before
+        if n_launch != 1:
+            raise AssertionError(f"the grid took {n_launch} fused launches "
+                                 f"({objective})")
+        if not conv.all():
+            raise AssertionError(f"{int((~conv).sum())} points did not "
+                                 f"converge ({objective})")
+        if not (targets.sum(axis=3) == mix_f[None]).all():
+            raise AssertionError("per-(class, type) row sums not exact")
+        flat = targets.reshape(pts, C * K, L)
+        xw = np.array([system_throughput(n, m) for n, m in zip(flat, mu_b)])
+        g1 = GM._gains_body(torch.as_tensor(flat, dtype=torch.float64),
+                            torch.as_tensor(mu_b, dtype=torch.float64),
+                            torch.ones(1, dtype=torch.float64))
+        lm = (g1.reshape(pts, -1).max(dim=1).values.numpy() / (1 + xw))
+        # the weighted X is the class-weighted objective of the (C, k, l)
+        # placement under the physical affinities
+        i0 = int(sub[-1])
+        if abs(weighted_system_throughput(flat[i0].reshape(C, K, L),
+                                          mus[i0 // M], PRIO_W)
+               - xw[i0]) > 1e-9 * xw[i0]:
+            raise AssertionError("weighted X != X of the weighted rows")
+        gaps = (xw[hsub] - np.asarray(host_x)) / (1 + xw[hsub])
+
+        # the comparisons: none of their launches count
+        counted = dict(GM.launches)
+
+        def fused():        # the same grid through the module's batch solve
+            return grin_solve_priority_batch_torch(
+                mus_g, cmix_g, PRIO_W, objective=objective, device=dev)
+        Nc, _, cf, mvf = fused()
+        torch.cuda.synchronize()
+        Nf = Nc.reshape(pts, C * K, L)
+        if not np.array_equal(Nf.cpu().numpy(), flat):
+            raise AssertionError("grin_solve_priority_batch_torch and the "
+                                 "policy's grid solve disagree")
+        ms = cuda_ms(fused, iters=3, warmup=1)
+        subt = torch.as_tensor(sub, device=Nf.device)
+        cmp = per_step_comparison(
+            mu_b[sub], mix_b[sub], objective, dev,
+            (Nf[subt], cf[subt], mvf[subt]),
+            P=None if P_b is None else P_b[sub])
+        GM.launches.update(counted)
+        n_thr, n_tie, near_steps = (cmp["n_thr"], cmp["n_tie"],
+                                    cmp["near_steps"])
+        d_plain, d_steps = cmp["d_plain"], cmp["d_steps"]
+        plain_ms, steps_ms = cmp["plain_ms"], cmp["steps_ms"]
+        not_fixed, fixed_margin = (
+            energy_phase_fixed_points(mu_b, mix_b, Nf, P_b, dev)
+            if objective == "max-x-e" else (0, None))
+        phases = 2 if objective == "max-x-e" else 1
+        steps = int(mvf.sum()) + phases * pts
+        bound, by, nbytes, ops = solve_bound(
+            pts, C * K, L, _ladder_len(sum(PRIO_CLASS_N)),
+            0 if objective == "max-x" else 1, steps)
+        row = {"grid": f"{G}x{M}", "objective": objective, "points": pts,
+               "rows": C * K, "weights": list(PRIO_W), "seconds": dt,
+               "solves_per_s": pts / dt, "fused_launches": n_launch,
+               "fused_ms": ms, "fused_solves_per_s": pts / ms * 1e3,
+               "max_moves": int(mvf.max()), "steps": steps,
+               "bound_ms": bound, "bound_by": by, "bytes": nbytes,
+               "ops": ops, "compared": len(sub),
+               "plain_ms_compared": plain_ms,
+               "per_step_kernel_ms_compared": steps_ms,
+               "points_differing_from_plain": d_plain,
+               "plain_first_divergence": {
+                   "threshold": n_thr, "tie": n_tie,
+                   "other": int(d_plain - n_thr - n_tie)},
+               "points_differing_from_per_step_kernel": d_steps,
+               "near_threshold_vs_per_step_kernel": near_steps,
+               "max_rel_single_move_gain": float(lm.max()),
+               "energy_phase_not_fixed": not_fixed,
+               "energy_phase_max_rel_excess": fixed_margin,
+               "host_checked": len(hsub),
+               "host_seconds": t_host,
+               "min_rel_gap_vs_host": float(gaps.min()),
+               "mean_rel_gap_vs_host": float(gaps.mean()),
+               "below_host_by_more_than_4e-6": int((gaps < -4e-6).sum())}
+        rows.append(row)
+        print(f"  grin-p {row['grid']} {objective} ((C*k, l) = ({C * K}, "
+              f"{L}), w = {PRIO_W}): {dt:.3f} s, {row['solves_per_s']:.1f} "
+              f"solves/s through solve_targets_grid_torch ({n_launch} fused "
+              f"launch); fused solve {ms:.3f} ms "
+              f"({row['fused_solves_per_s']:.0f} solves/s); max moves "
+              f"{row['max_moves']}; bound {bound:.4f} ms ({by})")
+        print(f"    {len(sub)} points vs the plain per-step loop "
+              f"({plain_ms:.1f} ms): differing {d_plain} (first "
+              f"divergence near-threshold {n_thr}, near-tie {n_tie}); vs "
+              f"the scorer-kernel loop ({steps_ms:.1f} ms) {d_steps} "
+              f"(near-threshold {near_steps}); local-max margin "
+              f"{lm.max():.2e}; weighted X vs host GrIn-P "
+              f"({len(hsub)} points) min {gaps.min():.2e} mean "
+              f"{gaps.mean():.2e}")
+        if objective == "max-x-e":
+            print(f"    energy phase: {not_fixed} of {pts} targets not a "
+                  f"fixed point of the plain float32 step; largest drop "
+                  f"over the threshold {fixed_margin:.3e} (relative)")
+        # max-x-e's second phase slides along the X plateau, each move
+        # losing up to _XE_TIE * (1 + X): its targets end a float32 band
+        # per plateau move below an X local maximum (reported, PERF.md)
+        if objective == "max-x" and lm.max() > 2e-6:
+            raise AssertionError(f"a target is not a single-move local "
+                                 f"maximum of the weighted X ({lm.max():.2e}"
+                                 f", {objective})")
+        if not_fixed:
+            raise AssertionError(f"{not_fixed} max-x-e targets are not fixed "
+                                 f"points of the energy phase")
+        if cmp["failure"]:
+            raise AssertionError(cmp["failure"])
+
+    detail["priority"] = {"solver": rows,
+                          "engine": priority_engine(dev, fig, pool)}
+    return rows[0]
+
+
+def figp_runs(dev, fig, pool):
+    """`benchmarks/fig_priority.py::run()`'s workload (its defaults, PRIO
+    at FIGP_PRIO_COMPLETIONS, any of them replaced by the `fig` dict's) on
+    the batched engine under PS, PRIO and FCFS, one batch an order, and
+    each distinct (order, system, policy, seed) run
+    again on the port's host core (same config and seed). Returns the
+    engine's points (system, w0, policy, seed), its results and timings an
+    order, one record per (order, point, class) against the host run, and
+    the host core's seconds."""
+    import numpy as np
+    import torch
+    from repro_torch.core import random_affinity_matrix
+    from repro_torch.core.priority import class_of_flat, flat_mu, flatten_mixes
+    from repro_torch.sched import get_policy
+    from repro_torch.sched.priority import priority_sim_config
+    from repro_torch.sim import make_distribution, simulate_batch
+    from repro_torch.sim.engine_torch import (MODE_DEFICIT, _BASELINE_MODES,
+                                              _types0_for)
+    fig = {"samples": FIGP_SAMPLES, "seeds": FIGP_SEEDS,
+           "n_completions": FIGP_COMPLETIONS, "warmup": FIGP_WARMUP,
+           "prio_completions": FIGP_PRIO_COMPLETIONS,
+           "prio_warmup": FIGP_PRIO_WARMUP, **(fig or {})}
+    runs = {o: (fig["n_completions"], fig["warmup"]) for o in ("PS", "FCFS")}
+    runs["PRIO"] = (fig["prio_completions"], fig["prio_warmup"])
+    rng = np.random.default_rng(FIGP_SEED)
+    systems = [random_affinity_matrix(rng, 3, 3)
+               for _ in range(fig["samples"])]
+    cm = np.array(FIGP_CLASS_MIXES)
+    Cf, kf = cm.shape
+    mixf = flatten_mixes(cm)
+    cls = class_of_flat(Cf, kf)
+    dist = make_distribution("exponential")
+    seeds = list(fig["seeds"])
+    keys, mu_e, tgt_e, modes, pols = [], [], [], [], {}
+    for si, mu in enumerate(systems):
+        mu_f = flat_mu(mu, Cf)
+        for w0 in FIGP_WEIGHTS:
+            for pname in FIGP_POLICIES:
+                if pname == "grin-p":
+                    p = get_policy("grin-p", weights=[w0, 1.0])
+                    disp = f"GrIn-P(w={w0:g})"
+                else:
+                    p = get_policy(pname)
+                    disp = p.name
+                mode = (MODE_DEFICIT if p.needs_target
+                        else _BASELINE_MODES[p.key])
+                target = (np.asarray(p.solve_target(mu_f, mixf))
+                          if p.needs_target else np.zeros(mu_f.shape,
+                                                          np.int64))
+                for s in seeds:
+                    keys.append((si, w0, disp, s))
+                    pols.setdefault((si, disp, s), p)
+                    mu_e.append(mu_f)
+                    tgt_e.append(target)
+                    modes.append(mode)
+    B = len(keys)
+    res, eng = {}, {}
+    for order in ("PS", "PRIO", "FCFS"):
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res[order] = simulate_batch(
+            np.stack(mu_e), np.stack(tgt_e), np.tile(_types0_for(mixf),
+                                                     (B, 1)),
+            [k[3] for k in keys], distribution=dist, order=order,
+            n_completions=runs[order][0], warmup_completions=runs[order][1],
+            modes=np.asarray(modes), class_of_type=cls, device=dev)
+        dt = time.perf_counter() - t0
+        eng[order] = {"seconds": dt, "n_completions": runs[order][0],
+                      "events_per_s": B * runs[order][0] / dt}
+        print(f"  fig_priority engine {order}: {B} points x "
+              f"{runs[order][0]} completions in {dt:.2f} s "
+              f"({eng[order]['events_per_s']:.0f} events/s)")
+    # each distinct (system, policy, seed) once: the class-blind policies
+    # repeat over the weights with identical rows
+    uniq = {}
+    for i, (si, w0, disp, s) in enumerate(keys):
+        uniq.setdefault((si, disp, s), i)
+    jobs = []
+    for order in ("PS", "PRIO", "FCFS"):
+        for (si, disp, s) in uniq:
+            cfg = priority_sim_config(
+                systems[si], cm, distribution=dist, order=order,
+                n_completions=runs[order][0],
+                warmup_completions=runs[order][1], seed=s)
+            jobs.append(((order, si, disp, s), (cfg, pols[(si, disp, s)])))
+    t0 = time.perf_counter()
+    hosts = host_map(pool, host_run, [j for _, j in jobs])
+    t_host = time.perf_counter() - t0
+    recs = []
+    for ((order, si, disp, s), _), h in zip(jobs, hosts):
+        i = uniq[(si, disp, s)]
+        d = res[order]
+        for c in range(Cf):
+            hx, dx = float(h.class_throughput[c]), \
+                float(d["class_throughput"][i][c])
+            he, de = float(h.class_energy[c]), float(d["class_energy"][i][c])
+            rec = {"order": order, "system": si, "policy": disp, "seed": s,
+                   "class": c, "host_x": hx, "engine_x": dx,
+                   "host_e": he, "engine_e": de,
+                   "host_total_x": float(h.throughput),
+                   "engine_total_x": float(d["throughput"][i])}
+            if hx == 0 or dx == 0:      # strict priority starved the class
+                rec["starved"] = True
+            else:
+                rec.update(starved=False, x_rel=abs(dx - hx) / hx,
+                           e_rel=abs(de - he) / he)
+            recs.append(rec)
+    return {"fig": fig, "keys": keys, "res": res, "eng": eng,
+            "recs": recs, "host_seconds": t_host, "host_runs": len(hosts)}
+
+
+def priority_engine(dev, fig, pool):
+    """The priority benchmark's workload on the engine, held run for run
+    to the port's host core at the multi-class conformance gates of
+    tests/test_conformance.py (per (run, class) X and E/task within
+    P_PT_TOL, their means within P_MEAN_TOL; a class that strict priority
+    starves must be starved on both engines), and PRIO cutting the latency
+    class's mean response time against FCFS with the same placements.
+    Returns the summary for the detail file."""
+    import numpy as np
+    out = figp_runs(dev, fig, pool)
+    fig, keys, res, eng, recs = (out["fig"], out["keys"], out["res"],
+                                 out["eng"], out["recs"])
+    live = [r for r in recs if not r["starved"]]
+    starved = [r for r in recs if r["starved"]]
+    for r in starved:
+        if not (r["host_x"] < 0.02 * r["host_total_x"]
+                and r["engine_x"] < 0.02 * r["engine_total_x"]):
+            raise AssertionError(f"class {r['class']} starved on one engine "
+                                 f"only: {r}")
+    x_rel = np.array([r["x_rel"] for r in live])
+    e_rel = np.array([r["e_rel"] for r in live])
+    worst = sorted(live, key=lambda r: -max(r["x_rel"], r["e_rel"]))[:8]
+    lat = {o: np.array([res[o]["class_response_time"][i][0]
+                        for i, k in enumerate(keys)
+                        if k[2].startswith("GrIn-P")]) for o in ("PRIO",
+                                                                 "FCFS")}
+    gain = float(lat["FCFS"].mean() / lat["PRIO"].mean())
+    xw = {}
+    for i, (si, w0, disp, s) in enumerate(keys):
+        xw.setdefault((si, w0, disp), []).append(
+            float(np.dot([w0, 1.0], res["PS"]["class_throughput"][i])))
+    n_sys = 1 + max(k[0] for k in keys)
+    over_lb = [np.mean(xw[(si, w0, f"GrIn-P(w={w0:g})")])
+               / np.mean(xw[(si, w0, "LB")])
+               for si in range(n_sys) for w0 in FIGP_WEIGHTS]
+    summary = {"points": len(keys), "class_mixes": [list(m) for m in
+                                                    FIGP_CLASS_MIXES],
+               "weights": list(FIGP_WEIGHTS), "seeds": list(fig["seeds"]),
+               "orders": eng,
+               "host_runs": out["host_runs"],
+               "host_seconds": out["host_seconds"],
+               "checked": len(live), "starved": len(starved),
+               "x_rel_max": float(x_rel.max()),
+               "x_rel_mean": float(x_rel.mean()),
+               "e_rel_max": float(e_rel.max()),
+               "e_rel_mean": float(e_rel.mean()),
+               "x_rel_at_or_over_tol": int((x_rel >= P_PT_TOL).sum()),
+               "e_rel_at_or_over_tol": int((e_rel >= P_PT_TOL).sum()),
+               "by_order": {o: {"x_rel_max": max(r["x_rel"] for r in live
+                                                 if r["order"] == o),
+                                "e_rel_max": max(r["e_rel"] for r in live
+                                                 if r["order"] == o)}
+                            for o in eng},
+               "worst": worst,
+               "class0_response_fcfs_over_prio": gain,
+               "grin_p_over_lb_weighted_x": [float(min(over_lb)),
+                                             float(max(over_lb))]}
+    print(f"  fig_priority vs the host core ({out['host_runs']} runs, "
+          f"{out['host_seconds']:.1f} s), {len(live)} (run, class) points, "
+          f"{len(starved)} starved on both: per-class X max "
+          f"{x_rel.max():.3f} mean {x_rel.mean():.3f}; E/task max "
+          f"{e_rel.max():.3f} mean {e_rel.mean():.3f}; at or over "
+          f"{P_PT_TOL}: X {summary['x_rel_at_or_over_tol']}, E "
+          f"{summary['e_rel_at_or_over_tol']}; worst {worst[0]}")
+    print("    X / E max by order: " + "; ".join(
+        f"{o} {v['x_rel_max']:.3f} / {v['e_rel_max']:.3f} "
+        f"({eng[o]['n_completions']} completions)"
+        for o, v in summary["by_order"].items()))
+    print(f"  GrIn-P class-0 mean response FCFS / PRIO {gain:.2f}x; "
+          f"GrIn-P / LB weighted X {min(over_lb):.2f}x-{max(over_lb):.2f}x")
+    if x_rel.max() >= P_PT_TOL or e_rel.max() >= P_PT_TOL \
+            or x_rel.mean() >= P_MEAN_TOL or e_rel.mean() >= P_MEAN_TOL:
+        raise AssertionError("priority engine outside the multi-class gates")
+    if not lat["PRIO"].mean() < lat["FCFS"].mean():
+        raise AssertionError("PRIO did not cut class 0's response time")
+    return summary
 
 
 # ------------------------------------------------------------ model kernels
@@ -1367,20 +1865,29 @@ def main() -> int:
                 [(256, K, L, N_TASKS), (4096, K, L, N_TASKS),
                  (1001, 3, 3, 30)], detail)
     model_entries = run("model-kernels", phase_model_kernels, dev, detail)
+    # host event-core oracles run in a pool of host processes (spawned:
+    # they import torch afresh and never touch the card), closed below
+    pool = multiprocessing.get_context("spawn").Pool(
+        min(8, os.cpu_count() or 1))
     reset_all_launches()                # the scheduling path's count starts
     per_phase, solve_entry = {}, None
-    for name, fn, args in (
-            ("solver", phase_solver, (dev, [(16, 16, 1), (64, 64, 2)], 64,
-                                      detail)),
-            ("scheduler", phase_scheduler, (dev, 16, 4096, detail)),
-            ("engine", phase_engine, (dev, 4, [0, 1, 2], 4000, 800,
-                                      detail))):
-        before = dict(grin_moves.launches)
-        res = run(name, fn, *args)
-        if name == "solver":
-            solve_entry = res
-        per_phase[name] = {k: grin_moves.launches[k] - before[k]
-                           for k in before}
+    try:
+        for name, fn, args in (
+                ("solver", phase_solver, (dev, [(16, 16, 1), (64, 64, 2)],
+                                          64, detail)),
+                ("scheduler", phase_scheduler, (dev, 16, 4096, detail)),
+                ("engine", phase_engine, (dev, 4, [0, 1, 2], 4000, 800,
+                                          detail, pool)),
+                ("priority", phase_priority, (dev, 64, 64, detail, pool))):
+            before = dict(grin_moves.launches)
+            res = run(name, fn, *args)
+            if name == "solver":
+                solve_entry = res
+            per_phase[name] = {k: grin_moves.launches[k] - before[k]
+                               for k in before}
+    finally:
+        pool.terminate()
+        pool.join()
     launches = dict(grin_moves.launches)
     print(f"launches on the scheduling path: {launches} {per_phase}")
     # every grid solve is one fused launch: the per-step scorer kernel is

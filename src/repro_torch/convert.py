@@ -5,12 +5,13 @@ live scheduling state and model weights. All cross as plain Python / NumPy
 values, so neither package imports the other:
 
   * `sim_config_from_reference(fields)` builds a `SimConfig` from a dict of
-    plain values (the reference config's fields, with the distribution and
+    plain values (the reference config's fields, with the distributions and
     power model given by name / parameters);
   * `scheduler_core_state(core)` exports a SchedulerCore's routing state —
     from either package, read through the attributes they share — as NumPy
-    arrays, and `scheduler_core_from_state(arrays, policy, device)` rebuilds
-    a port core from them that routes identically from there on;
+    arrays (a priority policy's class weights and the DVFS frequencies
+    included), and `scheduler_core_from_state(arrays, policy, device)`
+    rebuilds a port core from them that routes identically from there on;
   * `model_params_from_reference(cfg, tree)` builds a port `Model` from the
     reference's parameter pytree given as nested dicts of NumPy arrays,
     unstacking its scanned layer stacks into the port's module lists.
@@ -25,50 +26,66 @@ from repro_torch.sched.api import SchedulerCore
 from repro_torch.sim.distributions import make_distribution
 from repro_torch.sim.simulator import SimConfig
 
-_UNPORTED_FIELDS = ("type_mix", "class_of_type", "class_distributions",
-                    "traffic", "faults")
+_UNPORTED_FIELDS = ("traffic", "faults")
+
+
+def _distribution(spec):
+    """A distribution from a registry name or {"name": ..., **params}."""
+    if isinstance(spec, str):
+        return make_distribution(spec)
+    params = dict(spec)
+    return make_distribution(params.pop("name"), **params)
 
 
 def sim_config_from_reference(fields: dict) -> SimConfig:
     """A SimConfig from plain values: `mu`, `n_programs_per_type`,
     `distribution` (a registry name or {"name": ..., **params}), and
     optionally `order`, `power` ({"alpha": .., "coeff": ..}),
-    `n_completions`, `warmup_completions` and `seed`. Fields the port does
-    not simulate yet must be absent or None."""
+    `n_completions`, `warmup_completions`, `seed`, `type_mix` ((k,)
+    probabilities), `class_of_type` ((k,) ints) and `class_distributions`
+    (a list of specs like `distribution`). `traffic` and `faults` are not
+    ported yet (ROADMAP A4) and must be absent or None."""
     for name in _UNPORTED_FIELDS:
         if fields.get(name) is not None:
-            raise NotImplementedError(f"SimConfig.{name} is not yet ported")
-    dist = fields["distribution"]
-    if isinstance(dist, str):
-        dist = make_distribution(dist)
-    else:
-        params = dict(dist)
-        dist = make_distribution(params.pop("name"), **params)
+            raise NotImplementedError(f"SimConfig.{name} is not yet ported "
+                                      "(ROADMAP A4)")
     kw = {}
     for name in ("order", "n_completions", "warmup_completions", "seed"):
         if fields.get(name) is not None:
             kw[name] = fields[name]
     if fields.get("power") is not None:
         kw["power"] = PowerModel(**dict(fields["power"]))
+    if fields.get("type_mix") is not None:
+        kw["type_mix"] = np.asarray(fields["type_mix"], dtype=np.float64)
+    if fields.get("class_of_type") is not None:
+        kw["class_of_type"] = np.asarray(fields["class_of_type"],
+                                         dtype=np.int64)
+    if fields.get("class_distributions") is not None:
+        kw["class_distributions"] = tuple(
+            _distribution(d) for d in fields["class_distributions"])
     return SimConfig(mu=np.asarray(fields["mu"], dtype=np.float64),
                      n_programs_per_type=np.asarray(
                          fields["n_programs_per_type"], dtype=np.int64),
-                     distribution=dist, **kw)
+                     distribution=_distribution(fields["distribution"]), **kw)
 
 
 def scheduler_core_state(core) -> dict:
     """A SchedulerCore's routing state as NumPy arrays: nominal, base and
-    live mu, counts, backlog, the straggler EWMA, the pinned mix (absent
-    when unpinned), the mu-version token and the cached targets with their
-    keys. Only single-class cores (no class weights) are supported."""
-    entries = list(core._targets.items())
-    if any(key[2] is not None for key, _ in entries):
-        raise NotImplementedError("class-weighted targets are not ported")
+    live mu, the DVFS frequencies, counts, backlog, the straggler EWMA, the
+    pinned mix (absent when unpinned), a priority policy's class weights
+    (absent for single-class policies), the mu-version token and the cached
+    targets with their keys. Entries cached under other class weights than
+    the policy's current ones are never served again and are left out."""
+    w = core.policy.class_weights
+    wkey = None if w is None else tuple(float(x) for x in w)
+    entries = [(key, t) for key, t in core._targets.items()
+               if key[2] == wkey]
     k, l = core.mu.shape
     out = {
         "nominal_mu": np.asarray(core.nominal_mu, dtype=np.float64),
         "base_mu": np.asarray(core.base_mu, dtype=np.float64),
         "mu": np.asarray(core.mu, dtype=np.float64),
+        "frequencies": np.asarray(core.frequencies, dtype=np.float64),
         "counts": np.asarray(core.counts, dtype=np.int64),
         "backlog": np.asarray(core.backlog_work, dtype=np.float64),
         "tracker_rates": np.asarray(core.tracker.rates, dtype=np.float64),
@@ -83,6 +100,8 @@ def scheduler_core_state(core) -> dict:
     }
     if core._mix is not None:
         out["mix"] = np.asarray(core._mix, dtype=np.int64)
+    if w is not None:
+        out["class_weights"] = np.asarray(w, dtype=np.float64)
     return out
 
 
@@ -90,11 +109,15 @@ def scheduler_core_from_state(arrays: dict, policy, device=None,
                               **core_kwargs) -> SchedulerCore:
     """Rebuild a port SchedulerCore from `scheduler_core_state` arrays.
 
-    The cached targets keep their keys (mix, mu-token), so a target the
-    source core had solved is a cache hit here and routing continues
-    decision for decision."""
+    The cached targets keep their keys (mix, mu-token, class weights), so a
+    target the source core had solved is a cache hit here and routing
+    continues decision for decision. A priority policy takes the source's
+    class weights."""
     core = SchedulerCore(policy, np.asarray(arrays["nominal_mu"]),
                          device=device, **core_kwargs)
+    if "class_weights" in arrays:
+        core.set_class_weights(arrays["class_weights"])
+    core._freq = np.asarray(arrays["frequencies"], dtype=np.float64).copy()
     core.base_mu = np.asarray(arrays["base_mu"], dtype=np.float64).copy()
     core._set_mu(np.asarray(arrays["mu"], dtype=np.float64).copy())
     core._mu_token = int(arrays["mu_token"])
@@ -106,8 +129,9 @@ def scheduler_core_from_state(arrays: dict, policy, device=None,
     core.tracker.seen = np.asarray(arrays["tracker_seen"], dtype=bool).copy()
     for mix, token, target in zip(arrays["target_mixes"],
                                   arrays["target_tokens"], arrays["targets"]):
-        core._targets[(tuple(int(x) for x in mix), int(token), None)] = \
-            np.asarray(target, dtype=np.int64)
+        core._targets[(tuple(int(x) for x in mix), int(token),
+                       core._weights_key())] = np.asarray(target,
+                                                          dtype=np.int64)
     if "mix" in arrays:
         core.notify_type_counts(arrays["mix"])
     return core

@@ -4,8 +4,11 @@ Host (float64) scalar forms plus batched torch (B, k, l) forms: the torch
 variants are the device-resident objective surface the energy-aware GrIn
 solvers (`grin_solve_batch_torch(objective=...)`) and the elastic energy
 what-ifs price placements with — one vectorized call per (mu x mix) grid.
+The alpha-power DVFS model (`DVFSModel`) scales both with frequency.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -90,3 +93,91 @@ def edp_batch_torch(Ns, mus, Ps) -> torch.Tensor:
     """EDP = E[E] * E[T] = N_total * sum_j W_j / X_sys^2 (eq. 21), batched."""
     return (expected_energy_batch_torch(Ns, mus, Ps)
             * expected_delay_batch_torch(Ns, mus))
+
+
+# ---------------------------------------------------------------------------
+# Alpha-power DVFS model (speed scaling): mu ∝ f, P ∝ f^alpha.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class DVFSModel:
+    """Alpha-power frequency scaling for heterogeneous pools.
+
+    Running pool j at relative frequency f_j scales its service rates
+    linearly (mu_ij -> f_j * mu_ij) and its dynamic power polynomially
+    (P_ij -> f_j**alpha * P_ij, alpha in [2, 3] for CMOS). At a uniform
+    scale f the energy per task is exactly f**(alpha-1) * E(1) — convex
+    in f for alpha >= 2. `alpha` here is the power-vs-FREQUENCY exponent;
+    it is unrelated to `PowerModel.alpha`, the power-vs-RATE affinity
+    exponent (<= 1) of the paper's Sec. 3.2 scenarios.
+
+    `idle_frac` is the static-leakage share: a pool that is powered on
+    (f_j > 0) draws idle_frac * max_i P_ij regardless of load, a parked
+    pool draws nothing. This is what makes pool-parking worth pricing
+    separately from downclocking.
+    """
+    alpha: float = 3.0
+    levels: tuple = (0.5, 0.75, 1.0, 1.25)
+    idle_frac: float = 0.10
+
+    def __post_init__(self):
+        if self.alpha < 1.0:
+            raise ValueError(f"alpha-power exponent must be >= 1; "
+                             f"got {self.alpha}")
+        lv = tuple(float(f) for f in self.levels)
+        if not lv or any(f <= 0 for f in lv) or list(lv) != sorted(lv):
+            raise ValueError(f"levels must be sorted positive frequencies; "
+                             f"got {self.levels!r}")
+        object.__setattr__(self, "levels", lv)
+        if not 0.0 <= self.idle_frac < 1.0:
+            raise ValueError(f"idle_frac must be in [0, 1); "
+                             f"got {self.idle_frac}")
+
+    # ---------------- host (float64) ----------------
+    def scale_mu(self, mu: np.ndarray, f) -> np.ndarray:
+        """Rates at per-pool frequencies f ((l,) or scalar): f_j * mu_ij."""
+        return np.asarray(mu, dtype=np.float64) * np.asarray(f, np.float64)
+
+    def scale_power(self, P: np.ndarray, f) -> np.ndarray:
+        """Dynamic power at per-pool frequencies: f_j**alpha * P_ij."""
+        return (np.asarray(P, dtype=np.float64)
+                * np.asarray(f, np.float64) ** self.alpha)
+
+    def energy_scale(self, f: float) -> float:
+        """E(f)/E(1) at a UNIFORM scale f: f**(alpha-1) (convex, alpha>=2)."""
+        return float(f) ** (self.alpha - 1.0)
+
+    def idle_power(self, P: np.ndarray, f) -> np.ndarray:
+        """(l,) static leakage draw: idle_frac * peak column power while the
+        pool is on (f_j > 0), zero when parked."""
+        peak = np.asarray(P, dtype=np.float64).max(axis=0)
+        on = np.asarray(f, np.float64) > 0
+        return np.where(on, self.idle_frac * peak, 0.0)
+
+    # ---------------- device (float32, batched) ----------------
+    def scale_torch(self, mu, P, fs, device=None):
+        """Batched twin: frequency grid fs (F, l) against one nominal
+        (mu, P) pair -> (mus (F, k, l), Ps (F, k, l)) float32 on `device`
+        (default "cuda"), the shapes `solve_targets_grid_torch` /
+        `expected_energy_batch_torch` consume."""
+        from repro_torch import resolve_device
+        dev = resolve_device(device)
+        fs = torch.as_tensor(np.asarray(fs, np.float32), device=dev)[:, None]
+        mu = torch.as_tensor(np.asarray(mu, np.float32), device=dev)[None]
+        P = torch.as_tensor(np.asarray(P, np.float32), device=dev)[None]
+        return mu * fs, P * fs ** torch.tensor(self.alpha,
+                                               dtype=torch.float32,
+                                               device=dev)
+
+
+def scenario_identities(N: np.ndarray, mu: np.ndarray) -> dict:
+    """Closed-form checks: eq. 22 (alpha=0) and eq. 23 (alpha=1), l=2 forms
+    generalize to E[E] = l*k_coeff/X (const power) and E[E] = k_coeff (prop)."""
+    l = np.asarray(N).shape[1]
+    X = system_throughput(N, mu)
+    return {
+        "const_power_energy": l / X,       # eq. 22 with k_coeff=1, general l
+        "prop_power_energy": 1.0,          # eq. 23 with k_coeff=1
+        "const_power_edp": l * np.asarray(N).sum() / X**2,
+        "prop_power_edp": np.asarray(N).sum() / X,
+    }

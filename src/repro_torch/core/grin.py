@@ -349,28 +349,14 @@ def phase_scale(N, mus, Ps, objective: int) -> torch.Tensor:
     |EDP| (eq. 21) for the energy ones (inf where X_sys is 0). Summed row by
     row and column by column from the left, the order the fused kernel
     sums in, so the per-step loop and the kernel draw the same threshold."""
-    from repro_torch.kernels.grin_moves import OBJ_EDP, OBJ_X, OBJ_XE
-    k, l = N.shape[-2:]
-    energy = objective not in (OBJ_X, OBJ_XE)
-    c = N[:, 0]
-    wx = mus[:, 0] * N[:, 0]
-    wp = Ps[:, 0] * N[:, 0] if energy else None
-    for i in range(1, k):
-        c = c + N[:, i]
-        wx = wx + mus[:, i] * N[:, i]
-        if energy:
-            wp = wp + Ps[:, i] * N[:, i]
+    from repro_torch.kernels.grin_moves import (OBJ_EDP, OBJ_X, OBJ_XE,
+                                                _column_sums, _left_sum)
+    c = _column_sums(N)
     cc = torch.clamp(c, min=1.0)
-    X = torch.where(c > 0, wx / cc, 0.0)
-    xs = X[:, 0]
-    for j in range(1, l):
-        xs = xs + X[:, j]
-    if not energy:
+    xs = _left_sum(torch.where(c > 0, _column_sums(mus * N) / cc, 0.0))
+    if objective in (OBJ_X, OBJ_XE):
         return xs
-    W = torch.where(c > 0, wp / cc, 0.0)
-    ws = W[:, 0]
-    for j in range(1, l):
-        ws = ws + W[:, j]
+    ws = _left_sum(torch.where(c > 0, _column_sums(Ps * N) / cc, 0.0))
     xc = torch.clamp(xs, min=1e-30)
     e = ws / xc
     if objective == OBJ_EDP:

@@ -22,8 +22,10 @@ whose prefix of doubling slopes stays >= max(runner-up m=1 gain, 0).
 
 `block_move_scores` dispatches on the tensors' device: CPU tensors take the
 plain PyTorch version (`_gains_body` / `_energy_gains_body` /
-`_select_body`, op for op the reference package's jnp bodies); CUDA tensors
-launch the kernel in `csrc/grin_moves.cu` or raise.
+`_select_body`, op for op the reference package's jnp bodies, except that
+the column sums and X_sys and W_sys are summed from the left, as the kernel
+sums them); CUDA tensors launch the kernel in `csrc/grin_moves.cu` or
+raise.
 
 `grin_block_solve_cuda` launches the same source's fused solver: the whole
 block-move loop of `core.grin`, one warp per instance, in one launch. Its
@@ -65,8 +67,8 @@ def reset_launches() -> None:
 def _gains_body(N, mu, sizes):
     """N, mu (B, k, l) float32; sizes (M,) float32 -> gain (B, M, k, l, l)."""
     l = N.shape[-1]
-    colsum = N.sum(dim=-2)                               # (B, l)
-    w = (mu * N).sum(dim=-2)                             # (B, l)
+    colsum = _column_sums(N)                             # (B, l)
+    w = _column_sums(mu * N)                             # (B, l)
     X = torch.where(colsum > 0, w / torch.clamp(colsum, min=1.0), 0.0)
     m = sizes[None, :, None, None]                       # (1, M, 1, 1)
     cb = colsum[:, None, None, :]                        # (B, 1, 1, l)
@@ -81,6 +83,22 @@ def _gains_body(N, mu, sizes):
     return torch.where(eye, _NEG, gain)
 
 
+def _left_sum(t):
+    """t summed over its last axis from the left, the order the kernel sums
+    in (a library reduction may pair the terms otherwise, and an ulp of a
+    column's X or of X_sys moves near-ties)."""
+    s = t[..., 0]
+    for j in range(1, t.shape[-1]):
+        s = s + t[..., j]
+    return s
+
+
+def _column_sums(t):
+    """(B, k, l) -> (B, l): each column summed over the rows from the top,
+    as the kernel sums it."""
+    return _left_sum(t.transpose(-1, -2))
+
+
 def _energy_gains_body(N, mu, P, sizes, objective):
     """Energy-aware gain scoring: (gain (B, M, k, l, l), tie | None).
 
@@ -93,14 +111,14 @@ def _energy_gains_body(N, mu, P, sizes, objective):
     and gains are the NEGATED deltas (drops). Infeasible moves (src short of
     m tasks, s == d, or a move that drains the system) score -inf."""
     l = N.shape[-1]
-    colsum = N.sum(dim=-2)                               # (B, l)
-    wx = (mu * N).sum(dim=-2)
-    wp = (P * N).sum(dim=-2)
+    colsum = _column_sums(N)                             # (B, l)
+    wx = _column_sums(mu * N)
+    wp = _column_sums(P * N)
     X = torch.where(colsum > 0, wx / torch.clamp(colsum, min=1.0), 0.0)
     W = torch.where(colsum > 0, wp / torch.clamp(colsum, min=1.0), 0.0)
-    Xs = X.sum(dim=-1)[:, None, None, None, None]        # (B, 1, 1, 1, 1)
-    Ws = W.sum(dim=-1)[:, None, None, None, None]
-    ntot = colsum.sum(dim=-1)[:, None, None, None, None]
+    Xs = _left_sum(X)[:, None, None, None, None]         # (B, 1, 1, 1, 1)
+    Ws = _left_sum(W)[:, None, None, None, None]
+    ntot = _left_sum(colsum)[:, None, None, None, None]
     m = sizes[None, :, None, None]                       # (1, M, 1, 1)
     cb = colsum[:, None, None, :]                        # (B, 1, 1, l)
 
@@ -199,6 +217,23 @@ _I = ctypes.c_int
 
 
 MAX_SIZES = 32          # ladder entries: one a lane in the kernel
+_SOLVE_WARPS = 4        # instances a block (WARPS in csrc/grin_moves.cu)
+_SMEM_LIMIT = 48 * 1024  # static shared memory a launch may ask for
+
+
+def check_solve_shape(k: int, l: int) -> None:
+    """Raise unless a (k, l) instance fits the CUDA kernels, as their C
+    entry points check it: the block's shared memory, WARPS * (3*k*l + 3*l)
+    float32s, within 48 KB, and k*l*l < 2^22 (the directions the kernel
+    decodes with exact float reciprocals)."""
+    if k * l * l >= 1 << 22:
+        raise ValueError(f"a ({k}, {l}) instance has k*l*l = {k * l * l} "
+                         f"move directions; the GrIn kernels take < 2^22")
+    smem = _SOLVE_WARPS * (3 * k * l + 3 * l) * 4
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"a ({k}, {l}) instance needs {smem} bytes of shared "
+                         f"memory a block; the GrIn kernels take at most "
+                         f"{_SMEM_LIMIT}")
 
 
 def _kernel_lib():
@@ -291,6 +326,7 @@ def grin_block_solve_cuda(N0, mu, sizes, cap, *, P=None, objective=OBJ_X):
     if N0.dim() != 3:
         raise ValueError(f"N0 must be (B, k, l); got {tuple(N0.shape)}")
     b, k, l = N0.shape
+    check_solve_shape(k, l)
     ins = [("N0", N0), ("mu", mu), ("sizes", sizes)]
     if objective != OBJ_X:
         if P is None:

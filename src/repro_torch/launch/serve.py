@@ -30,15 +30,17 @@ def main(argv=None) -> None:
     ap.add_argument("--heterogeneous", action="store_true",
                     help="CAB-schedule a prefill/decode mix over two pools")
     ap.add_argument("--traffic", action="store_true",
-                    help="replay an open request trace (not yet ported)")
+                    help="replay an open request trace (not yet ported: "
+                         "ROADMAP A4)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if args.traffic:
-        raise NotImplementedError("--traffic (open-trace replay through "
-                                  "GrIn-P and admission control) is not "
-                                  "yet ported")
+        raise NotImplementedError("--traffic (open-trace replay) is not yet "
+                                  "ported: it needs the open traffic "
+                                  "engine and admission control (ROADMAP "
+                                  "A4)")
 
     dev = resolve_device(args.device)
     cfg = smoke_config(get_arch(args.arch))

@@ -5,5 +5,7 @@ from repro_torch.sched.api import (Policy, SchedulerCore, SystemView, as_core,
                                    solve_targets_grid_torch,
                                    solve_targets_torch)
 from repro_torch.sched.baselines import BaselineClusterScheduler
+from repro_torch.sched.priority import (CABPriorityPolicy, GrInPriorityPolicy,
+                                        priority_sim_config)
 
 __all__ = [s for s in dir() if not s.startswith("_")]

@@ -3,11 +3,11 @@
 The paper's central claim (Lemma 2) is that a single routing rule — keep the
 live placement pinned at the solver's target state N* via largest-deficit
 dispatch — is optimal regardless of the execution substrate. Every solver
-(CAB, GrIn, the energy-aware GrIn variants, exhaustive Opt) and every
-classic baseline (RD/BF/LB/JSQ) is a `Policy`, and the shared machinery —
-target caching keyed on (type-mix, mu), largest-deficit routing with rate
-tiebreak, EWMA straggler rate-folding, elastic topology events — lives
-exactly once in `SchedulerCore`.
+(CAB, GrIn, GrIn+, SLSQP, the energy-aware GrIn variants, exhaustive Opt)
+and every classic baseline (RD/BF/LB/JSQ) is a `Policy`, and the shared
+machinery — target caching keyed on (type-mix, mu), largest-deficit routing
+with rate tiebreak, EWMA straggler rate-folding, elastic topology events —
+lives exactly once in `SchedulerCore`.
 
     >>> core = SchedulerCore(get_policy("grin"), mu)     # runs on "cuda"
     >>> j = core.route(task_type)            # largest-deficit dispatch
@@ -20,8 +20,15 @@ device (block-move GrIn scoring its moves in the CUDA kernel;
 substrate for `SchedulerCore.elastic_what_if`. `SchedulerCore.route_many`
 routes a burst of arrivals through the largest-deficit rule on the device.
 
-Not ported yet: grin+, slsqp, grin-p and cab-p (they raise), the decision
-recorder, DVFS `set_frequencies` and hedged `route_backup`.
+Priority-class policies (`repro_torch.sched.priority`: grin-p/cab-p) run on
+a class-major FLATTENED problem — row (c*k + i) of mu is class c's i-type —
+so `SchedulerCore` keeps per-(class, type) deficits with no extra state; the
+target-cache key includes the class-weight vector, and the engines'
+strict-priority service order (`order="PRIO"`) supplies the preemption-free
+class ordering at the processors.
+
+Not ported yet: the decision recorder and hedged `route_backup` (ROADMAP
+A4).
 """
 from __future__ import annotations
 
@@ -40,7 +47,8 @@ from repro_torch.core.exhaustive import exhaustive_solve
 from repro_torch.core.grin import (_grin_single_core, grin_solve,
                                    grin_solve_batch_torch)
 from repro_torch.core.grin_energy import grin_energy_solve
-from repro_torch.core.slsqp import round_largest_remainder
+from repro_torch.core.grin_plus import grin_multistart_solve
+from repro_torch.core.slsqp import round_largest_remainder, slsqp_solve
 from repro_torch.core.throughput import (state_from_pair, system_throughput,
                                          system_throughput_torch,
                                          throughput_map_2x2)
@@ -110,11 +118,15 @@ class Policy:
         """Stateless policies: pick the processor for one arriving task."""
         raise NotImplementedError(f"{self.name} is not a stateless policy")
 
+    def repin_target(self, mu: np.ndarray, *, lost: int | None = None,
+                     added: bool = False) -> None:
+        """The topology changed under this policy (`mu` is the post-event
+        matrix). Solver policies re-solve lazily on the next route, so the
+        default is a no-op; policies that PIN a placement (FixedTargetPolicy)
+        must remap it here or the next `solve_target` shape check raises."""
+
 
 _REGISTRY: dict[str, type[Policy]] = {}
-# Registry names of the reference package whose solvers are not ported yet.
-_NOT_PORTED = frozenset({"grin+", "grin_plus", "grinplus", "slsqp", "grin-p",
-                         "grinp", "grin_p", "cab-p", "cabp", "cab_p"})
 
 
 def register_policy(key: str, *aliases: str):
@@ -138,10 +150,6 @@ def get_policy(name: str | Policy, **kwargs) -> Policy:
             raise TypeError("constructor kwargs only apply to registry names; "
                             f"got a {name.name} instance plus {set(kwargs)}")
         return name
-    if str(name).lower() in _NOT_PORTED:
-        raise NotImplementedError(
-            f"policy {name!r} is not yet ported to repro_torch; ported: "
-            f"{', '.join(available_policies())}")
     cls = _REGISTRY.get(str(name).lower())
     if cls is None:
         raise KeyError(f"unknown policy {name!r}; available: "
@@ -179,6 +187,16 @@ class GrInPolicy(Policy):
 
     def solve_target(self, mu, n_tasks):
         return grin_solve(mu, n_tasks).N
+
+
+@register_policy("grin+", "grin_plus", "grinplus")
+class GrInPlusPolicy(Policy):
+    """GrIn+ multistart (swap escapes + basin hops + AF seeds)."""
+
+    name = "GrIn+"
+
+    def solve_target(self, mu, n_tasks):
+        return grin_multistart_solve(mu, n_tasks).N
 
 
 @register_policy("grin-e", "grine", "grin_e")
@@ -243,6 +261,18 @@ class CABEnergyPolicy(Policy):
         return states[np.flatnonzero(near)[np.argmin(E[near])]]
 
 
+@register_policy("slsqp")
+class SLSQPPolicy(Policy):
+    """Continuous SLSQP relaxation, largest-remainder rounded to integers."""
+
+    name = "SLSQP"
+    integer_target = False
+
+    def solve_target(self, mu, n_tasks):
+        res = slsqp_solve(mu, n_tasks)
+        return round_largest_remainder(res.N, n_tasks)
+
+
 @register_policy("opt", "exhaustive")
 class ExhaustivePolicy(Policy):
     """Exhaustive enumeration — exact optimum, exponential cost (paper scale
@@ -268,6 +298,20 @@ class FixedTargetPolicy(Policy):
 
     def solve_target(self, mu, n_tasks):
         return self._fixed
+
+    def repin_target(self, mu, *, lost=None, added=False):
+        tgt = np.asarray(self._fixed, dtype=np.int64)
+        if lost is not None:
+            moved = tgt[:, lost]
+            tgt = np.delete(tgt, lost, axis=1)
+            # re-home the lost column's allocation type-by-type onto the
+            # fastest surviving pool (mu is already the post-event matrix)
+            best = np.argmax(mu, axis=1)
+            np.add.at(tgt, (np.arange(tgt.shape[0]), best), moved)
+        if added:
+            tgt = np.concatenate(
+                [tgt, np.zeros((tgt.shape[0], 1), dtype=np.int64)], axis=1)
+        self._fixed = tgt
 
 
 # ------------------------------ stateless baselines ------------------------
@@ -488,6 +532,8 @@ class SchedulerCore:
       complete(task_type, pool[, service_s])    (EWMA feedback if timed)
       notify_type_counts(n_tasks)               (piecewise-closed mix change)
       pool_lost(j) / pool_added(mu_column)      (elastic topology)
+      set_frequencies(f)                        (per-pool DVFS rescale)
+      set_class_weights(w)                      (priority-class weights)
       warm_targets(mixes)                       (batched pre-solve on device)
 
     When the in-flight type mix is pinned via reset/notify_type_counts, the
@@ -499,6 +545,7 @@ class SchedulerCore:
     def __init__(self, policy: str | Policy, mu: np.ndarray, *,
                  rate_alpha: float = 0.3,
                  resolve_rate_rel_change: float = 0.25, seed: int = 0,
+                 refresh_on_topology: bool = False,
                  cache_capacity: int | None = None, device=None):
         self.policy = get_policy(policy)
         # batched solves (warm_targets, elastic_what_if) and route_many run
@@ -507,6 +554,9 @@ class SchedulerCore:
         self._rate_alpha = rate_alpha
         self._resolve_threshold = resolve_rate_rel_change
         self._seed = seed
+        # Opt-in: pool_lost/pool_added repin the policy's pinned target to
+        # the new pool set instead of leaving it to raise on the next route.
+        self.refresh_on_topology = refresh_on_topology
         if cache_capacity is None:
             cache_capacity = _CACHE_CAP     # read at call time (patchable)
         if cache_capacity < 1:
@@ -539,7 +589,8 @@ class SchedulerCore:
                     f"{self.policy.name} requires exactly "
                     f"{self.policy.pool_limit} pools; got {mu.shape[1]}")
             self._set_mu(mu)
-            self.nominal_mu = self.mu.copy()
+            self.nominal_mu = self.mu.copy()   # the f=1 DVFS baseline
+            self._freq = np.ones(self.l)
         else:
             self._set_mu(self.base_mu.copy())  # drop EWMA folding: to nominal
         self.base_mu = self.mu.copy()
@@ -615,11 +666,26 @@ class SchedulerCore:
         self._targets[key] = target
 
     def _weights_key(self) -> tuple | None:
-        """Priority-class weight vector as a hashable cache-key component
-        (None for the single-class policies ported so far); kept in the key
-        so the cache layout matches the reference package's."""
+        """Priority-class weight vector as a hashable cache-key component.
+        Weight updates via `set_class_weights` change this key, so a warm
+        cache can never serve a target solved under stale weights."""
         w = self.policy.class_weights
         return None if w is None else tuple(float(x) for x in w)
+
+    def set_class_weights(self, weights) -> None:
+        """Update the policy's priority-class weight vector. Targets re-solve
+        lazily because the weights are part of every cache key; the pinned
+        fast-path rows are dropped eagerly."""
+        cur = self.policy.class_weights
+        if cur is None:
+            raise ValueError(f"{self.policy.name} is not a priority-class "
+                             "policy (no class_weights)")
+        w = np.asarray(weights, dtype=np.float64)
+        if w.shape != (len(cur),) or (w < 0).any():
+            raise ValueError(f"weights must be a nonneg ({len(cur)},) "
+                             f"vector; got {weights!r}")
+        self.policy.class_weights = w
+        self._pinned_rows = None
 
     def _target_for(self, n_tasks: np.ndarray,
                     key_hint: tuple | None = None) -> np.ndarray:
@@ -926,7 +992,28 @@ class SchedulerCore:
             if self.policy.needs_target:
                 self._maybe_refresh_rates()
 
-    # ---------------- stragglers / elastic ----------------
+    # ---------------- stragglers / elastic / DVFS ----------------
+    @property
+    def frequencies(self) -> np.ndarray:
+        """(l,) current per-pool DVFS scale (1.0 = nominal)."""
+        return self._freq.copy()
+
+    def set_frequencies(self, f) -> None:
+        """Per-pool DVFS rescale: effective rates become f_j * nominal mu
+        (alpha-power model, mu ∝ f). Routed through `_set_mu`, so the mu
+        version token bumps and a warm cache can never serve a target
+        solved at stale frequencies. Accumulated EWMA straggler folding is
+        dropped to the new operating point (it re-converges from live
+        completions). Frequencies must be positive: parking a pool is a
+        `pool_lost` topology event, not a frequency."""
+        f = np.asarray(f, dtype=np.float64)
+        if f.shape != (self.l,) or not np.isfinite(f).all() or (f <= 0).any():
+            raise ValueError(f"need ({self.l},) positive finite "
+                             f"frequencies; got {f!r}")
+        self._freq = f.copy()
+        self.base_mu = self.nominal_mu * f[None, :]
+        self._set_mu(self.base_mu.copy())
+
     def _maybe_refresh_rates(self) -> None:
         """Fold observed slowdowns into mu; targets re-solve lazily because
         the cache key includes the mu version token."""
@@ -942,6 +1029,7 @@ class SchedulerCore:
         self._set_mu(np.delete(self.mu, pool, axis=1))
         self.base_mu = np.delete(self.base_mu, pool, axis=1)
         self.nominal_mu = np.delete(self.nominal_mu, pool, axis=1)
+        self._freq = np.delete(self._freq, pool)
         # rebuild-and-swap keeps the row lists rectangular at every instant
         # (unlocked snapshot readers must never observe ragged rows)
         self._counts_rows = [row[:pool] + row[pool + 1:]
@@ -951,21 +1039,30 @@ class SchedulerCore:
         t = self.tracker
         t.rates = np.delete(t.rates, pool)
         t.seen = np.delete(t.seen, pool)
+        if self.refresh_on_topology:
+            self.policy.repin_target(self.mu, lost=pool)
 
-    def pool_added(self, mu_column: np.ndarray) -> None:
-        """Elastic: a pool joined with rates `mu_column`."""
+    def pool_added(self, mu_column: np.ndarray,
+                   frequency: float = 1.0) -> None:
+        """Elastic: a pool joined with NOMINAL rates `mu_column`, optionally
+        entering at a non-unit DVFS `frequency` (effective rates scale)."""
+        if not (np.isfinite(frequency) and frequency > 0):
+            raise ValueError(f"frequency must be positive; got {frequency!r}")
         mu_column = np.asarray(mu_column, dtype=np.float64)
-        self._set_mu(np.concatenate([self.mu, mu_column[:, None]], axis=1))
-        self.base_mu = np.concatenate([self.base_mu, mu_column[:, None]],
-                                      axis=1)
+        eff = mu_column * frequency
+        self._set_mu(np.concatenate([self.mu, eff[:, None]], axis=1))
+        self.base_mu = np.concatenate([self.base_mu, eff[:, None]], axis=1)
         self.nominal_mu = np.concatenate(
             [self.nominal_mu, mu_column[:, None]], axis=1)
+        self._freq = np.append(self._freq, float(frequency))
         self._counts_rows = [row + [0] for row in self._counts_rows]
         self._backlog = self._backlog + [0.0]
         self._targets.clear()
         t = self.tracker
         t.rates = np.append(t.rates, 0.0)
         t.seen = np.append(t.seen, False)
+        if self.refresh_on_topology:
+            self.policy.repin_target(self.mu, added=True)
 
 
 def as_core(policy: str | Policy | SchedulerCore, mu: np.ndarray,

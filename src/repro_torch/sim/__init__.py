@@ -5,6 +5,7 @@ from repro_torch.sim.distributions import (DISTRIBUTIONS, BoundedPareto,
                                            make_distribution)
 from repro_torch.sim.engine_torch import (compare_policies, simulate_batch,
                                           simulate_policy, sweep)
-from repro_torch.sim.simulator import SimConfig, SimMetrics
+from repro_torch.sim.simulator import (ClosedNetworkSimulator, SimConfig,
+                                      SimMetrics, run_policy_sweep)
 
 __all__ = [s for s in dir() if not s.startswith("_")]

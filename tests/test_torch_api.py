@@ -39,8 +39,9 @@ def test_registry_ports_the_slice_and_refuses_the_rest():
         assert get_policy(key if key != "fixed" else "opt").name == \
             rapi.get_policy(key if key != "fixed" else "opt").name
     for key in ("grin+", "slsqp", "grin-p", "cab-p"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            get_policy(key)
+        assert key in names
+        assert get_policy(key).name == rapi.get_policy(key).name
+    assert names == rapi.available_policies()
     with pytest.raises(KeyError, match="unknown policy"):
         get_policy("nope")
     assert get_policy("grin-e").torch_objective == "max-x-e"
@@ -318,8 +319,10 @@ def test_sim_config_from_reference_fields():
             cfg.seed) == ("FCFS", 900, 100, 3)
     assert cfg.distribution.name == "exponential"
     assert cfg.power.alpha == rc.power.alpha
-    with pytest.raises(NotImplementedError, match="type_mix"):
-        convert.sim_config_from_reference(dict(fields, type_mix=[0.5, 0.5]))
+    mixed = convert.sim_config_from_reference(dict(fields, type_mix=[0.5, 0.5]))
+    np.testing.assert_array_equal(mixed.type_mix, [0.5, 0.5])
+    with pytest.raises(NotImplementedError, match="traffic"):
+        convert.sim_config_from_reference(dict(fields, traffic=object()))
 
 
 def test_baseline_cluster_scheduler_and_device_default(monkeypatch):

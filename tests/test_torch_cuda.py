@@ -147,6 +147,110 @@ def test_fused_solve_wrapper_checks_its_inputs(cuda):
         G.grin_block_solve_cuda(N0, mus[:, :3].contiguous(), sizes, 10)
 
 
+def _class_grid(seed, B, C, k=4, l=6):
+    """(k, l) affinities and (B, C, k) class mixes: a small latency class
+    (600 tasks) and batch classes (5400), each split Dirichlet(0.3)."""
+    rng = np.random.default_rng(seed)
+    mu = rng.uniform(1.0, 30.0, size=(k, l))
+    sizes = [600] + [5400] * (C - 1)
+    mixes = np.stack([np.stack([rng.multinomial(n, rng.dirichlet([0.3] * k))
+                                for n in sizes]) for _ in range(B)])
+    return mu, mixes
+
+
+@pytest.mark.parametrize("objective", ["max-x", "max-x-e"])
+@pytest.mark.parametrize("C", [1, 2, 3])
+def test_fused_solve_at_class_weighted_shapes_matches_plain_loop(cuda, C,
+                                                                 objective):
+    """GrIn-P hands the fused solve (B, C*k, l) instances with w_c * mu rows
+    (formed in float64, then cast) and the physical tiled P; one launch
+    gives the per-step loop's targets, moves and flags at every point
+    (`grin_solve_batch_steps_torch`), both with the plain PyTorch scorer
+    (the fused solve's plain version) and with the scorer kernel. The
+    plain energy bodies sum X_sys and W_sys in the kernel's order, so
+    max-x-e's X-plateau band edge falls where the kernel's does."""
+    from repro_torch.core.affinity import PROPORTIONAL_POWER
+    from repro_torch.core.grin import grin_solve_batch_steps_torch
+    from repro_torch.core.priority import (flatten_mixes,
+                                           grin_solve_priority_batch_torch,
+                                           priority_mu)
+    mu, mixes = _class_grid(40 + C, B=256, C=C)
+    w = np.array([4.0, 1.0, 0.5][:C])
+    before = dict(G.launches)
+    N, xw, conv, moves = grin_solve_priority_batch_torch(
+        mu, mixes, w, objective=objective, device=cuda)
+    assert G.launches["grin_solve"] == before["grin_solve"] + 1
+    P = (None if objective == "max-x"
+         else np.tile(PROPORTIONAL_POWER.power_matrix(mu), (C, 1)))
+    for scorer in (G.block_move_scores_reference, None):
+        Ns, xs, convs, movess = grin_solve_batch_steps_torch(
+            priority_mu(mu, w), flatten_mixes(mixes), objective=objective,
+            P=P, device=cuda, scorer=scorer)
+        assert conv.all() and convs.all()
+        differing = ((N.reshape(len(mixes), -1)
+                      != Ns.reshape(len(mixes), -1)).any(dim=1)
+                     | (moves != movess))
+        assert int(differing.sum()) == 0, scorer
+        assert torch.equal(xw, xs)
+    assert torch.equal(N.sum(dim=3).cpu(),
+                       torch.as_tensor(mixes, dtype=torch.float32))
+
+
+def test_fused_solve_refuses_shapes_over_its_shared_memory(cuda):
+    """64 classes of 4 types on 6 pools need 18.5 KB of shared memory an
+    instance, 74 KB for a block of four, over the 48 KB a launch may ask
+    for: the solve raises with the shape and does not drop to the per-step
+    loop."""
+    from repro_torch.core.priority import grin_solve_priority_batch_torch
+    mu, mixes = _class_grid(9, B=4, C=64)
+    before = dict(G.launches)
+    with pytest.raises(ValueError, match="shared memory"):
+        grin_solve_priority_batch_torch(mu, mixes, np.ones(64), device=cuda)
+    assert G.launches == before
+
+
+def test_prio_engine_batch_has_finite_per_class_metrics(cuda):
+    """A PRIO batch on the card: finite per-class metrics wherever a class
+    completes work, the class split summing to the total, and each run's
+    total X within the conformance gate (0.15) of the host event core's on
+    the same config and seed. Strict priority may starve the batch class;
+    then both must agree it is dead. (At these 3,000 completions a single
+    run of the batch class scatters too widely for a per-class gate; the
+    smoke holds every run's per-class rates to the host core at 0.2, with
+    PRIO runs of 48,000 completions.)"""
+    from repro_torch.sched import get_policy
+    from repro_torch.sched.priority import priority_sim_config
+    from repro_torch.sim import (ClosedNetworkSimulator, compare_policies,
+                                 make_distribution)
+    rng = np.random.default_rng(21)
+    pol = get_policy("grin-p", weights=[3.0, 1.0])
+    cfg = priority_sim_config(
+        rng.uniform(1, 30, (2, 3)), np.array([[3, 2], [7, 8]]),
+        distribution=make_distribution("exponential"), order="PRIO",
+        n_completions=3000, warmup_completions=600, seed=0)
+    rows = compare_policies(cfg, [pol, "lb"], seeds=[0, 1], device=cuda)
+    alive = 0
+    for name, spec in (("GrIn-P", pol), ("LB", "lb")):
+        for seed, m in zip([0, 1], rows[name]):
+            assert m.meta["device"].startswith("cuda")
+            assert m.class_throughput.sum() == pytest.approx(m.throughput,
+                                                             rel=1e-5)
+            cfg.seed = seed
+            host = ClosedNetworkSimulator(cfg, device="cpu").run(spec)
+            for c in range(2):
+                dx, hx = m.class_throughput[c], host.class_throughput[c]
+                if hx == 0 or dx == 0:
+                    assert hx < 0.02 * host.throughput
+                    assert dx < 0.02 * m.throughput
+                    continue
+                alive += 1
+                assert np.isfinite(m.class_response_time[c])
+                assert np.isfinite(m.class_energy[c])
+            assert abs(m.throughput - host.throughput) / host.throughput \
+                < 0.15, (name, seed, m.throughput, host.throughput)
+    assert alive >= 6          # LB keeps both classes running
+
+
 # ------------------------------------------------------------ model kernels
 #
 # Tolerances (the reference sweep's, tests/test_kernels.py): attention

@@ -108,8 +108,9 @@ def test_compare_policies_and_single_runs():
                                   "hyperexp", "weibull"])
 def test_size_distributions_have_unit_mean(dist):
     from repro_torch.sim.engine_torch import _draws
-    sizes, rd = _draws([0, 1], 20000, make_distribution(dist), 4,
-                       torch.device("cpu"))
+    sizes, rd, _ = _draws([0, 1], 20000, (make_distribution(dist),), 4,
+                          torch.device("cpu"))
+    sizes = sizes[0]
     assert sizes.shape == (20000, 2) and (sizes > 0).all()
     assert float(sizes.mean()) == pytest.approx(1.0, rel=0.06)
     assert int(rd.min()) >= 0 and int(rd.max()) == 3
@@ -120,8 +121,13 @@ def test_engine_validates_inputs(monkeypatch):
     tgt = np.zeros((1, 3, 3), dtype=np.int64)
     kw = dict(distribution=make_distribution("exponential"),
               n_completions=50, warmup_completions=10, device="cpu")
-    with pytest.raises(NotImplementedError, match="PRIO"):
-        simulate_batch(MUS[0], tgt, t0, [0], order="PRIO", **kw)
+    with pytest.raises(ValueError, match="unknown order"):
+        simulate_batch(MUS[0], tgt, t0, [0], order="LIFO", **kw)
+    for field in ("traffic", "faults"):
+        cfg = _cfg("PS", n=50, warm=10)
+        setattr(cfg, field, object())
+        with pytest.raises(NotImplementedError, match="A4"):
+            simulate_policy(cfg, "grin", device="cpu")
     with pytest.raises(ValueError, match="warmup"):
         simulate_batch(MUS[0], tgt, t0, [0], **dict(kw, warmup_completions=50))
     with pytest.raises(ValueError, match="all mixes"):
