@@ -6,7 +6,8 @@ values, so neither package imports the other:
 
   * `sim_config_from_reference(fields)` builds a `SimConfig` from a dict of
     plain values (the reference config's fields, with the distributions and
-    power model given by name / parameters);
+    power model given by name / parameters, open traffic and fault
+    scenarios as dicts of their fields);
   * `scheduler_core_state(core)` exports a SchedulerCore's routing state —
     from either package, read through the attributes they share — as NumPy
     arrays (a priority policy's class weights and the DVFS frequencies
@@ -26,7 +27,8 @@ from repro_torch.sched.api import SchedulerCore
 from repro_torch.sim.distributions import make_distribution
 from repro_torch.sim.simulator import SimConfig
 
-_UNPORTED_FIELDS = ("traffic", "faults")
+_PROCESSES = {"poisson": "PoissonArrivals", "mmpp": "MMPPArrivals",
+              "diurnal": "DiurnalArrivals", "trace": "TraceArrivals"}
 
 
 def _distribution(spec):
@@ -37,19 +39,64 @@ def _distribution(spec):
     return make_distribution(params.pop("name"), **params)
 
 
+def _as_dict(value, name: str) -> dict:
+    if not isinstance(value, dict):
+        raise TypeError(f"{name} must be a dict of plain values; got "
+                        f"{type(value).__name__}")
+    return dict(value)
+
+
+def open_traffic_from_reference(fields: dict):
+    """An `OpenTraffic` from plain values: `processes` (a list of
+    {"name": "poisson" | "mmpp" | "diurnal" | "trace", **the process's
+    fields}), `type_probs` ((C, k)), `n_arrivals`, and optionally
+    `warmup_arrivals`, `queue_capacity`, `admit_limits`, `deadlines` and
+    `hist` ({"lo", "hi", "n_bins"})."""
+    from repro_torch import traffic
+    f = _as_dict(fields, "traffic")
+    procs = []
+    for spec in f.pop("processes"):
+        spec = _as_dict(spec, "an arrival process")
+        cls = getattr(traffic, _PROCESSES[spec.pop("name")])
+        procs.append(cls(**{k: tuple(v) if isinstance(v, (list, np.ndarray))
+                            else v for k, v in spec.items()}))
+    spec = traffic.TrafficSpec(tuple(procs),
+                               np.asarray(f.pop("type_probs"), np.float64))
+    if f.get("hist") is not None:
+        f["hist"] = traffic.LogHistogram(**_as_dict(f["hist"], "hist"))
+    for name in ("admit_limits", "deadlines"):
+        if f.get(name) is not None:
+            f[name] = np.asarray(f[name])
+    return traffic.OpenTraffic(spec=spec, **{k: v for k, v in f.items()
+                                             if v is not None})
+
+
+def fault_scenario_from_reference(fields: dict):
+    """A `FaultScenario` from plain values: `events` as (time, pool, scale)
+    triples and the scenario's other fields."""
+    from repro_torch.faults import FaultScenario, PoolEvent
+    f = _as_dict(fields, "faults")
+    events = tuple(PoolEvent(float(t), int(j), float(s))
+                   for t, j, s in f.pop("events", ()))
+    if "hedge_classes" in f:
+        f["hedge_classes"] = tuple(int(c) for c in f["hedge_classes"])
+    return FaultScenario(events=events, **f)
+
+
 def sim_config_from_reference(fields: dict) -> SimConfig:
     """A SimConfig from plain values: `mu`, `n_programs_per_type`,
     `distribution` (a registry name or {"name": ..., **params}), and
     optionally `order`, `power` ({"alpha": .., "coeff": ..}),
     `n_completions`, `warmup_completions`, `seed`, `type_mix` ((k,)
     probabilities), `class_of_type` ((k,) ints) and `class_distributions`
-    (a list of specs like `distribution`). `traffic` and `faults` are not
-    ported yet (ROADMAP A4) and must be absent or None."""
-    for name in _UNPORTED_FIELDS:
-        if fields.get(name) is not None:
-            raise NotImplementedError(f"SimConfig.{name} is not yet ported "
-                                      "(ROADMAP A4)")
+    (a list of specs like `distribution`), `traffic` (the dict
+    `open_traffic_from_reference` takes) and `faults` (the dict
+    `fault_scenario_from_reference` takes)."""
     kw = {}
+    if fields.get("traffic") is not None:
+        kw["traffic"] = open_traffic_from_reference(fields["traffic"])
+    if fields.get("faults") is not None:
+        kw["faults"] = fault_scenario_from_reference(fields["faults"])
     for name in ("order", "n_completions", "warmup_completions", "seed"):
         if fields.get(name) is not None:
             kw[name] = fields[name]

@@ -27,8 +27,10 @@ target-cache key includes the class-weight vector, and the engines'
 strict-priority service order (`order="PRIO"`) supplies the preemption-free
 class ordering at the processors.
 
-Not ported yet: the decision recorder and hedged `route_backup` (ROADMAP
-A4).
+`SchedulerCore.route_backup` places a hedged backup copy off its
+primary's pool, and `deficit_route_masked_torch` is the device router
+restricted to pools that are up (the fault layer, `repro_torch.faults`).
+Not ported yet: the decision recorder (ROADMAP A4).
 """
 from __future__ import annotations
 
@@ -502,6 +504,21 @@ def deficit_route_torch(target, rank, counts, t):
     return torch.argmax(key, dim=1)
 
 
+def deficit_route_masked_torch(target, rank, counts, t, avail):
+    """`deficit_route_torch` restricted to available pools (`avail`, bool
+    (l,) or (B, l)): pools that are down drop out of the argmax through the
+    integer sentinel -(2**30), so with every pool up the key — and the
+    decision — is the unmasked rule's."""
+    l = target.shape[-1]
+    if target.dim() == 2:
+        key = (target[t] - counts[t]) * l - rank[t]
+    else:
+        rows = t[:, None, None].expand(-1, 1, l)
+        key = ((target.gather(1, rows) - counts.gather(1, rows)) * l
+               - rank.gather(1, rows))[:, 0]
+    return torch.argmax(torch.where(avail, key, -(2**30)), dim=-1)
+
+
 def _route_many_torch(target, rank, counts0, types: np.ndarray):
     """Sequential largest-deficit dispatch of a burst on the device: one
     decision per arrival, in order, with no host round trip in between.
@@ -917,6 +934,63 @@ class SchedulerCore:
             j = int(self.policy.choose(
                 task_type, view if view is not None else self._internal_view(),
                 rng if rng is not None else self._rng))
+        self._counts_rows[task_type][j] += 1
+        self._backlog[j] += self._inv_mu_rows[task_type][j]
+        return j
+
+    def route_backup(self, task_type: int, exclude: int,
+                     avail: np.ndarray | None = None,
+                     view: SystemView | None = None,
+                     rng: np.random.Generator | None = None) -> int:
+        """Choose the pool for a speculative backup copy of a resident task.
+
+        The hedge-aware twin of `route`: the backup may never land on the
+        primary's pool `exclude` (a straggler duplicated onto its own pool
+        buys nothing), and an optional `avail` mask further restricts the
+        menu to pools currently up. Returns -1 when no pool is eligible —
+        the caller skips the hedge and the core's books are untouched.
+        On success the live count/backlog update is identical to `route`,
+        so a later `complete`/`unroute` balances it the same way.
+        """
+        ok = (np.ones(self.l, dtype=bool) if avail is None
+              else np.asarray(avail, dtype=bool).copy())
+        if 0 <= exclude < self.l:
+            ok[exclude] = False
+        if not ok.any():
+            return -1
+        if self.policy.needs_target:
+            counts = view.counts if view is not None else self.counts
+            if self._mix is not None:
+                target = self._target_for(self._mix, key_hint=self._mix_key)
+            else:
+                mix = counts.sum(axis=1)
+                mix[task_type] += 1        # include the backup copy
+                target = self._target_for(mix)
+            deficit = (target[task_type] - counts[task_type]
+                       ).astype(np.float64)
+            deficit[~ok] = -np.inf
+            best = np.flatnonzero(deficit == deficit.max())
+            j = int(best[np.argmax(self.mu[task_type][best])])
+        else:
+            v = view if view is not None else self._internal_view()
+            if not ok.all():
+                # Same masking convention as the fault engines: ineligible
+                # pools look infinitely loaded and infinitely slow, so every
+                # stateless rule (LB/JSQ/BF/RD via choose) avoids them.
+                vmu = np.array(v.mu, dtype=np.float64)
+                vmu[:, ~ok] = -np.inf
+                bw = np.array(v.backlog_work, dtype=np.float64)
+                bt = np.array(v.backlog_tasks, dtype=np.float64)
+                bw[~ok] = np.inf
+                bt[~ok] = np.inf
+                v = SystemView(counts=v.counts, backlog_work=bw,
+                               backlog_tasks=bt, mu=vmu)
+            j = int(self.policy.choose(
+                task_type, v, rng if rng is not None else self._rng))
+            if not ok[j]:       # random policies ignore the mu mask
+                opts = np.flatnonzero(ok)
+                r = rng if rng is not None else self._rng
+                j = int(opts[r.integers(len(opts))])
         self._counts_rows[task_type][j] += 1
         self._backlog[j] += self._inv_mu_rows[task_type][j]
         return j

@@ -12,8 +12,9 @@ never into the physical rates routing and EWMA folding observe.
 flattened per-class mixes, `class_of_type` map, optional per-class size
 distributions) for both simulation engines; `order="PRIO"` selects the
 strict-priority preemption-free service order (class 0 first; within a
-class, FCFS). The open-network config (`priority_open_config`) waits for
-the traffic subsystem (ROADMAP A4).
+class, FCFS). `priority_open_config` builds the open-network counterpart
+(`repro_torch.traffic`): one arrival process per class on the same
+flattened substrate.
 """
 from __future__ import annotations
 
@@ -124,3 +125,40 @@ def priority_sim_config(mu, class_mixes, weights=None, *,
                      distribution=distribution, order=order,
                      class_of_type=class_of_flat(C, k),
                      class_distributions=class_distributions, **kwargs)
+
+
+def priority_open_config(mu, processes, class_type_probs=None, *,
+                         distribution=None, class_distributions=None,
+                         order: str = "PRIO", **kwargs):
+    """Build the flattened OPEN-network `SimConfig` for a multi-class
+    workload (`repro_torch.traffic`): one arrival process per class, types
+    drawn within each class from `class_type_probs` ((C, k) rows, default
+    uniform), on the same class-major flattened substrate as
+    `priority_sim_config`. Remaining kwargs (n_arrivals, warmup_arrivals,
+    queue_capacity, admit_limits, deadlines, seed, power, ...) pass through
+    to `repro_torch.traffic.open_sim_config`.
+    """
+    from repro_torch.traffic.arrivals import TrafficSpec
+    from repro_torch.traffic.config import open_sim_config
+    mu = np.asarray(mu, dtype=np.float64)
+    k = mu.shape[0]
+    C = len(processes)
+    probs = (np.full((C, k), 1.0 / k) if class_type_probs is None
+             else np.asarray(class_type_probs, dtype=np.float64))
+    if probs.shape != (C, k):
+        raise ValueError(f"class_type_probs must be (C={C}, k={k}); got "
+                         f"{probs.shape}")
+    # class c's mass sits on its own flat rows c*k .. c*k + k - 1
+    flat_probs = np.zeros((C, C * k))
+    for c in range(C):
+        flat_probs[c, c * k:(c + 1) * k] = probs[c]
+    if class_distributions is not None:
+        class_distributions = tuple(class_distributions)
+        if distribution is None:
+            distribution = class_distributions[0]
+    if distribution is None:
+        raise ValueError("need `distribution` (or `class_distributions`)")
+    spec = TrafficSpec(processes=tuple(processes), type_probs=flat_probs)
+    return open_sim_config(flat_mu(mu, C), spec, distribution=distribution,
+                           order=order, class_of_type=class_of_flat(C, k),
+                           class_distributions=class_distributions, **kwargs)

@@ -34,8 +34,10 @@ Scope and semantics:
     per batch point, seeded from the point's seed and drawn in bulk before
     the loop. They cannot replay the host core's NumPy streams, so results
     agree with the host oracle statistically, not bit for bit.
-  * float32 state, like the reference's device engine. Open traffic and
-    fault scenarios are not ported yet (ROADMAP A4) and raise.
+  * float32 state, like the reference's device engine. Open-traffic
+    configs run on the open engine (`repro_torch.traffic.engine_torch`,
+    through `simulate_policy`); closed-network fault inputs are not ported
+    yet (ROADMAP A4, item 1) and raise.
 
 `compare_policies` runs a Fig. 9-style policy comparison — every target
 policy plus the baselines — as one batched simulation.
@@ -52,7 +54,7 @@ from repro_torch.obs.meta import run_meta
 from repro_torch.sched.api import (_mu_tiebreak_ranks, deficit_route_torch,
                                    get_policy, physical_power_matrix,
                                    solve_targets_grid_torch)
-from repro_torch.sim.simulator import SimMetrics, _check_unported
+from repro_torch.sim.simulator import SimMetrics
 
 _BIG_STAMP = 2**62
 
@@ -401,6 +403,19 @@ def simulate_batch(mu, targets, types0, seeds, *, distribution, order="PS",
             "class_occupancy": cls_occ, "device": str(dev)}
 
 
+def _check_closed(cfg, entry: str) -> None:
+    """Refuse what the closed device engine does not run: fault scenarios
+    (not ported) and open traffic (its own engine)."""
+    if getattr(cfg, "faults", None) is not None:
+        raise NotImplementedError(
+            "the closed device engine takes no fault inputs yet (ROADMAP "
+            "A4, item 1); run faults on the host core "
+            "(ClosedNetworkSimulator) or in open mode (simulate_open_batch)")
+    if getattr(cfg, "traffic", None) is not None:
+        raise ValueError(f"open-traffic configs {entry} via "
+                         "repro_torch.traffic.simulate_open_batch")
+
+
 def _types0_for(mix: np.ndarray) -> np.ndarray:
     return np.repeat(np.arange(len(mix)), mix).astype(np.int64)
 
@@ -477,10 +492,15 @@ def simulate_policy(cfg, policy, device=None) -> SimMetrics:
     Policy or SchedulerCore) on the device: the target is solved on the
     host by the policy itself, as the reference's single-config path does.
     `type_mix` configs pin the deficit target at the expected mix and
-    re-draw types in the loop."""
+    re-draw types in the loop. Open-traffic configs (`cfg.traffic`, with or
+    without `cfg.faults`) run on the open engine (`simulate_open_policy`).
+    """
     dev = resolve_device(device)
-    _check_unported(cfg)
     pol = _policy_of(policy)
+    if getattr(cfg, "traffic", None) is not None:
+        from repro_torch.traffic.engine_torch import simulate_open_policy
+        return simulate_open_policy(cfg, pol, device=dev)
+    _check_closed(cfg, "run")
     mu = np.asarray(cfg.mu, dtype=np.float64)
     mix, t0 = _cfg_mix_and_types0(cfg)
     mode = _device_route_mode(pol)
@@ -503,7 +523,7 @@ def sweep(cfg, policy, *, mixes=None, seeds=None, mus=None, device=None):
     `grid` lists (mu_index, mix, seed) per point and `results` is the
     `simulate_batch` dict over the B = G*M*S points."""
     dev = resolve_device(device)
-    _check_unported(cfg)
+    _check_closed(cfg, "sweep")
     pol = _policy_of(policy)
     mode = _device_route_mode(pol)
     if cfg.type_mix is not None and mixes is not None:
@@ -554,7 +574,7 @@ def compare_policies(cfg, policies, seeds=None, device=None) -> dict:
     {name: [SimMetrics per seed]} when `seeds` is given. Duplicate display
     names disambiguate as "Opt", "Opt#2", ..."""
     dev = resolve_device(device)
-    _check_unported(cfg)
+    _check_closed(cfg, "compare")
     mu = np.asarray(cfg.mu, dtype=np.float64)
     mix, _ = _cfg_mix_and_types0(cfg)
     single = seeds is None

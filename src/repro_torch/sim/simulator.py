@@ -46,10 +46,15 @@ reference host core's metrics bit for bit:
     over residents in admission order, which its routing decisions depend
     on.
 
+Open traffic (`SimConfig.traffic`) dispatches to the host open loop
+(`repro_torch.traffic.host.run_open`) and fault scenarios
+(`SimConfig.faults`) to the host fault loops (`repro_torch.faults.host`),
+each bit-equal to the reference package's.
+
 The loop runs on the host; the `SchedulerCore` it routes through is built
-on `device` (its batched solves run there; routing and target solves stay
-the host float64 solvers). Open traffic (`SimConfig.traffic`) and fault
-scenarios (`SimConfig.faults`) are not ported yet and raise.
+on `device` (its batched solves — a refreshed fault scenario's segment
+targets among them — run there; routing and the policy's own target solves
+stay the host float64 solvers).
 """
 from __future__ import annotations
 
@@ -88,9 +93,17 @@ class SimConfig:
     # Per-class task-size distributions (len C); None = `distribution` for
     # every class.
     class_distributions: tuple | None = None
-    # Open-network traffic and fault scenarios: not ported yet (ROADMAP
-    # A4). Both engines raise NotImplementedError unless they are None.
+    # Open-network mode (repro_torch.traffic.OpenTraffic): when set,
+    # arrivals inject tasks and completions depart instead of recirculating;
+    # n_programs_per_type becomes the reference mix target policies solve
+    # at, and finite per-processor queues (traffic.queue_capacity) bound the
+    # population. None = the closed network above.
     traffic: "object | None" = None
+    # Fault scenario (repro_torch.faults.FaultScenario): crash/recovery and
+    # degraded-mu events, transient task failures, checkpoint-restart costs,
+    # hedged dispatch (open mode only) and target refresh on topology
+    # events. None — or a scenario whose events never fire — leaves every
+    # fault-free trajectory bit-identical (dedicated RNG substreams).
     faults: "object | None" = None
 
 
@@ -118,18 +131,41 @@ class SimMetrics:
     class_response_time: np.ndarray | None = None
     class_energy: np.ndarray | None = None
     class_occupancy: np.ndarray | None = None
+    # Open-network (SimConfig.traffic) extras; None on closed runs.
+    # offered counts post-warmup arrivals; dropped = shed by admission +
+    # rejected by a full finite queue. class_quantiles is (C, 3) response
+    # p50/p99/p999 (repro_torch.traffic.quantiles.QUANTILES);
+    # class_deadline_met is the in-window fraction meeting each class's SLO
+    # deadline.
+    offered: int | None = None
+    dropped: int | None = None
+    class_dropped: np.ndarray | None = None
+    class_quantiles: np.ndarray | None = None
+    class_deadline_met: np.ndarray | None = None
+    # Resilience extras (SimConfig.faults); None on fault-free runs.
+    # goodput = successful in-window completions / elapsed; wasted_work =
+    # lost alone-seconds of work (crash rewinds past the last checkpoint,
+    # failed attempts, cancelled hedge duplicates) / elapsed; failures
+    # counts in-window transient failures; topology_events counts crash
+    # breakpoints; reroute_latency averages crash -> next successful
+    # completion; recovery_time averages crash -> population back at its
+    # pre-crash level (open mode; NaN in closed mode).
+    goodput: float | None = None
+    wasted_work: float | None = None
+    failures: int | None = None
+    topology_events: int | None = None
+    reroute_latency: float | None = None
+    recovery_time: float | None = None
+    # Straggler-triggered speculative backups launched (open mode with
+    # faults.hedge_quantile > 0; None elsewhere).
+    spec_hedges: int | None = None
     # meta: the run_meta() substrate block (torch version, device, kernel
     # mode, dtype) stamped by the engine wrappers so every metrics row says
-    # WHERE it was measured.
+    # WHERE it was measured. telemetry: time-resolved per-pool series for
+    # this row ({occupancy, backlog, power, hedges, bin_width, horizon})
+    # when the run asked for them.
     meta: dict | None = None
-
-
-def _check_unported(cfg) -> None:
-    for name in ("traffic", "faults"):
-        if getattr(cfg, name, None) is not None:
-            raise NotImplementedError(
-                f"SimConfig.{name} is not yet ported to repro_torch "
-                "(ROADMAP A4)")
+    telemetry: dict | None = None
 
 
 class ClosedNetworkSimulator:
@@ -138,7 +174,6 @@ class ClosedNetworkSimulator:
     builds for a policy runs its batched solves (default "cuda")."""
 
     def __init__(self, cfg: SimConfig, device=None):
-        _check_unported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.mu = np.asarray(cfg.mu, dtype=np.float64)
@@ -157,11 +192,42 @@ class ClosedNetworkSimulator:
                 and len(cfg.class_distributions) != self.n_classes):
             raise ValueError(f"need {self.n_classes} class_distributions; "
                              f"got {len(cfg.class_distributions)}")
+        if cfg.traffic is not None:
+            if cfg.traffic.spec.n_classes != self.n_classes:
+                raise ValueError(
+                    f"traffic spec has {cfg.traffic.spec.n_classes} classes; "
+                    f"class_of_type implies {self.n_classes}")
+            if cfg.type_mix is not None:
+                raise ValueError("type_mix is a closed-network knob; open "
+                                 "mode draws types from traffic.spec")
+        if cfg.faults is not None:
+            if cfg.faults.hedge_classes and cfg.traffic is None:
+                raise ValueError("hedge_classes require open/traffic mode "
+                                 "(a closed network has no duplicate "
+                                 "admission slot)")
+            if cfg.faults.hedge_quantile > 0.0 and cfg.traffic is None:
+                raise ValueError("hedge_quantile (speculative straggler "
+                                 "hedging) requires open/traffic mode")
+            if cfg.type_mix is not None and not cfg.faults.is_null:
+                raise ValueError("faults + type_mix is not supported in "
+                                 "closed mode")
 
     def run(self, policy: str | Policy | SchedulerCore) -> SimMetrics:
         """Simulate under a policy: a registry name ("cab", "grin", "lb",
         ...), a Policy instance, or a prebuilt SchedulerCore (reset here)."""
         core = as_core(policy, self.mu, device=self.device)
+        # Null fault scenarios dispatch to the fault-free loops: trivially
+        # bit-identical, and the fault loops run only when a scenario can
+        # actually fire.
+        if self.cfg.faults is not None and not self.cfg.faults.is_null:
+            if self.cfg.traffic is not None:
+                from repro_torch.faults.host import run_open_faults
+                return run_open_faults(self, core)
+            from repro_torch.faults.host import run_closed_faults
+            return run_closed_faults(self, core)
+        if self.cfg.traffic is not None:
+            from repro_torch.traffic.host import run_open
+            return run_open(self, core)
         if core.policy.needs_target:
             return self._run_fast(core)
         return self._run_compat(core)

@@ -321,7 +321,21 @@ def test_sim_config_from_reference_fields():
     assert cfg.power.alpha == rc.power.alpha
     mixed = convert.sim_config_from_reference(dict(fields, type_mix=[0.5, 0.5]))
     np.testing.assert_array_equal(mixed.type_mix, [0.5, 0.5])
-    with pytest.raises(NotImplementedError, match="traffic"):
+    # open traffic and faults cross as dicts of plain values (ported)
+    opened = convert.sim_config_from_reference(dict(fields, traffic={
+        "processes": [{"name": "poisson", "lam": 2.0},
+                      {"name": "mmpp", "rates": [4.0, 0.5],
+                       "mean_dwell": [1.0, 3.0]}],
+        "type_probs": np.eye(2), "n_arrivals": 50, "queue_capacity": 3,
+        "hist": {"lo": 1e-3, "hi": 1e3, "n_bins": 64}},
+        faults={"events": [(1.0, 0, 0.0), (2.0, 0, 1.0)], "fail_prob": 0.1,
+                "hedge_classes": [0]}))
+    assert opened.traffic.spec.processes[1].rates == (4.0, 0.5)
+    assert (opened.traffic.queue_capacity, opened.traffic.hist.n_bins) \
+        == (3, 64)
+    assert opened.faults.events[0].scale == 0.0
+    assert opened.faults.hedge_classes == (0,)
+    with pytest.raises(TypeError, match="traffic"):
         convert.sim_config_from_reference(dict(fields, traffic=object()))
 
 

@@ -463,3 +463,62 @@ def test_rmsnorm_kernel_matches_plain_version(cuda, shape, dtype):
     plain = RN.rmsnorm_plain(x, w)
     tol = 1e-5 if dtype == "float32" else 2e-2
     torch.testing.assert_close(out.float(), plain.float(), atol=tol, rtol=tol)
+
+
+def _open_fault_inputs(order, dev):
+    """Six points of fig_faults.py's 2x4 system under a two-burst storm:
+    class hedges with checkpointing, and the speculative hedge, over the
+    five route modes."""
+    from repro_torch.faults import FaultScenario, build_fault_batch, make_storm
+    from repro_torch.sched import get_policy
+    from repro_torch.sim import make_distribution
+    from repro_torch.traffic import PoissonArrivals, TrafficSpec
+    mu = np.array([[12.0, 2.0, 2.0, 1.5], [1.5, 9.0, 2.0, 8.0]])
+    spec = TrafficSpec((PoissonArrivals(3.3), PoissonArrivals(9.9)),
+                       np.eye(2))
+    seeds = list(range(6))
+    arr = [spec.sample(s, 2000) for s in seeds]
+    pol = get_policy("grin-p", weights=[2.0, 1.0])
+    tgt = np.broadcast_to(np.asarray(pol.solve_target(mu, [2, 6])),
+                          (6, 2, 4))
+    storm = make_storm(4, n_bursts=2, window=(40.0, 100.0), downtime=10.0,
+                       seed=11)
+    scs = [FaultScenario(events=storm, fail_prob=0.05, hedge_classes=(0,),
+                         refresh_targets=True, ckpt_period=0.05),
+           FaultScenario(events=storm, fail_prob=0.02, hedge_quantile=0.9,
+                         hedge_min_obs=16)] * 3
+    fb = build_fault_batch(scs, mu, tgt, seeds=seeds, mode="open",
+                           policies=pol, mixes=[2, 6], n_arrivals=2000,
+                           n_classes=2, device=dev)
+    return dict(mu=mu, targets=tgt, arr_times=np.stack([a[0] for a in arr]),
+                arr_types=np.stack([a[1] for a in arr]), seeds=seeds,
+                distribution=make_distribution("exponential"),
+                queue_capacity=8, order=order, warmup_arrivals=200,
+                modes=np.array([0, 1, 2, 3, 4, 0]), class_of_type=[0, 1],
+                faults=fb, telemetry_bins=16)
+
+
+@pytest.mark.parametrize("order", ["PS", "FCFS", "PRIO"])
+def test_open_engine_with_faults_on_the_card(cuda, order):
+    """The open engine with faults, hedges and telemetry on the card: the
+    captured-graph loop gives the eager loop's results exactly, and both
+    agree with the CPU run (other random streams) on the seed means."""
+    from repro_torch.kernels import grin_moves as GM
+    from repro_torch.traffic import simulate_open_batch
+    before = GM.launches["grin_solve"]
+    kw = _open_fault_inputs(order, cuda)
+    assert GM.launches["grin_solve"] == before + 3   # one per refresh point
+    eager = simulate_open_batch(device=cuda, cuda_graph=False, **kw)
+    graph = simulate_open_batch(device=cuda, cuda_graph=True, **kw)
+    for key, val in eager.items():
+        if key == "telemetry":
+            for k2, v2 in val.items():
+                np.testing.assert_array_equal(v2, graph[key][k2])
+        elif key != "device":
+            np.testing.assert_array_equal(np.asarray(val),
+                                          np.asarray(graph[key]))
+    cpu = simulate_open_batch(device="cpu", **_open_fault_inputs(order,
+                                                                 "cpu"))
+    assert (eager["topology_events"] == cpu["topology_events"]).all()
+    for key in ("goodput", "completed"):
+        assert abs(eager[key].mean() / cpu[key].mean() - 1) < 0.05, key

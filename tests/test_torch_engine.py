@@ -123,11 +123,16 @@ def test_engine_validates_inputs(monkeypatch):
               n_completions=50, warmup_completions=10, device="cpu")
     with pytest.raises(ValueError, match="unknown order"):
         simulate_batch(MUS[0], tgt, t0, [0], order="LIFO", **kw)
-    for field in ("traffic", "faults"):
-        cfg = _cfg("PS", n=50, warm=10)
-        setattr(cfg, field, object())
-        with pytest.raises(NotImplementedError, match="A4"):
-            simulate_policy(cfg, "grin", device="cpu")
+    # the closed engine takes no fault inputs yet (ROADMAP A4); open
+    # traffic has its own engine, and sweeps of it go there
+    from repro_torch.faults import FaultScenario, crash
+    cfg = _cfg("PS", n=50, warm=10)
+    cfg.faults = FaultScenario(events=crash(0, 1.0, 2.0))
+    with pytest.raises(NotImplementedError, match="A4"):
+        simulate_policy(cfg, "grin", device="cpu")
+    cfg.faults, cfg.traffic = None, object()
+    with pytest.raises(ValueError, match="simulate_open_batch"):
+        sweep(cfg, "grin", device="cpu")
     with pytest.raises(ValueError, match="warmup"):
         simulate_batch(MUS[0], tgt, t0, [0], **dict(kw, warmup_completions=50))
     with pytest.raises(ValueError, match="all mixes"):

@@ -149,11 +149,23 @@ def test_prio_with_one_class_is_fcfs_exactly(policy):
 def test_unported_fields_and_the_device_default(monkeypatch):
     f = _fields("plain", "grin", "PS")
     cfg = convert.sim_config_from_reference(f)
-    for name in ("traffic", "faults"):
-        bad = convert.sim_config_from_reference(f)
-        setattr(bad, name, object())
-        with pytest.raises(NotImplementedError, match="A4"):
-            ClosedNetworkSimulator(bad, device="cpu")
+    # traffic and faults are ported: what stays refused is what the
+    # reference refuses (a class count the spec does not have, hedges and
+    # type re-draws outside open mode)
+    from repro_torch.faults import FaultScenario, crash
+    traffic = {"processes": [{"name": "poisson", "lam": 1.0}] * 3,
+               "type_probs": np.full((3, 2), 0.5), "n_arrivals": 20}
+    with pytest.raises(ValueError, match="classes"):
+        ClosedNetworkSimulator(convert.sim_config_from_reference(
+            dict(f, traffic=traffic)), device="cpu")
+    hedged = convert.sim_config_from_reference(f)
+    hedged.faults = FaultScenario(hedge_classes=(0,))
+    with pytest.raises(ValueError, match="open"):
+        ClosedNetworkSimulator(hedged, device="cpu")
+    mixed = convert.sim_config_from_reference(dict(f, type_mix=[0.5, 0.5]))
+    mixed.faults = FaultScenario(events=crash(0, 1.0, 2.0))
+    with pytest.raises(ValueError, match="type_mix"):
+        ClosedNetworkSimulator(mixed, device="cpu")
     with pytest.raises(ValueError, match="order"):
         ClosedNetworkSimulator(convert.sim_config_from_reference(
             dict(f, order="LIFO")), device="cpu")
