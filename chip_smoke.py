@@ -32,7 +32,11 @@ launch counts set to 0 just before it and read just after:
     attention block applied 13 times, d_model 3584; random weights from a
     seed) in a `ServeEngine`: 4 prompts of 8192 tokens and 64 greedy decode
     steps (flash-attention and SSD-scan kernels), a decode-vs-forward check,
-    then CAB against LB over two pools of that engine in virtual time;
+    then CAB against LB over two pools of that engine in virtual time; and
+    xlstm-1.3b at full width and depth (42 mLSTM blocks with 512 x 512
+    memories, 6 sLSTM blocks, d_model 2048) on the same prompts and steps
+    (the wide SSD-scan kernel, twice per mLSTM block) with its own
+    decode-vs-forward check;
   * `ops.rmsnorm`, the RMSNorm kernel's only entry point;
 
 and checks each result by the repository's own means. It prints the card's
@@ -45,6 +49,7 @@ beside the script, or when any phase fails. Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import multiprocessing
@@ -1923,6 +1928,18 @@ ATTN_TOL = 2e-2
 ATTN_FAULT_KEYS = 64    # the negative control's fault: one 64-key tile
 SSD_Y_TOL = 5e-2        # bf16 SSD y (the reference sweep's)
 SSD_STATE_TOL = 1e-4    # float32 SSD final state (the reference's)
+# mLSTM's forget gates, log_a = log_sigmoid(randn + bias): at bias 0 (about
+# -0.8 a token) a chunk of 256 tokens passes on about e^-200 of the state
+# entering it, 0 in float32, so neither y nor the final state sees that
+# share of the carry over chunks (the exp(lt) * S_in term); at bias 6
+# (about -0.004 a token, forget gates near 1 as trained ones are) it passes
+# on about a third, so the check sees it dropped or misplaced. The wide
+# kernel is held at both.
+SLOW_FORGET_BIAS = 6.0
+FORGET_BIASES = (0.0, SLOW_FORGET_BIAS)
+# a ragged wide-kernel case, (B, S, H) and the chunk: S a multiple of
+# neither the chunk nor the 64-token tiles, 33 chunks of 16 tokens
+WIDE_RAGGED, WIDE_RAGGED_CHUNK = (2, 523, 3), 16
 # The SSD kernel's previous design (one 256-thread block per (batch, head),
 # float32 CUDA-core products) at the serving shape on an NVIDIA H100 80GB
 # HBM3 at 700 W: quoted from PERF.md's kernel table, printed beside this
@@ -1945,6 +1962,24 @@ CHECK_S = 4600          # decode-vs-forward prompt, longer than the 4096 window
 # the 4 prompts were 0.156-0.191 and the gaps against a forward without the
 # window 0.328-0.398 (PERF.md); the limit lies between the two.
 LOGIT_TOL = 0.25
+XLSTM_ARCH = "xlstm-1.3b"
+XLSTM_H, XLSTM_D = 4, 512   # its mLSTM heads: 512 x 512 memories
+XLSTM_CHECK_S = 2048        # (4, 2048, 50304) float32 logits: 1.6 GB
+# xlstm-1.3b's decode-vs-forward gap (the wide SSD kernel against the step
+# recurrence in 42 mLSTM blocks, the doubling scan against the step in 6
+# sLSTM blocks) is gated on a float32 copy of the same weights. In bf16,
+# 48 blocks of random weights amplify rounding until any two summation
+# orders differ: on an H100 the bf16 gaps were 0.61-2.67 and a bf16
+# forward with the plain SSD version in place of the kernel differed from
+# the kernel's by 2.08-3.28 (tools/xlstm_decode_gap.py; PERF.md). The
+# float32 readings this limit is set between, from this script's
+# serve-xlstm phase on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md, section
+# 6): the sound gaps 0.00037-0.00518 over the 4 prompts, and 5.01-5.94 for
+# the negative control, the decode step against a prefill cache whose
+# mLSTM memories are zeroed (the carried state dropped). The limit lies
+# ten times above the largest sound gap, for summation-order noise, and a
+# hundred times below the control; the bf16 gaps are reported.
+XLSTM_LOGIT_TOL = 0.05
 
 
 def _bound(nbytes, ops, ops_per_s):
@@ -2072,17 +2107,170 @@ def ssd_inputs(dev, seed, b, s, h, d):
         b, s, h, d), x, dtv * A, dtv)
 
 
+def mlstm_scan_inputs(dev, seed, b, s, h, dk, dv, forget_bias=0.0):
+    """SSD inputs as an mLSTM layer forms them, bf16: q scaled by
+    1/sqrt(dk), log_a = log_sigmoid(. + forget_bias), beta = sigmoid(.);
+    v = ones for the normaliser (dv = 1)."""
+    import torch
+    import torch.nn.functional as F
+    g = torch.Generator(device=dev).manual_seed(seed)
+    kw = dict(device=dev, generator=g)
+    q = (torch.randn((b, s, h, dk), **kw) / dk ** 0.5).to(torch.bfloat16)
+    k = torch.randn((b, s, h, dk), **kw).to(torch.bfloat16)
+    v = (torch.ones((b, s, h, 1), dtype=torch.bfloat16, device=dev)
+         if dv == 1 else torch.randn((b, s, h, dv), **kw).to(torch.bfloat16))
+    return (q, k, v,
+            F.logsigmoid(torch.randn((b, s, h), **kw) + forget_bias),
+            torch.sigmoid(torch.randn((b, s, h), **kw)))
+
+
+def scan_cut_carry(q, k, v, log_a, beta, *, chunk):
+    """The plain SSD version with the carry between chunks cut to one
+    chunk: the state entering chunk c is chunk c - 1's own contribution
+    alone, without the decayed share of the chunks before it (S a multiple
+    of the chunk). This is what a carry over chunks that drops its
+    exp(lt) * S_in term computes: the negative control of the wide
+    kernel's check."""
+    import torch
+    from repro_torch.models.linear_scan import linear_scan_chunked
+    b, s, h, _ = q.shape
+    n = s // chunk
+
+    def fold(t):
+        return t.reshape(b * n, chunk, *t.shape[2:])
+    folded = [fold(t) for t in (q, k, v, log_a, beta)]
+    _, own = linear_scan_chunked(*folded, chunk=chunk)   # from zero states
+    own = own.reshape(b, n, *own.shape[1:])
+    s0 = torch.cat([torch.zeros_like(own[:, :1]), own[:, :-1]], 1)
+    del own
+    y, st = linear_scan_chunked(*folded, s0=s0.flatten(0, 1), chunk=chunk)
+    return y.reshape(b, s, h, -1), st.reshape(b, n, *st.shape[1:])[:, -1]
+
+
+def check_wide_ssd(dev, seed, b, s, h, dk, dv, chunk, scan):
+    """`scan` (the wide kernel's wrapper, `ssd_scan_wide_cuda`) against the
+    plain version on mLSTM's inputs at each forget bias of FORGET_BIASES:
+    y within SSD_Y_TOL, the final state within SSD_STATE_TOL. Where S is a
+    multiple of the chunk, the plain version with its carry cut to one
+    chunk (`scan_cut_carry`) goes through the same check beside it.
+    Returns {bias: {"y_err", "state_err", "ok", and "cut_carry_y_err",
+    "cut_carry_state_err", "cut_carry_ok" where run}}."""
+    from repro_torch.models.linear_scan import linear_scan_chunked
+    out = {}
+    for bias in FORGET_BIASES:
+        args = mlstm_scan_inputs(dev, seed, b, s, h, dk, dv, bias)
+        y, st = scan(*args, chunk=chunk)
+        yp, sp = linear_scan_chunked(*args, chunk=chunk)
+        err_y, ok_y = _close(y, yp, SSD_Y_TOL)
+        err_s, ok_s = _close(st, sp, SSD_STATE_TOL)
+        r = {"y_err": err_y, "state_err": err_s, "ok": ok_y and ok_s}
+        del y, st
+        if s % min(chunk, s) == 0:
+            y, st = scan_cut_carry(*args, chunk=min(chunk, s))
+            err_y, ok_y = _close(y, yp, SSD_Y_TOL)
+            err_s, ok_s = _close(st, sp, SSD_STATE_TOL)
+            r.update(cut_carry_y_err=err_y, cut_carry_state_err=err_s,
+                     cut_carry_ok=ok_y and ok_s)
+            del y, st
+        out[bias] = r
+        del args, yp, sp
+    return out
+
+
+def wide_ssd_faults(checks) -> list[str]:
+    """What `check_wide_ssd`'s results show wrong: the kernel off the
+    plain version at any bias, or the slow-decay check passing the plain
+    version with its carry cut to one chunk (then it could not see a fault
+    in the carry over chunks)."""
+    bad = [f"off the plain version at forget bias {bias}: y "
+           f"{r['y_err']:.3g}, state {r['state_err']:.3g}"
+           for bias, r in checks.items() if not r["ok"]]
+    r = checks[SLOW_FORGET_BIAS]
+    if r.get("cut_carry_ok"):
+        bad.append(f"the slow-decay check passes the plain version with its "
+                   f"carry cut to one chunk (y {r['cut_carry_y_err']:.3g}, "
+                   f"state {r['cut_carry_state_err']:.3g})")
+    return bad
+
+
+def measure_wide_ssd(dev, dv):
+    """The wide kernel at one of xlstm-1.3b's prefill calls, B = 4, S =
+    8192, H = 4, dk = 512, chunk 256: its memory (dv = 512) or its
+    normaliser (v = ones, dv = 1). `check_wide_ssd` at the serving shape
+    and at a ragged one, then the kernel's and the plain version's ms, the
+    bound, and each of its five launches' device ms. Returns the kernel
+    table's row; `wide_ssd_faults` of its "checks" and "ragged_checks"
+    says whether it holds."""
+    import torch
+    from repro_torch.kernels import ssd_scan_wide as SSDW
+    scan = SSDW.ssd_scan_wide_cuda
+    b, s, h, d, chunk = SERVE_B, SERVE_S, XLSTM_H, XLSTM_D, 256
+    checks = check_wide_ssd(dev, 210 + dv, b, s, h, d, dv, chunk, scan)
+    ragged = check_wide_ssd(dev, 220 + dv, *WIDE_RAGGED, d, dv,
+                            WIDE_RAGGED_CHUNK, scan)
+    args = mlstm_scan_inputs(dev, 210 + dv, b, s, h, d, dv,
+                             SLOW_FORGET_BIAS)
+    ms = cuda_ms(lambda: scan(*args, chunk=chunk), iters=5, warmup=1)
+    plain_ms = cuda_ms(lambda: SSDW.ssd_scan_plain(*args, chunk=chunk),
+                       iters=2, warmup=1)
+    bound, by, nbytes, ops = ssd_bound(b, s, h, d, dv, chunk, False)
+    top = device_busy(lambda: scan(*args, chunk=chunk), cpu=False)["top"]
+    phases = {name: sum(t["device_s"] * 1e3 for t in top
+                        if f"wide_{name}" in t["kernel"])
+              for name in ("decay", "scores", "chunk_states", "carry",
+                           "outputs")}
+    del args
+    torch.cuda.empty_cache()
+    errs = [x for c in (checks, ragged) for r in c.values()
+            for x in (r["y_err"], r["state_err"])]
+    return {"B": b, "S": s, "H": h, "dk": d, "dv": dv, "chunk": chunk,
+            "max_abs_err": max(errs),
+            "y_err": max(r["y_err"] for r in checks.values()),
+            "state_err": max(r["state_err"] for r in checks.values()),
+            "checks": checks,
+            "ragged_shape": [*WIDE_RAGGED, d, dv, WIDE_RAGGED_CHUNK],
+            "ragged_checks": ragged,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": bound, "bound_by": by, "bytes": nbytes, "ops": ops,
+            "fp32_core_ops_ms": ops / FP32_OPS_PER_S * 1e3,
+            "phase_ms": phases}
+
+
+def print_wide_ssd(row) -> None:
+    for name, checks in (("", row["checks"]),
+                         (" ragged " + str(row["ragged_shape"]),
+                          row["ragged_checks"])):
+        for bias, r in checks.items():
+            ctl = (f"; carry cut to one chunk: y "
+                   f"{r['cut_carry_y_err']:.2e} state "
+                   f"{r['cut_carry_state_err']:.2e} "
+                   f"({'passes' if r['cut_carry_ok'] else 'rejected'})"
+                   if "cut_carry_ok" in r else "")
+            print(f"  ssd wide dv={row['dv']}{name} forget bias {bias}: y "
+                  f"err {r['y_err']:.2e} state err {r['state_err']:.2e} "
+                  f"({'ok' if r['ok'] else 'OFF'}){ctl}")
+    print(f"  ssd wide B={row['B']} S={row['S']} H={row['H']} "
+          f"dk={row['dk']} dv={row['dv']} chunk={row['chunk']}: ms "
+          f"{row['ms']:.3f} plain {row['plain_ms']:.1f} bound "
+          f"{row['bound_ms']:.3f} ({row['bound_by']}; its operations take "
+          f"{row['fp32_core_ops_ms']:.3f} ms at the float32 CUDA-core "
+          f"rate); launches (ms) "
+          f"{ {k: round(v, 3) for k, v in row['phase_ms'].items()} }")
+
+
 def phase_model_kernels(dev, detail):
-    """The flash-attention, SSD-scan and RMSNorm kernels against their plain
-    versions on the card, bf16, at the shapes the serving path gives them
-    (and B = 1 causal, windowed and GQA cases); kernel, plain and library
-    times and bounds. Returns the three summary entries."""
+    """The flash-attention, SSD-scan (both kernels) and RMSNorm kernels
+    against their plain versions on the card, bf16, at the shapes the
+    serving paths give them (and B = 1 causal, windowed and GQA cases);
+    kernel, plain and library times and bounds. Returns the four summary
+    entries."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import rmsnorm as RN
     from repro_torch.kernels import ssd_scan as SSD
-    rows = {"flash_attention": [], "ssd_scan": [], "rmsnorm": []}
+    rows = {"flash_attention": [], "ssd_scan": [], "ssd_scan_wide": [],
+            "rmsnorm": []}
 
     # (B, S, H, KV, dh, window): the serving prefill's call first
     for i, (b, s, h, kv, dh, win) in enumerate([
@@ -2187,6 +2375,19 @@ def phase_model_kernels(dev, detail):
           f"{SSD_PREVIOUS_MS_QUOTED} ms, quoted from PERF.md, not measured "
           f"here) plain {plain_ms:.1f} bound {bound:.3f} ({by})")
     del q, k, v, la, beta, y, st, yp, sp
+    torch.cuda.empty_cache()
+
+    # the wide kernel at xlstm-1.3b's two prefill calls: its memory (dv =
+    # 512) and its normaliser (v = ones, dv = 1)
+    for dv in (XLSTM_D, 1):
+        row = measure_wide_ssd(dev, dv)
+        print_wide_ssd(row)
+        faults = wide_ssd_faults(row["checks"]) + wide_ssd_faults(
+            row["ragged_checks"])
+        if faults:
+            raise AssertionError(f"wide SSD scan (dv={dv}): "
+                                 + "; ".join(faults))
+        rows["ssd_scan_wide"].append(row)
 
     g = torch.Generator(device=dev).manual_seed(300)
     for d in (3584, 7168):
@@ -2241,55 +2442,66 @@ def phase_model_kernels(dev, detail):
             "ssd_scan", "ssd_scan.cu", "src/repro/kernels/ssd_scan.py:85",
             f"B={SERVE_B},S={SERVE_S},H=112,dk=dv=64,chunk=256,bf16,"
             f"q/k head-broadcast"),
+        "ssd_scan_wide": dict(entry(
+            "ssd_scan_wide", "ssd_scan_wide.cu",
+            "src/repro/kernels/ssd_scan.py:85",
+            f"B={SERVE_B},S={SERVE_S},H={XLSTM_H},dk=dv={XLSTM_D},chunk=256,"
+            f"bf16 (mLSTM memory)"),
+            normaliser_shape=f"B={SERVE_B},S={SERVE_S},H={XLSTM_H},"
+                             f"dk={XLSTM_D},dv=1,chunk=256,bf16",
+            normaliser_ms=rows["ssd_scan_wide"][1]["ms"],
+            normaliser_plain_ms=rows["ssd_scan_wide"][1]["plain_ms"],
+            normaliser_bound_ms=rows["ssd_scan_wide"][1]["bound_ms"]),
         "rmsnorm": entry(
             "rmsnorm", "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:33",
             f"T={SERVE_B * SERVE_S},D=3584,bf16"),
     }
 
 
-def reset_all_launches():
+def _kernel_modules():
     from repro_torch.kernels import flash_attention, grin_moves, rmsnorm
-    from repro_torch.kernels import ssd_scan
-    for mod in (grin_moves, flash_attention, ssd_scan, rmsnorm):
+    from repro_torch.kernels import ssd_scan, ssd_scan_wide
+    return grin_moves, flash_attention, ssd_scan, ssd_scan_wide, rmsnorm
+
+
+def reset_all_launches():
+    for mod in _kernel_modules():
         mod.reset_launches()
 
 
 def all_launches() -> dict:
-    from repro_torch.kernels import flash_attention, grin_moves, rmsnorm
-    from repro_torch.kernels import ssd_scan
     out = {}
-    for mod in (grin_moves, flash_attention, ssd_scan, rmsnorm):
+    for mod in _kernel_modules():
         out.update(mod.launches)
     return out
 
 
-def phase_serve(dev, state, detail, cfg=None):
-    """zamba2-7b at full width and depth in a ServeEngine: 4 requests of
-    8192-token prompts and 64 greedy decode steps through `generate` (the
-    counted path), then timed prefill and decode runs, profiles, and the
-    decode-vs-forward check on 4 requests of 4600 tokens, with a forward
-    that leaves the window out as its negative control. `cfg` replaces the
-    model (a reduced one for a rehearsal on a CPU)."""
+def serve_engine(dev, cfg):
+    """A ServeEngine over `cfg` at full width with random weights from seed
+    0 (the bf16 serving copy); returns (engine, record of its size)."""
     import torch
-    from repro_torch.configs import get_arch
     from repro_torch.models.model import Model
     from repro_torch.serve.engine import ServeEngine
-    cfg = cfg or get_arch(SERVE_ARCH)
     t0 = time.perf_counter()
     model = Model(cfg, device=dev).init(
         torch.Generator(device=dev).manual_seed(0))
     n_params = sum(p.numel() for p in model.parameters())
     engine = ServeEngine(model, max_len=SERVE_S + SERVE_STEPS + 8)
     torch.cuda.synchronize()
-    t_init = time.perf_counter() - t0
-    weight_bytes = sum(p.numel() * p.element_size()
-                       for p in model.parameters())
-    print(f"  {cfg.name}: {n_params / 1e9:.3f} B params, "
-          f"{len(model.mamba)} Mamba2 blocks + shared attention x "
-          f"{cfg.n_layers // cfg.attn_every}, d_model {cfg.d_model}; "
-          f"init + bf16 cast {t_init:.1f} s, weights "
-          f"{weight_bytes / 1e9:.2f} GB")
-    state["engine"] = engine
+    return engine, {"arch": cfg.name, "params": n_params, "weight_bytes": sum(
+        p.numel() * p.element_size() for p in model.parameters()),
+        "init_s": time.perf_counter() - t0}
+
+
+def serve_runs(dev, engine):
+    """The runs both serving phases make: a warm-up at a short prompt (not
+    counted), `generate` on SERVE_B random prompts of SERVE_S tokens and
+    SERVE_STEPS greedy steps (the counted path: the launch counts and the
+    plain SSD version's calls set to 0 just before it and read just
+    after), then timed prefill and decode runs and their device profiles.
+    Returns (prompts, record); record["plain_ssd_calls"] must be 0."""
+    import torch
+    cfg = engine.cfg
     tg = torch.Generator(device=dev).manual_seed(1)
     toks = torch.randint(0, cfg.vocab_size, (SERVE_B, SERVE_S), device=dev,
                          generator=tg)
@@ -2298,13 +2510,15 @@ def phase_serve(dev, state, detail, cfg=None):
     engine.generate({"tokens": toks[:1, :256]}, steps=2)
     engine.synchronize()
 
-    reset_all_launches()                 # the serving path's count starts
-    torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.perf_counter()
-    out = engine.generate(batch, steps=SERVE_STEPS)
-    engine.synchronize()
-    t_gen = time.perf_counter() - t0
-    launches = all_launches()            # ... and ends here
+    plain = {"calls": 0}
+    with counting_plain_ssd(plain):
+        reset_all_launches()             # the serving path's count starts
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        out = engine.generate(batch, steps=SERVE_STEPS)
+        engine.synchronize()
+        t_gen = time.perf_counter() - t0
+        launches = all_launches()        # ... and ends here
     peak = torch.cuda.max_memory_allocated(dev)
     if out.shape != (SERVE_B, SERVE_STEPS) or not bool(
             ((out >= 0) & (out < cfg.vocab_size)).all()):
@@ -2336,8 +2550,60 @@ def phase_serve(dev, state, detail, cfg=None):
     _, feed = engine._greedy_next(lg)
     prof_decode = device_busy(lambda: engine.decode_run(feed, cache, SERVE_S,
                                                         8))
-    del cache
+    del cache, lg
     torch.cuda.empty_cache()
+
+    res = {"batch": SERVE_B, "prompt": SERVE_S, "steps": SERVE_STEPS,
+           "generate_s": t_gen, "prefill_s": t_prefill,
+           "prefill_tok_per_s": SERVE_B * SERVE_S / t_prefill,
+           "decode_s": t_dec,
+           "decode_tok_per_s": SERVE_B * SERVE_STEPS / t_dec,
+           "decode_ms_per_step": t_dec / SERVE_STEPS * 1e3,
+           "peak_bytes": peak, "launches": launches,
+           "plain_ssd_calls": plain["calls"],
+           "generate_equals_prefill_plus_decode": same,
+           "profile_prefill": prof_prefill, "profile_decode_8": prof_decode}
+    top = [(t["kernel"][:40], round(t["device_s"], 4))
+           for t in prof_prefill["top"][:4]]
+    print(f"  generate {SERVE_B} x {SERVE_S} + {SERVE_STEPS} steps: "
+          f"{t_gen:.2f} s; launches {launches}; plain SSD calls "
+          f"{plain['calls']}; peak {peak / 1e9:.2f} GB")
+    print(f"  prefill (time to first token) {t_prefill:.3f} s = "
+          f"{res['prefill_tok_per_s']:.0f} tok/s; decode "
+          f"{res['decode_tok_per_s']:.1f} tok/s, "
+          f"{res['decode_ms_per_step']:.2f} ms/step; generate == prefill + "
+          f"decode_run: {same}")
+    print(f"  profiled prefill: wall {prof_prefill['wall_s']:.3f} s, device "
+          f"{prof_prefill['device_s']} s, busy {prof_prefill['busy_share']}; "
+          f"top {top}")
+    print(f"  profiled 8 decode steps: wall {prof_decode['wall_s']:.3f} s, "
+          f"device {prof_decode['device_s']} s, busy "
+          f"{prof_decode['busy_share']}")
+    if not same:
+        raise AssertionError("generate != prefill + decode_run")
+    return toks, res
+
+
+def phase_serve(dev, state, detail, cfg=None):
+    """zamba2-7b at full width and depth in a ServeEngine: 4 requests of
+    8192-token prompts and 64 greedy decode steps through `generate` (the
+    counted path), then timed prefill and decode runs, profiles, and the
+    decode-vs-forward check on 4 requests of 4600 tokens, with a forward
+    that leaves the window out as its negative control. `cfg` replaces the
+    model (a reduced one for a rehearsal on a CPU)."""
+    import torch
+    from repro_torch.configs import get_arch
+    cfg = cfg or get_arch(SERVE_ARCH)
+    engine, size = serve_engine(dev, cfg)
+    model = engine.model
+    print(f"  {cfg.name}: {size['params'] / 1e9:.3f} B params, "
+          f"{len(model.mamba)} Mamba2 blocks + shared attention x "
+          f"{cfg.n_layers // cfg.attn_every}, d_model {cfg.d_model}; "
+          f"init + bf16 cast {size['init_s']:.1f} s, weights "
+          f"{size['weight_bytes'] / 1e9:.2f} GB")
+    state["engine"] = engine
+    toks, res = serve_runs(dev, engine)
+    launches = res["launches"]
 
     # decode-vs-forward on SERVE_B requests longer than the window, and the
     # same decode against a forward that leaves the window out (the gap a
@@ -2362,36 +2628,15 @@ def phase_serve(dev, state, detail, cfg=None):
     del c, full, no_window, dl
     torch.cuda.empty_cache()
 
-    res = {"arch": cfg.name, "params": n_params, "weight_bytes": weight_bytes,
-           "init_s": t_init, "batch": SERVE_B, "prompt": SERVE_S,
-           "steps": SERVE_STEPS, "generate_s": t_gen,
-           "prefill_s": t_prefill,
-           "prefill_tok_per_s": SERVE_B * SERVE_S / t_prefill,
-           "decode_s": t_dec,
-           "decode_tok_per_s": SERVE_B * SERVE_STEPS / t_dec,
-           "decode_ms_per_step": t_dec / SERVE_STEPS * 1e3,
-           "peak_bytes": peak, "launches": launches,
-           "generate_equals_prefill_plus_decode": same,
-           "profile_prefill": prof_prefill, "profile_decode_8": prof_decode,
-           "check_prompt": CHECK_S, "check_requests": len(gaps),
-           "decode_vs_forward_gaps": gaps, "decode_vs_forward_max_gap": gap,
-           "decode_vs_forward_tol": LOGIT_TOL,
-           "decode_vs_no_window_forward_gaps": fault_gaps,
-           "decode_vs_forward_argmax_equal": argmax_eq,
-           "forward_top2_margins": margins}
+    res.update(size)
+    res.update({"check_prompt": CHECK_S, "check_requests": len(gaps),
+                "decode_vs_forward_gaps": gaps,
+                "decode_vs_forward_max_gap": gap,
+                "decode_vs_forward_tol": LOGIT_TOL,
+                "decode_vs_no_window_forward_gaps": fault_gaps,
+                "decode_vs_forward_argmax_equal": argmax_eq,
+                "forward_top2_margins": margins})
     detail["serve"] = res
-    print(f"  generate 4 x {SERVE_S} + {SERVE_STEPS} steps: {t_gen:.2f} s; "
-          f"launches {launches}; peak {peak / 1e9:.2f} GB")
-    print(f"  prefill (time to first token) {t_prefill:.3f} s = "
-          f"{res['prefill_tok_per_s']:.0f} tok/s; decode "
-          f"{res['decode_tok_per_s']:.1f} tok/s, "
-          f"{res['decode_ms_per_step']:.2f} ms/step; generate == prefill + "
-          f"decode_run: {same}")
-    print(f"  profiled prefill: wall {prof_prefill['wall_s']:.3f} s, device "
-          f"{prof_prefill['device_s']} s, busy {prof_prefill['busy_share']}")
-    print(f"  profiled 8 decode steps: wall {prof_decode['wall_s']:.3f} s, "
-          f"device {prof_decode['device_s']} s, busy "
-          f"{prof_decode['busy_share']}")
     print(f"  decode vs forward ({len(gaps)} x {CHECK_S}): gaps "
           f"{[round(x, 4) for x in gaps]} (tol {LOGIT_TOL}); against a "
           f"forward without the window {[round(x, 4) for x in fault_gaps]}; "
@@ -2405,6 +2650,13 @@ def phase_serve(dev, state, detail, cfg=None):
     if launches["flash_attention"] <= 0 or launches["ssd_scan"] <= 0:
         raise AssertionError(f"serving path launched no model kernel: "
                              f"{launches}")
+    # one SSD launch per Mamba2 block, all on the 64 x 64 kernel
+    if launches["ssd_scan"] != cfg.n_layers or launches["ssd_scan_wide"] \
+            or res["plain_ssd_calls"]:
+        raise AssertionError(f"expected {cfg.n_layers} ssd_scan launches, "
+                             f"no wide ones and no plain SSD call per "
+                             f"prefill: {launches}, plain calls "
+                             f"{res['plain_ssd_calls']}")
     if gap > LOGIT_TOL:
         raise AssertionError(f"decode vs forward gap {gap:.4f} > "
                              f"{LOGIT_TOL}")
@@ -2412,6 +2664,116 @@ def phase_serve(dev, state, detail, cfg=None):
         raise AssertionError(f"decode vs a forward without the window: gap "
                              f"{fault_gap:.4f} <= {LOGIT_TOL}; the check "
                              f"cannot see a window fault")
+    return launches
+
+
+def decode_vs_forward(model, toks):
+    """The logits prefill(toks[:, :-1]) + decode_step give for the last
+    token against forward's last position, and against the same decode from
+    a cache whose mLSTM memories are zeroed (the negative control): the
+    largest gap over the vocabulary per request."""
+    import torch
+    with torch.no_grad():
+        full = model.forward({"tokens": toks})[:, -1]
+    _, c = model.prefill({"tokens": toks[:, :-1]})
+    dropped = {"mlstm": [{"C": torch.zeros_like(m["C"]), "n": m["n"]}
+                         for m in c["mlstm"]],
+               "slstm": [dict(x) for x in c["slstm"]]}
+    pos = toks.shape[1] - 1
+    dl = model.decode_step(toks[:, -1:], c, pos)[0][:, -1]
+    bad = model.decode_step(toks[:, -1:], dropped, pos)[0][:, -1]
+    return {"gaps": [float(x) for x in (dl - full).abs().amax(-1)],
+            "dropped_memory_gaps": [float(x) for x in
+                                    (bad - full).abs().amax(-1)],
+            "argmax_equal": [bool(x) for x in
+                             dl.argmax(-1) == full.argmax(-1)]}
+
+
+@contextlib.contextmanager
+def counting_plain_ssd(counter: dict):
+    """Count calls of the plain SSD version through `ops.ssd_scan` (the
+    route a CPU tensor takes) in counter["calls"]."""
+    from repro_torch.kernels import ops
+    real = ops.linear_scan_chunked
+
+    def counted(*args, **kw):
+        counter["calls"] += 1
+        return real(*args, **kw)
+    ops.linear_scan_chunked = counted
+    try:
+        yield
+    finally:
+        ops.linear_scan_chunked = real
+
+
+def phase_serve_xlstm(dev, detail, cfg=None):
+    """xlstm-1.3b at full width and depth (48 blocks: 6 groups of 7 mLSTM
+    blocks and one sLSTM block; d_model 2048, 4 heads of 512) in a
+    ServeEngine: 4 requests of 8192-token prompts and 64 greedy decode steps
+    through `generate` (the counted path: 84 wide-SSD launches per prefill,
+    two per mLSTM block, and no plain SSD call), then timed prefill and
+    decode runs, profiles, and decode-vs-forward on 4 x 2048 with the
+    carried mLSTM memories dropped as its negative control: gated on a
+    float32 copy of the weights, reported for the bf16 serving copy. `cfg`
+    replaces the model (a reduced one for a rehearsal on a CPU)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import Model
+    cfg = cfg or get_arch(XLSTM_ARCH)
+    engine, size = serve_engine(dev, cfg)
+    model = engine.model
+    n_wide = 2 * len(model.mlstm)        # memory + normaliser per block
+    print(f"  {cfg.name}: {size['params']:,} params, {len(model.mlstm)} "
+          f"mLSTM + {len(model.slstm)} sLSTM blocks, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads of {cfg.resolved_head_dim}; init + bf16 "
+          f"cast {size['init_s']:.1f} s, weights "
+          f"{size['weight_bytes'] / 1e9:.2f} GB")
+    toks, res = serve_runs(dev, engine)
+    launches, plain_calls = res["launches"], res["plain_ssd_calls"]
+
+    ct = toks[:, :XLSTM_CHECK_S]
+    state_bytes = sum(m.numel() * 4 for m in model.init_cache(
+        SERVE_B, 1)["mlstm"][0].values()) * len(model.mlstm)
+    bf16 = decode_vs_forward(model, ct)              # the serving copy
+    del engine, model
+    torch.cuda.empty_cache()
+    model = Model(cfg.with_(dtype="float32"), device=dev).init(
+        torch.Generator(device=dev).manual_seed(0))  # the same weights
+    f32 = decode_vs_forward(model, ct)
+    del model
+    torch.cuda.empty_cache()
+    gap, fault_gap = max(f32["gaps"]), min(f32["dropped_memory_gaps"])
+
+    res.update(size)
+    res.update({"mlstm_state_bytes": state_bytes,
+                "check_prompt": XLSTM_CHECK_S,
+                "decode_vs_forward_float32": f32,
+                "decode_vs_forward_bf16": bf16,
+                "decode_vs_forward_max_gap": gap,
+                "decode_vs_forward_tol": XLSTM_LOGIT_TOL})
+    detail["serve_xlstm"] = res
+    print(f"  plain SSD calls {plain_calls}; mLSTM states "
+          f"{state_bytes / 1e9:.3f} GB")
+    for name, r in (("float32", f32), ("bf16 (reported)", bf16)):
+        print(f"  decode vs forward, {name} ({len(r['gaps'])} x "
+              f"{XLSTM_CHECK_S}): gaps {[round(x, 5) for x in r['gaps']]}; "
+              f"with the mLSTM memories dropped "
+              f"{[round(x, 4) for x in r['dropped_memory_gaps']]}; argmax "
+              f"equal {r['argmax_equal']}")
+    print(f"  float32 gate: max gap {gap:.5f} <= {XLSTM_LOGIT_TOL} < the "
+          f"control's least {fault_gap:.4f}")
+    if launches["ssd_scan_wide"] != n_wide or launches["ssd_scan"] != 0 \
+            or launches["flash_attention"] != 0 or plain_calls != 0:
+        raise AssertionError(f"the xlstm prefill should launch the wide SSD "
+                             f"kernel {n_wide} times and nothing else: "
+                             f"{launches}, plain calls {plain_calls}")
+    if gap > XLSTM_LOGIT_TOL:
+        raise AssertionError(f"decode vs forward gap {gap:.4f} > "
+                             f"{XLSTM_LOGIT_TOL}")
+    if fault_gap <= XLSTM_LOGIT_TOL:
+        raise AssertionError(f"decode with the mLSTM memories dropped: gap "
+                             f"{fault_gap:.4f} <= {XLSTM_LOGIT_TOL}; the "
+                             f"check cannot see a lost carried state")
     return launches
 
 
@@ -2509,18 +2871,23 @@ def main() -> int:
           f"python {sys.version.split()[0]}")
 
     from repro_torch.kernels import (build, flash_attention, grin_moves,
-                                     rmsnorm, ssd_scan)
+                                     rmsnorm, ssd_scan, ssd_scan_wide)
     t0 = time.perf_counter()
-    mods = {"grin_moves": (grin_moves, build.NVCC_FLAGS),
-            "flash_attention": (flash_attention, build.MODEL_NVCC_FLAGS),
-            "ssd_scan": (ssd_scan, build.MODEL_NVCC_FLAGS),
-            "rmsnorm": (rmsnorm, build.MODEL_NVCC_FLAGS)}
-    handles = {name: build.start_build(name, mod.SOURCES, flags)
-               for name, (mod, flags) in mods.items()}
+    model_flags = build.MODEL_NVCC_FLAGS
+    mods = {"grin_moves": (grin_moves.SOURCES, build.NVCC_FLAGS,
+                           grin_moves._kernel_lib),
+            "flash_attention": (flash_attention.SOURCES, model_flags,
+                                flash_attention._kernel_lib),
+            "ssd_scan": (ssd_scan.SOURCES, model_flags, ssd_scan._kernel_lib),
+            "ssd_scan_wide": (ssd_scan_wide.SOURCES, model_flags,
+                              ssd_scan_wide._kernel_lib),
+            "rmsnorm": (rmsnorm.SOURCES, model_flags, rmsnorm._kernel_lib)}
+    handles = {name: build.start_build(name, sources, flags)
+               for name, (sources, flags, _) in mods.items()}
     for name, h in handles.items():     # one nvcc per source, in parallel
         build.finish_build(name, h)
-    for mod, _ in mods.values():
-        mod._kernel_lib()
+    for _, _, load in mods.values():
+        load()
     t_build = time.perf_counter() - t0
     print(f"build: {t_build:.1f} s "
           f"{ {n: round(b['seconds'], 1) for n, b in build.build_log.items()} }")
@@ -2598,6 +2965,8 @@ def main() -> int:
     run("serve-sched", phase_serve_sched, dev, state, detail)
     state.clear()
     torch.cuda.empty_cache()
+    xlstm_launches = run("serve-xlstm", phase_serve_xlstm, dev, detail)
+    torch.cuda.empty_cache()
     rms_launches = run("ops-rmsnorm", phase_ops_rmsnorm, dev, detail)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -2605,13 +2974,15 @@ def main() -> int:
         json.dumps(detail, indent=1, default=str))
     if failed or entry is None or model_entries is None \
             or solve_entry is None or serve_launches is None \
-            or rms_launches is None:
+            or xlstm_launches is None or rms_launches is None:
         _fail(f"phases failed: {failed}")
     entry["launches"] = launches["block_move_gains"]
     solve_entry["launches"] = launches["grin_solve"]
     model_entries["flash_attention"]["launches"] = \
         serve_launches["flash_attention"]
     model_entries["ssd_scan"]["launches"] = serve_launches["ssd_scan"]
+    model_entries["ssd_scan_wide"]["launches"] = \
+        xlstm_launches["ssd_scan_wide"]
     model_entries["rmsnorm"]["launches"] = rms_launches
     print(json.dumps({"kernels": [entry, solve_entry,
                                   *model_entries.values()]}))

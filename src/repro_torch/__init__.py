@@ -5,8 +5,8 @@ the closed-form throughput/energy model (`core`), the block-move GrIn
 solver whose per-step move scoring runs in a hand-written CUDA kernel
 (`kernels.grin_moves`), the largest-deficit `SchedulerCore` (`sched.api`)
 and the batched closed-network simulator (`sim.engine_torch`). The serving
-path: model configs (`configs`), the dense and hybrid model stack
-(`models`) whose prefill runs hand-written flash-attention and SSD-scan
+path: model configs (`configs`), the dense, hybrid and ssm (xLSTM) model
+stack (`models`) whose prefill runs hand-written flash-attention and SSD-scan
 kernels (`kernels.ops`), the `ServeEngine` (`serve.engine`), the
 virtual-time pools (`sched.virtual`) and the serve CLI (`launch.serve`).
 Imports torch, numpy and scipy only.

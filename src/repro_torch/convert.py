@@ -211,8 +211,10 @@ def model_params_from_reference(cfg, tree: dict, device=None):
     params)`). The scanned stacks unstack along their leading axes:
     `stack` (n_layers, ...) into the dense blocks, `stack_groups` (groups,
     attn_every, ...) and `stack_tail` (rest, ...) into the hybrid's Mamba2
-    blocks in order, `shared` into its shared block. Every port parameter
-    must be filled."""
+    blocks in order, `shared` into its shared block; the ssm family's
+    `stack_groups["mlstm"]` (groups, slstm_every - 1, ...) and
+    `stack_groups["slstm"]` (groups, ...) into its mLSTM and sLSTM blocks
+    in order. Every port parameter must be filled."""
     from repro_torch.models.model import Model
     model = Model(cfg, device=device)
     n = _load(model, {k: tree[k] for k in ("embed", "lm_head", "ln_f")
@@ -220,6 +222,13 @@ def model_params_from_reference(cfg, tree: dict, device=None):
     if cfg.family == "dense":
         for i, blk in enumerate(model.layers):
             n += _load(blk, tree["stack"], (i,))
+    elif cfg.family == "ssm":
+        groups = tree["stack_groups"]
+        m = cfg.slstm_every - 1
+        for i, blk in enumerate(model.mlstm):
+            n += _load(blk, groups["mlstm"], divmod(i, m))
+        for gi, blk in enumerate(model.slstm):
+            n += _load(blk, groups["slstm"], (gi,))
     else:
         ae = cfg.attn_every
         g = cfg.n_layers // ae

@@ -5,8 +5,9 @@ device as the reference's `kernels/ops.py` dispatches on the backend:
                     (`chunked_attention`, `linear_scan_chunked`,
                     `rmsnorm_ref`): identical math, bounded memory.
   * CUDA tensors -> the hand-written kernels (`flash_attention_cuda`,
-                    `ssd_scan_cuda`, `rmsnorm_cuda`), or an error. Nothing
-                    falls back to the plain route on a card.
+                    `ssd_scan_cuda` or `ssd_scan_wide_cuda` by the state's
+                    width, `rmsnorm_cuda`), or an error. Nothing falls back
+                    to the plain route on a card.
 
 The wrappers keep the model layout at their interface ((B, S, heads, dh),
 (..., D)); the kernels read it in place through strides, so nothing is
@@ -20,6 +21,7 @@ import torch
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import rmsnorm as _rn
 from repro_torch.kernels import ssd_scan as _ssd
+from repro_torch.kernels import ssd_scan_wide as _ssdw
 from repro_torch.kernels.ref import rmsnorm_ref
 from repro_torch.models.attention import chunked_attention
 from repro_torch.models.linear_scan import linear_scan_chunked
@@ -51,15 +53,30 @@ def flash_attention(q, k, v, *, causal=True, window=0,
     return _fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
 
 
+def ssd_kernel_for(dk: int, dv: int) -> str:
+    """The kernel `ssd_scan` launches on the card for a (dk, dv) state:
+    "ssd_scan" up to 128 x 128, else "ssd_scan_wide" up to 512 x 512."""
+    if dk <= _ssd.MAX_DIM and dv <= _ssd.MAX_DIM:
+        return "ssd_scan"
+    if dk <= _ssdw.MAX_DIM and dv <= _ssdw.MAX_DIM:
+        return "ssd_scan_wide"
+    raise ValueError(f"ssd_scan on the card: dk, dv <= {_ssdw.MAX_DIM}; "
+                     f"got {dk}, {dv}")
+
+
 def ssd_scan(q, k, v, log_a, beta, *, chunk=256):
     """Model-layout SSD. q, k: (B, S, H, dk); v: (B, S, H, dv);
     log_a, beta: (B, S, H). Returns (y (B, S, H, dv), final_state
-    (B, H, dk, dv) float32)."""
+    (B, H, dk, dv) float32). On the card, states up to 128 x 128 (Mamba2)
+    take `ssd_scan_cuda` and wider ones up to 512 x 512 (mLSTM's memory and
+    normaliser) `ssd_scan_wide_cuda`."""
     if not _on_card(q):
         return linear_scan_chunked(q, k, v, log_a, beta, chunk=chunk)
+    kernel = {"ssd_scan": _ssd.ssd_scan_cuda,
+              "ssd_scan_wide": _ssdw.ssd_scan_wide_cuda}[
+        ssd_kernel_for(q.shape[-1], v.shape[-1])]
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
-    return _ssd.ssd_scan_cuda(q, k, v, log_a.float(), beta.float(),
-                              chunk=chunk)
+    return kernel(q, k, v, log_a.float(), beta.float(), chunk=chunk)
 
 
 def rmsnorm(x, w, *, eps=1e-5):

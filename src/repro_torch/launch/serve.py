@@ -1,7 +1,9 @@
 """Serving launcher: ``python -m repro_torch.launch.serve --arch <id> [...]``.
 
 Batched prefill + greedy decode with the ServeEngine on the reduced
-(`smoke_config`) model of an architecture, with random weights from a seed;
+(`smoke_config`) model of an architecture of the dense, hybrid or ssm family
+(yi-6b, qwen2.5-3b/32b, granite-34b; zamba2-7b; xlstm-1.3b), with random
+weights from a seed;
 optionally schedules a mixed request stream across two pools with the
 paper's CAB policy against LB (--heterogeneous). Runs on the card unless
 `--device cpu` is given. The open-trace replay (--traffic) is not ported

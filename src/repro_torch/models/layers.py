@@ -1,4 +1,5 @@
-"""Layer library: the blocks the dense and hybrid (zamba2) families use.
+"""Layer library: the blocks the dense, hybrid (zamba2) and ssm (xLSTM)
+families use.
 
 Conventions, as in the reference package:
   * every block is an `nn.Module` holding its parameters (param_dtype,
@@ -15,8 +16,8 @@ Conventions, as in the reference package:
                       step) and returns the same dict.
   * the reference's sharding annotations (`parallel.sharding.constrain`)
     have no counterpart: on one card they are no-ops.
-  * MoE, mLSTM and sLSTM blocks are not ported yet (`models.model.Model`
-    raises for their families).
+  * MoE blocks are not ported yet (`models.model.Model` raises for their
+    family).
 """
 from __future__ import annotations
 
@@ -320,3 +321,141 @@ def mamba_cache_spec(cfg: ModelConfig, batch: int, device=None):
                              cfg.d_inner + 2 * cfg.ssm_state),
                             dtype=_dtype(cfg), device=device),
     }
+
+
+# ---------------------------------------------------------------- xLSTM
+
+class MLSTM(nn.Module):
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        d, h, hd = cfg.d_model, cfg.n_heads, cfg.resolved_head_dim
+        self.wqkv = _param((d, 3 * h * hd), cfg, device)
+        self.wif = _param((d, 2 * h), cfg, device)
+        self.w_ogate = _param((d, h * hd), cfg, device)
+        self.wo = _param((h * hd, d), cfg, device)
+        self.ln_inner = _param((h, hd), cfg, device, 0.0)
+
+    def init(self, cfg: ModelConfig, generator: torch.Generator):
+        h, hd = cfg.n_heads, cfg.resolved_head_dim
+        dense_init(self.wqkv, generator)
+        dense_init(self.wif, generator, 0.02)
+        dense_init(self.w_ogate, generator, 0.02)
+        dense_init(self.wo, generator, 1.0 / math.sqrt(h * hd))
+
+
+def init_mlstm(cfg: ModelConfig, generator, device=None) -> MLSTM:
+    p = MLSTM(cfg, device)
+    p.init(cfg, generator)
+    return p
+
+
+def apply_mlstm(p: MLSTM, x, cfg: ModelConfig, *, mode="full", cache=None,
+                want_cache=False):
+    """mLSTM: matrix-memory linear attention with sigmoid forget / input
+    gates. cache: {"C": (B,H,hd,hd) f32, "n": (B,H,hd,1) f32}. The memory
+    and its normaliser are two SSD scans (a 512 x 512 and a 512 x 1 state
+    per head at xlstm-1.3b's width)."""
+    b, s, d = x.shape
+    h, hd = cfg.n_heads, cfg.resolved_head_dim
+    dt = _dtype(cfg)
+    qkv = x @ p.wqkv.to(dt)
+    q, k, v = (t.reshape(b, s, h, hd)
+               for t in torch.split(qkv, h * hd, dim=-1))
+    q = q / math.sqrt(hd)
+    gates = (x @ p.wif.to(dt)).float()
+    ig, fg = torch.split(gates, h, dim=-1)                      # (B,S,H)
+    log_f = F.logsigmoid(fg)
+    i_in = torch.sigmoid(ig)
+
+    if mode == "decode":
+        ones = torch.ones((b, h, 1), dtype=dt, device=x.device)
+        y, C = linear_scan_step(q[:, 0], k[:, 0], v[:, 0], log_f[:, 0],
+                                i_in[:, 0], cache["C"])
+        _, n = linear_scan_step(q[:, 0], k[:, 0], ones, log_f[:, 0],
+                                i_in[:, 0], cache["n"])
+        nm = torch.einsum("bhk,bhkv->bhv", q[:, 0].float(), n)
+        y = (y / torch.clamp(nm.abs(), min=1.0)).to(dt)[:, None]
+        cache["C"], cache["n"] = C, n
+        new_cache = cache
+    else:
+        ones = torch.ones((b, s, h, 1), dtype=dt, device=x.device)
+        y, C = ops.ssd_scan(q, k, v, log_f, i_in, chunk=cfg.ssm_chunk)
+        nm, n = ops.ssd_scan(q, k, ones, log_f, i_in, chunk=cfg.ssm_chunk)
+        y = (y / torch.clamp(nm.float().abs(), min=1.0)).to(dt)
+        new_cache = {"C": C, "n": n} if want_cache else None
+
+    y = rmsnorm(y, p.ln_inner, cfg.norm_eps)
+    og = torch.sigmoid(x @ p.w_ogate.to(dt)).reshape(b, s, h, hd)
+    y = (y * og).reshape(b, s, h * hd)
+    return y @ p.wo.to(dt), new_cache
+
+
+def mlstm_cache_spec(cfg: ModelConfig, batch: int, device=None):
+    h, hd = cfg.n_heads, cfg.resolved_head_dim
+    return {"C": torch.zeros((batch, h, hd, hd), dtype=f32, device=device),
+            "n": torch.zeros((batch, h, hd, 1), dtype=f32, device=device)}
+
+
+class SLSTM(nn.Module):
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        d = cfg.d_model
+        self.w_gates = _param((d, 4 * d), cfg, device)
+
+    def init(self, cfg: ModelConfig, generator: torch.Generator):
+        dense_init(self.w_gates, generator, 0.02)
+
+
+def init_slstm(cfg: ModelConfig, generator, device=None) -> SLSTM:
+    p = SLSTM(cfg, device)
+    p.init(cfg, generator)
+    return p
+
+
+def gated_cumsum(f, x):
+    """c_t = f_t c_{t-1} + x_t along axis 1 from c_{-1} = 0, for (B, S, D)
+    float32 f and x: the reference's associative scan with the combine
+    (f_a, x_a), (f_b, x_b) -> (f_a f_b, x_b + f_b x_a), in its doubling
+    form (ceil(log2 S) steps, each one pass over the sequence)."""
+    s, step = f.shape[1], 1
+    while step < s:
+        x = torch.cat([x[:, :step], x[:, step:] + f[:, step:] * x[:, :-step]],
+                      dim=1)
+        if 2 * step < s:
+            f = torch.cat([f[:, :step], f[:, step:] * f[:, :-step]], dim=1)
+        step *= 2
+    return x
+
+
+def apply_slstm(p: SLSTM, x, cfg: ModelConfig, *, mode="full", cache=None,
+                want_cache=False):
+    """sLSTM with per-channel scalar memory and no recurrent hidden-to-gate
+    weights (the reference's adaptation), so c and n are linear recurrences
+    (`gated_cumsum`). cache: {"c", "n": (B, D) f32}."""
+    b, s, d = x.shape
+    dt = _dtype(cfg)
+    pre = (x @ p.w_gates.to(dt)).float()
+    ig, fg, zg, og = torch.split(pre, d, dim=-1)                # (B,S,D)
+    i = torch.exp(torch.clamp(ig, -8.0, 8.0))
+    f = torch.sigmoid(fg)
+    z = torch.tanh(zg)
+    o = torch.sigmoid(og)
+
+    if mode == "decode":
+        c = f[:, 0] * cache["c"] + i[:, 0] * z[:, 0]
+        n = f[:, 0] * cache["n"] + i[:, 0]
+        hcur = (o[:, 0] * c / torch.clamp(n, min=1.0))[:, None]
+        cache["c"], cache["n"] = c, n
+        return hcur.to(dt), cache
+
+    c = gated_cumsum(f, i * z)
+    n = gated_cumsum(f, i)
+    hseq = o * c / torch.clamp(n, min=1.0)
+    new_cache = ({"c": c[:, -1].clone(), "n": n[:, -1].clone()}
+                 if want_cache else None)
+    return hseq.to(dt), new_cache
+
+
+def slstm_cache_spec(cfg: ModelConfig, batch: int, device=None):
+    return {"c": torch.zeros((batch, cfg.d_model), dtype=f32, device=device),
+            "n": torch.zeros((batch, cfg.d_model), dtype=f32, device=device)}

@@ -1,4 +1,5 @@
-"""The model API of the port, for the dense and hybrid (zamba2) families.
+"""The model API of the port, for the dense, hybrid (zamba2) and ssm (xLSTM)
+families.
 
 `Model(cfg, device=...)` is an `nn.Module` whose parameters are allocated on
 the device (uninitialised); `init(generator)` fills them with the
@@ -15,9 +16,12 @@ The reference stacks each family's layers along a leading axis and scans
 over them; here they are an `nn.ModuleList` applied in a Python loop in the
 same order. The hybrid family is `n_layers` Mamba2 blocks with ONE shared
 attention + MLP block applied after every `attn_every` of them (13 times in
-zamba2-7b: 81 = 13 x 6 + a tail of 3). Caches are plain dicts and lists:
-{"mamba": [per Mamba block], "attn": [per attention application]}.
-Loss, training and the MoE / ssm / audio / vlm families are not ported yet.
+zamba2-7b: 81 = 13 x 6 + a tail of 3). The ssm family is
+n_layers / slstm_every groups, each of slstm_every - 1 mLSTM blocks then one
+sLSTM block (xlstm-1.3b: 6 x (7 + 1) = 48). Caches are plain dicts and
+lists: {"mamba": [per Mamba block], "attn": [per attention application]},
+or {"mlstm": [...], "slstm": [...]} per block in order.
+Loss, training and the MoE / audio / vlm families are not ported yet.
 """
 from __future__ import annotations
 
@@ -30,7 +34,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 
-_FAMILIES = ("dense", "hybrid")
+_FAMILIES = ("dense", "hybrid", "ssm")
 
 
 class DenseBlock(nn.Module):
@@ -59,6 +63,26 @@ class MambaBlock(nn.Module):
         self.mamba.init(cfg, generator)
 
 
+class MLSTMBlock(nn.Module):
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.ln = L._param((cfg.d_model,), cfg, device, 0.0)
+        self.mlstm = L.MLSTM(cfg, device)
+
+    def init(self, cfg, generator):
+        self.mlstm.init(cfg, generator)
+
+
+class SLSTMBlock(nn.Module):
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.ln = L._param((cfg.d_model,), cfg, device, 0.0)
+        self.slstm = L.SLSTM(cfg, device)
+
+    def init(self, cfg, generator):
+        self.slstm.init(cfg, generator)
+
+
 def _apply_dense_block(p: DenseBlock, x, cfg, *, positions, mode, cache,
                        want_cache, window=0):
     a, c = L.apply_attention(p.attn, L.rmsnorm(x, p.ln1, cfg.norm_eps), cfg,
@@ -73,6 +97,23 @@ def _apply_mamba_block(p: MambaBlock, x, cfg, *, mode, cache, want_cache):
     y, c = L.apply_mamba(p.mamba, L.rmsnorm(x, p.ln, cfg.norm_eps), cfg,
                          mode=mode, cache=cache, want_cache=want_cache)
     return x + y, c
+
+
+def _apply_mlstm_block(p: MLSTMBlock, x, cfg, *, mode, cache, want_cache):
+    y, c = L.apply_mlstm(p.mlstm, L.rmsnorm(x, p.ln, cfg.norm_eps), cfg,
+                         mode=mode, cache=cache, want_cache=want_cache)
+    return x + y, c
+
+
+def _apply_slstm_block(p: SLSTMBlock, x, cfg, *, mode, cache, want_cache):
+    y, c = L.apply_slstm(p.slstm, L.rmsnorm(x, p.ln, cfg.norm_eps), cfg,
+                         mode=mode, cache=cache, want_cache=want_cache)
+    return x + y, c
+
+
+def _ssm_groups(cfg: ModelConfig) -> tuple[int, int]:
+    """(groups, mLSTM blocks a group) of the ssm family."""
+    return cfg.n_layers // cfg.slstm_every, cfg.slstm_every - 1
 
 
 class Model(nn.Module):
@@ -94,6 +135,12 @@ class Model(nn.Module):
         if cfg.family == "dense":
             self.layers = nn.ModuleList(DenseBlock(cfg, dev)
                                         for _ in range(cfg.n_layers))
+        elif cfg.family == "ssm":
+            g, m = _ssm_groups(cfg)
+            self.mlstm = nn.ModuleList(MLSTMBlock(cfg, dev)
+                                       for _ in range(g * m))
+            self.slstm = nn.ModuleList(SLSTMBlock(cfg, dev)
+                                       for _ in range(g))
         else:
             self.mamba = nn.ModuleList(MambaBlock(cfg, dev)
                                        for _ in range(cfg.n_layers))
@@ -108,13 +155,18 @@ class Model(nn.Module):
     def init(self, generator: torch.Generator) -> "Model":
         """Fill every parameter from `generator` with the reference's
         initial distributions (embeddings N(0, 0.02^2), dense weights
-        N(0, 1/fan_in), norms 0, Mamba2's A_log / Dskip / dt_bias fixed)."""
+        N(0, 1/fan_in), norms 0, Mamba2's A_log / Dskip / dt_bias fixed;
+        the mLSTM gates and sLSTM gate weights N(0, 0.02^2))."""
         cfg = self.cfg
         L.normal_(self.embed, generator, 0.02)
         if self.lm_head is not None:
             L.normal_(self.lm_head, generator, 0.02)
-        blocks = (self.layers if cfg.family == "dense"
-                  else [*self.mamba, self.shared])
+        if cfg.family == "dense":
+            blocks = self.layers
+        elif cfg.family == "ssm":
+            blocks = [*self.mlstm, *self.slstm]
+        else:
+            blocks = [*self.mamba, self.shared]
         for blk in blocks:
             blk.init(cfg, generator)
         return self
@@ -143,6 +195,22 @@ class Model(nn.Module):
                     want_cache=want_cache)
                 new.append(c)
             return x, ({"attn": new} if keep else None)
+        if cfg.family == "ssm":
+            _, m = _ssm_groups(cfg)
+            mls, sls = [], []
+            for gi, sblk in enumerate(self.slstm):
+                for i in range(gi * m, (gi + 1) * m):
+                    x, c = _apply_mlstm_block(
+                        self.mlstm[i], x, cfg, mode=mode,
+                        cache=caches["mlstm"][i] if caches else None,
+                        want_cache=want_cache)
+                    mls.append(c)
+                x, c = _apply_slstm_block(
+                    sblk, x, cfg, mode=mode,
+                    cache=caches["slstm"][gi] if caches else None,
+                    want_cache=want_cache)
+                sls.append(c)
+            return x, ({"mlstm": mls, "slstm": sls} if keep else None)
         g = cfg.n_layers // cfg.attn_every
         mam, att = [], []
         for i, blk in enumerate(self.mamba):
@@ -175,6 +243,12 @@ class Model(nn.Module):
             return {"attn": [L.attention_cache_spec(cfg, batch, cache_len, 0,
                                                     dev)
                              for _ in range(cfg.n_layers)]}
+        if cfg.family == "ssm":
+            g, m = _ssm_groups(cfg)
+            return {"mlstm": [L.mlstm_cache_spec(cfg, batch, dev)
+                              for _ in range(g * m)],
+                    "slstm": [L.slstm_cache_spec(cfg, batch, dev)
+                              for _ in range(g)]}
         g = cfg.n_layers // cfg.attn_every
         return {"mamba": [L.mamba_cache_spec(cfg, batch, dev)
                           for _ in range(cfg.n_layers)],
@@ -186,7 +260,8 @@ class Model(nn.Module):
     def prefill(self, batch: dict, cache_len: int | None = None):
         """Full-sequence pass building the cache; the head is applied ONLY to
         the final position. `cache_len` pads attention caches with empty
-        slots (kpos = -1) so subsequent decode steps have room to append."""
+        slots (kpos = -1) so subsequent decode steps have room to append
+        (the ssm family's recurrent states need no room)."""
         x = self._embed(batch["tokens"])
         positions = torch.arange(x.shape[1], device=x.device)
         x, caches = self._run_stack(x, positions=positions, mode="full",
@@ -210,9 +285,10 @@ class Model(nn.Module):
 def _pad_attention_caches(caches, cache_len: int, window: int):
     """Pad every attention cache's sequence axis to its target ring size:
     min(window, cache_len) for windowed attention, else cache_len. Empty
-    slots carry kpos = -1 (masked out by decode_attention)."""
+    slots carry kpos = -1 (masked out by decode_attention). A cache without
+    attention (the ssm family's) passes through."""
     target = min(window, cache_len) if window else cache_len
-    for c in caches["attn"]:
+    for c in caches.get("attn", ()):
         cur = c["k"].shape[1]
         if cur < target:
             pad = (0, 0, 0, 0, 0, target - cur)

@@ -8,6 +8,8 @@ one queue per device, Sec. 7.1).
 PyTorch runs eagerly, so there is no compiled prefill/decode: the engine
 calls the model's methods, and on a card the model's attention and SSD
 prefill go through the hand-written kernels (`repro_torch.kernels.ops`).
+Serves the dense, hybrid and ssm families; recurrent states (Mamba2's,
+mLSTM's and sLSTM's) stay float32 in the cache.
 """
 from __future__ import annotations
 

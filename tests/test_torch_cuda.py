@@ -447,6 +447,186 @@ def test_ssd_scan_kernel_head_broadcast_views_both_dtypes(cuda, dtype):
     torch.testing.assert_close(state, sp, atol=1e-4, rtol=1e-4)
 
 
+# mLSTM forget-gate biases: log_a = log_sigmoid(randn + bias). At 0 (about
+# -0.8 a token) a chunk passes on e^-13 (16 tokens) to e^-200 (256 tokens)
+# of the state entering it, so y and the final state barely see the carry
+# over chunks; at 6 (about -0.004 a token, forget gates near 1) it passes
+# on a third or more, so a dropped or misplaced carry shows.
+FORGET_BIASES = [0.0, 6.0]
+
+
+def _mlstm_scan_inputs(rng, b, s, h, dk, dv, dt, dev, forget_bias=0.0):
+    """SSD inputs as an mLSTM layer forms them: q scaled by 1/sqrt(dk),
+    log_a = log_sigmoid(. + forget_bias), beta = sigmoid; v = ones for
+    dv = 1 (the normaliser)."""
+    q = (_rand(rng, (b, s, h, dk), torch.float32, dev) / dk ** 0.5).to(dt)
+    k = _rand(rng, (b, s, h, dk), dt, dev)
+    v = (torch.ones((b, s, h, 1), dtype=dt, device=dev) if dv == 1
+         else _rand(rng, (b, s, h, dv), dt, dev))
+    log_a = torch.nn.functional.logsigmoid(
+        _rand(rng, (b, s, h), torch.float32, dev) + forget_bias)
+    beta = torch.sigmoid(_rand(rng, (b, s, h), torch.float32, dev))
+    return q, k, v, log_a, beta
+
+
+@pytest.mark.parametrize("forget_bias", FORGET_BIASES)
+@pytest.mark.parametrize("dv", [512, 1])
+def test_ssd_scan_wide_kernel_matches_plain_version_at_mlstm_shapes(
+        cuda, dv, forget_bias):
+    """xlstm-1.3b's prefill calls, bf16: (4, 8192, 4, 512, 512) and
+    (4, 8192, 4, 512, 1), chunk 256, at fast and slow decay; y within
+    5e-2, the state 1e-4."""
+    from repro_torch.kernels import ssd_scan as SSD
+    from repro_torch.kernels import ssd_scan_wide as SSDW
+    rng = np.random.default_rng(dv)
+    args = _mlstm_scan_inputs(rng, 4, 8192, 4, 512, dv, torch.bfloat16, cuda,
+                              forget_bias)
+    before = SSDW.launches["ssd_scan_wide"]
+    y, state = SSDW.ssd_scan_wide_cuda(*args, chunk=256)
+    assert SSDW.launches["ssd_scan_wide"] == before + 1
+    yp, sp = SSD.ssd_scan_plain(*args, chunk=256)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y.float(), yp.float(), atol=5e-2, rtol=5e-2)
+    torch.testing.assert_close(state, sp, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("b,s,h,dk,dv,chunk", [
+    (2, 300, 3, 512, 512, 256), (1, 77, 2, 512, 1, 32),
+    (2, 130, 3, 200, 136, 64), (3, 45, 2, 24, 40, 16), (1, 1, 2, 512, 7, 256),
+    (2, 513, 1, 129, 17, 128)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("forget_bias", FORGET_BIASES)
+def test_ssd_scan_wide_kernel_ragged_shapes(cuda, b, s, h, dk, dv, chunk,
+                                            dtype, forget_bias):
+    """S not a multiple of the chunk or of the 64-token tiles, dk and dv
+    not multiples of the tiles (64, or 16 for dv <= 16), one token, both
+    dtypes, fast and slow decay."""
+    from repro_torch.kernels import ssd_scan as SSD
+    from repro_torch.kernels import ssd_scan_wide as SSDW
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(s + dk + dv)
+    args = _mlstm_scan_inputs(rng, b, s, h, dk, dv, dt, cuda, forget_bias)
+    y, state = SSDW.ssd_scan_wide_cuda(*args, chunk=chunk)
+    yp, sp = SSD.ssd_scan_plain(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    tol = 2e-4 if dtype == "float32" else 5e-2
+    torch.testing.assert_close(y.float(), yp.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(state, sp, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("forget_bias", FORGET_BIASES)
+def test_ssd_scan_wide_kernel_reads_strided_and_head_broadcast_views(
+        cuda, dtype, forget_bias):
+    """q, k, v split from one projection (strided views, as mLSTM's qkv),
+    and q, k expanded over heads (head stride 0, as Mamba2's B and C), at
+    fast and slow decay."""
+    from repro_torch.kernels import ssd_scan as SSD
+    from repro_torch.kernels import ssd_scan_wide as SSDW
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(23)
+    b, s, h, d = 2, 300, 3, 512
+    qkv = _rand(rng, (b, s, 3 * h * d), dt, cuda)
+    q, k, v = (t.reshape(b, s, h, d) for t in torch.split(qkv, h * d, -1))
+    log_a = torch.nn.functional.logsigmoid(
+        _rand(rng, (b, s, h), torch.float32, cuda) + forget_bias)
+    beta = torch.sigmoid(_rand(rng, (b, s, h), torch.float32, cuda))
+    qb = _rand(rng, (b, s, d), dt, cuda)[:, :, None].expand(b, s, h, d)
+    kb = _rand(rng, (b, s, d), dt, cuda)[:, :, None].expand(b, s, h, d)
+    tol = 2e-4 if dtype == "float32" else 5e-2
+    for args in ((q / d ** 0.5, k, v), (qb / d ** 0.5, kb, v)):
+        y, state = SSDW.ssd_scan_wide_cuda(*args, log_a, beta, chunk=64)
+        yp, sp = SSD.ssd_scan_plain(*args, log_a, beta, chunk=64)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(y.float(), yp.float(), atol=tol, rtol=tol)
+        torch.testing.assert_close(state, sp, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("decay_scale", [1.0, 0.01])
+def test_ssd_scan_wide_kernel_matches_the_mamba2_kernel(cuda, dtype,
+                                                        decay_scale):
+    """At dk = dv = 64 (Mamba2's heads, head-broadcast q and k) the wide
+    kernel agrees with ssd_scan.cu and with the plain version; log_a =
+    dt * A scaled by `decay_scale` (0.01: about -0.0013 to -0.02 a token,
+    so the carry over chunks shows in y and the state). The wide kernel
+    and both states are held as at fast decay."""
+    from repro_torch.kernels import ssd_scan as SSD
+    from repro_torch.kernels import ssd_scan_wide as SSDW
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(31)
+    b, s, h, d = 2, 700, 5, 64
+    Bc = _rand(rng, (b, s, d), dt, cuda)
+    Cc = _rand(rng, (b, s, d), dt, cuda)
+    x = _rand(rng, (b, s, h * d), dt, cuda).reshape(b, s, h, d)
+    dtv = torch.nn.functional.softplus(_rand(rng, (b, s, h), torch.float32,
+                                             cuda) - 2.0)
+    args = (Cc[:, :, None].expand(b, s, h, d), Bc[:, :, None].expand(
+        b, s, h, d), x, decay_scale * dtv * -torch.linspace(
+            1.0, 16.0, h, device=cuda), dtv)
+    yw, sw = SSDW.ssd_scan_wide_cuda(*args, chunk=256)
+    yk, sk = SSD.ssd_scan_cuda(*args, chunk=256)
+    yp, sp = SSD.ssd_scan_plain(*args, chunk=256)
+    torch.cuda.synchronize()
+    tol = 2e-4 if dtype == "float32" else 5e-2
+    torch.testing.assert_close(yw.float(), yp.float(), atol=tol, rtol=tol)
+    for st in (sw, sk):
+        torch.testing.assert_close(st, sp, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(sw, sk, atol=1e-4, rtol=1e-4)
+    if dtype == "float32" and decay_scale != 1.0:
+        # ssd_scan.cu takes float32 operands as hi + lo bf16 pairs, ~16
+        # significant bits. At slow decay y sums terms of up to ~180 that
+        # cancel to near 0 in places, so its y is held to 2^-14 of the sum
+        # of the terms' magnitudes (the plain scan of |q|, |k|, |v|).
+        mag = SSD.ssd_scan_plain(*(t.abs() for t in args[:3]), *args[3:],
+                                 chunk=256)[0]
+        for a, ref in ((yk, yp), (yw, yk)):
+            assert bool(((a - ref).abs() <= tol + 2 ** -14 * mag).all())
+    else:
+        torch.testing.assert_close(yk.float(), yp.float(), atol=tol,
+                                   rtol=tol)
+        torch.testing.assert_close(yw.float(), yk.float(), atol=tol,
+                                   rtol=tol)
+
+
+def test_ops_ssd_scan_on_the_card_never_takes_the_plain_version(cuda,
+                                                                monkeypatch):
+    """`ops.ssd_scan` on CUDA tensors launches ssd_scan.cu up to 128 x 128
+    and ssd_scan_wide.cu above, and never calls the plain version; a failed
+    launch or build of the wide kernel raises instead of falling back."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as SSD
+    from repro_torch.kernels import ssd_scan_wide as SSDW
+
+    def plain(*a, **k):
+        raise AssertionError("the plain version ran on the card")
+    monkeypatch.setattr(ops, "linear_scan_chunked", plain)
+    rng = np.random.default_rng(41)
+    for dk, dv, name in ((64, 64, "ssd_scan"), (512, 512, "ssd_scan_wide"),
+                         (512, 1, "ssd_scan_wide")):
+        args = _mlstm_scan_inputs(rng, 2, 100, 2, dk, dv, torch.bfloat16,
+                                  cuda)
+        before = {**SSD.launches, **SSDW.launches}
+        y, state = ops.ssd_scan(*args, chunk=32)
+        after = {**SSD.launches, **SSDW.launches}
+        assert after[name] == before[name] + 1
+        assert sum(after.values()) == sum(before.values()) + 1
+        assert y.shape == (2, 100, 2, dv) and state.shape == (2, 2, dk, dv)
+    args = _mlstm_scan_inputs(rng, 1, 10, 1, 512, 512, torch.bfloat16, cuda)
+    monkeypatch.setattr(SSDW, "_kernel_lib", lambda: (lambda *a: 1))
+    with pytest.raises(RuntimeError, match="ssd_scan_wide_fwd launch failed"):
+        ops.ssd_scan(*args)
+
+    def no_build():
+        raise RuntimeError("nvcc failed for ssd_scan_wide")
+    monkeypatch.setattr(SSDW, "_kernel_lib", no_build)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        ops.ssd_scan(*args)
+    with pytest.raises(ValueError, match="<= 512"):
+        ops.ssd_scan(*_mlstm_scan_inputs(rng, 1, 10, 1, 513, 1,
+                                         torch.bfloat16, cuda))
+
+
 @pytest.mark.parametrize("shape", [(64, 256), (2, 37, 256), (5, 128),
                                    (3, 3584), (7, 100)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

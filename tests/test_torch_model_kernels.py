@@ -105,6 +105,52 @@ def test_ssd_scan_matches_reference(b, s, h, dk, dv, chunk, dtype):
                                so.numpy(), atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("s,h,dv,chunk", [(45, 2, 512, 16), (70, 3, 1, 32)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_scan_at_mlstm_state_widths_matches_reference(s, h, dv, chunk,
+                                                          dtype):
+    """mLSTM's two calls: dk = dv = 512 (its memory) and dk = 512, dv = 1
+    (its normaliser, v = ones as the layer passes it), at S not a multiple
+    of the chunk; the widths the card sends to `ssd_scan_wide_cuda`.
+    Tolerances as above: y 2e-4 (float32) / 5e-2 (bfloat16), state 1e-4."""
+    assert ops.ssd_kernel_for(512, dv) == "ssd_scan_wide"
+    rng = np.random.default_rng(4000 + s + dv)
+    dk = 512
+    (jq, tq), (jk, tk) = (_pair(rng, (1, s, h, dk), dtype) for _ in range(2))
+    jq, tq = jq / np.sqrt(dk).astype(np.float32), tq / np.sqrt(dk)
+    if dv == 1:
+        jv = jnp.ones((1, s, h, 1), _DT[dtype][0])
+        tv = torch.ones((1, s, h, 1), dtype=_DT[dtype][1])
+    else:
+        jv, tv = _pair(rng, (1, s, h, dv), dtype)
+    la = -np.logaddexp(0.0, -rng.standard_normal((1, s, h))).astype(
+        np.float32)                                  # log_sigmoid
+    bt = (1 / (1 + np.exp(-rng.standard_normal((1, s, h))))).astype(
+        np.float32)
+    yr, sr = rops.ssd_scan(jq, jk, jv, jnp.asarray(la), jnp.asarray(bt),
+                           chunk=chunk)
+    y, state = ops.ssd_scan(tq, tk, tv, torch.from_numpy(la),
+                            torch.from_numpy(bt), chunk=chunk)
+    assert y.dtype == tv.dtype and y.shape == (1, s, h, dv)
+    assert state.dtype == torch.float32 and state.shape == (1, h, dk, dv)
+    tol = 2e-4 if dtype == "float32" else 5e-2
+    np.testing.assert_allclose(_np(y), _np(yr), atol=tol, rtol=tol)
+    np.testing.assert_allclose(state.numpy(), np.asarray(sr), atol=1e-4,
+                               rtol=1e-4)
+
+
+def test_ssd_kernel_choice_by_state_width():
+    """On the card, states up to 128 x 128 go to ssd_scan.cu (Mamba2's
+    path, unchanged), wider ones up to 512 x 512 to ssd_scan_wide.cu, and
+    wider still are refused (nothing goes to the plain version)."""
+    pick = ops.ssd_kernel_for
+    assert pick(64, 64) == pick(128, 128) == pick(16, 1) == "ssd_scan"
+    for dk, dv in ((512, 512), (512, 1), (129, 64), (64, 200)):
+        assert pick(dk, dv) == "ssd_scan_wide"
+    with pytest.raises(ValueError, match="<= 512"):
+        pick(513, 1)
+
+
 def test_ssd_final_state_matches_reference_oracle():
     """The reference's test_ssd_final_state_matches_ref, on the port."""
     from repro.kernels.ref import ssd_scan_ref as rssd_ref
@@ -147,19 +193,24 @@ def test_ops_dispatch_on_device():
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import rmsnorm as RN
     from repro_torch.kernels import ssd_scan as SSD
+    from repro_torch.kernels import ssd_scan_wide as SSDW
     x = torch.zeros(2, 8, 2, 32)
     la = torch.zeros(2, 8, 2)
+    wide = torch.zeros(2, 8, 2, 512)
     before = (FA.launches["flash_attention"], SSD.launches["ssd_scan"],
-              RN.launches["rmsnorm"])
+              SSDW.launches["ssd_scan_wide"], RN.launches["rmsnorm"])
     ops.flash_attention(x, x, x)
     ops.ssd_scan(x, x, x, la, la)
+    ops.ssd_scan(wide, wide, wide[..., :1], la, la)
     ops.rmsnorm(x, torch.zeros(32))
     assert (FA.launches["flash_attention"], SSD.launches["ssd_scan"],
-            RN.launches["rmsnorm"]) == before
+            SSDW.launches["ssd_scan_wide"], RN.launches["rmsnorm"]) == before
     with pytest.raises(ValueError, match="CUDA"):
         FA.flash_attention_cuda(x, x, x)
     with pytest.raises(ValueError, match="CUDA"):
         SSD.ssd_scan_cuda(x, x, x, la, la)
+    with pytest.raises(ValueError, match="CUDA"):
+        SSDW.ssd_scan_wide_cuda(x, x, x, la, la)
     with pytest.raises(ValueError, match="CUDA"):
         RN.rmsnorm_cuda(x[0, 0], torch.zeros(32))
     with pytest.raises(ValueError, match="unsupported device"):

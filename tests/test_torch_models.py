@@ -2,10 +2,11 @@
 the CPU at float32.
 
 Per module — rope, attention (prefill and a decode step into a full
-sliding-window ring buffer), the MLP, Mamba2 (prefill and a decode step) —
-then the whole `Model` on `smoke_config` of zamba2-7b (hybrid) and yi-6b
-(dense), plus the dense variants the registry carries (qkv bias with tied
-embeddings: qwen2.5-3b; the GeLU MLP: granite-34b). The reference's
+sliding-window ring buffer), the MLP, Mamba2, mLSTM and sLSTM (prefill and
+a decode step each) — then the whole `Model` on `smoke_config` of zamba2-7b
+(hybrid), yi-6b (dense) and xlstm-1.3b (ssm), plus the dense variants the
+registry carries (qkv bias with tied embeddings: qwen2.5-3b; the GeLU MLP:
+granite-34b). The reference's
 parameters cross as NumPy arrays through `convert.model_params_from_
 reference`; token ids and activations are drawn with numpy from a seed.
 The prompt (100 tokens) is longer than the smoke window (64) and not a
@@ -171,6 +172,68 @@ def test_mamba_prefill_and_decode_match_reference():
     _close(pc1["conv"], rc1["conv"])
 
 
+@torch.no_grad()
+def test_mlstm_prefill_and_decode_match_reference():
+    """The memory and normaliser scans (prefill) and the two step
+    recurrences (decode), with their caches; S = 100 is not a multiple of
+    the chunk (32)."""
+    rc, pc = _cfgs("xlstm-1.3b")
+    rp = RL.init_mlstm(jax.random.PRNGKey(6), rc)
+    pp = L.MLSTM(pc, "cpu")
+    assert _load(pp, _tree(rp)) == 5
+    jx, tx = _x(6, (B, S, rc.d_model))
+    ry, rcache = RL.apply_mlstm(rp, jx, rc, want_cache=True)
+    py, pcache = L.apply_mlstm(pp, tx, pc, want_cache=True)
+    _close(py, ry)
+    assert pcache["C"].shape == (B, 4, 32, 32) and pcache["n"].shape == (
+        B, 4, 32, 1)
+    _close(pcache["C"], rcache["C"])
+    _close(pcache["n"], rcache["n"])
+    jx1, tx1 = _x(7, (B, 1, rc.d_model))
+    ry1, rc1 = RL.apply_mlstm(rp, jx1, rc, mode="decode", cache=rcache)
+    py1, pc1 = L.apply_mlstm(pp, tx1, pc, mode="decode", cache=pcache)
+    _close(py1, ry1)
+    _close(pc1["C"], rc1["C"])
+    _close(pc1["n"], rc1["n"])
+
+
+@torch.no_grad()
+@pytest.mark.parametrize("s", [1, 2, 100, 128])
+def test_slstm_prefill_and_decode_match_reference(s):
+    """The doubling scan against the reference's associative scan (another
+    order of summation; float32), at lengths below, at and off a power of
+    two, then one decode step from its cache."""
+    rc, pc = _cfgs("xlstm-1.3b")
+    rp = RL.init_slstm(jax.random.PRNGKey(8), rc)
+    pp = L.SLSTM(pc, "cpu")
+    assert _load(pp, _tree(rp)) == 1
+    jx, tx = _x(8 + s, (B, s, rc.d_model))
+    ry, rcache = RL.apply_slstm(rp, jx, rc, want_cache=True)
+    py, pcache = L.apply_slstm(pp, tx, pc, want_cache=True)
+    _close(py, ry)
+    _close(pcache["c"], rcache["c"])
+    _close(pcache["n"], rcache["n"])
+    jx1, tx1 = _x(9, (B, 1, rc.d_model))
+    ry1, rc1 = RL.apply_slstm(rp, jx1, rc, mode="decode", cache=rcache)
+    py1, pc1 = L.apply_slstm(pp, tx1, pc, mode="decode", cache=pcache)
+    _close(py1, ry1)
+    _close(pc1["c"], rc1["c"])
+    _close(pc1["n"], rc1["n"])
+
+
+def test_gated_cumsum_is_the_sequential_recurrence():
+    """c_t = f_t c_{t-1} + x_t, against a loop over tokens (float64)."""
+    rng = np.random.default_rng(12)
+    f = torch.from_numpy(rng.uniform(0, 1, (2, 37, 5)))
+    x = torch.from_numpy(rng.standard_normal((2, 37, 5)))
+    c, want = torch.zeros(2, 5, dtype=torch.float64), []
+    for t in range(37):
+        c = f[:, t] * c + x[:, t]
+        want.append(c)
+    np.testing.assert_allclose(L.gated_cumsum(f, x).numpy(),
+                               torch.stack(want, 1).numpy(), rtol=1e-12)
+
+
 def _models(arch, seed=0):
     rc, pc = _cfgs(arch)
     rm = build_model(rc)
@@ -182,7 +245,7 @@ def _models(arch, seed=0):
 
 
 @pytest.mark.parametrize("arch", ["zamba2-7b", "yi-6b", "qwen2.5-3b",
-                                  "granite-34b"])
+                                  "granite-34b", "xlstm-1.3b"])
 def test_model_prefill_matches_reference_and_decodes_like_forward(arch):
     rm, params, pm, toks = _models(arch)
     rl, _ = rm.prefill(params, {"tokens": jnp.asarray(toks)},
@@ -201,14 +264,20 @@ def test_model_prefill_matches_reference_and_decodes_like_forward(arch):
 
 
 def test_model_structure_and_param_counts():
-    """81 Mamba2 blocks and one shared block for zamba2-7b; parameter
-    counts equal the reference's at full width (no allocation)."""
+    """81 Mamba2 blocks and one shared block for zamba2-7b, 42 mLSTM and 6
+    sLSTM blocks for xlstm-1.3b; parameter counts equal the reference's at
+    full width (no allocation)."""
     from repro.models.model import count_params as rcount
-    for arch in ("zamba2-7b", "yi-6b"):
+    for arch in ("zamba2-7b", "yi-6b", "xlstm-1.3b"):
         assert count_params(get_arch(arch)) == rcount(rget_arch(arch))
+    assert count_params(get_arch("xlstm-1.3b")) == 1_188_386_816
     m = Model(get_arch("zamba2-7b"), device="meta")
     assert len(m.mamba) == 81 and m.shared.attn.wqkv.shape == (3584, 10752)
-    for arch in ("xlstm-1.3b", "granite-moe-1b-a400m", "musicgen-medium",
+    x = Model(get_arch("xlstm-1.3b"), device="meta")
+    assert len(x.mlstm) == 42 and len(x.slstm) == 6
+    assert x.mlstm[0].mlstm.wqkv.shape == (2048, 6144)
+    assert x.slstm[0].slstm.w_gates.shape == (2048, 8192)
+    for arch in ("granite-moe-1b-a400m", "musicgen-medium",
                  "phi-3-vision-4.2b"):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             Model(get_arch(arch), device="cpu")
@@ -242,3 +311,27 @@ def test_model_init_from_a_generator():
                     if isinstance(t, torch.Tensor)} == \
                 {n: tuple(t.shape) for n, t in c.items()
                  if isinstance(t, torch.Tensor)}
+
+
+def test_ssm_model_builds_on_the_cpu_and_its_cache_has_prefill_shapes():
+    """`Model(get_arch("xlstm-1.3b"), device="cpu")` builds; on the smoke
+    config `init_cache` has the prefill cache's shapes and float32 states,
+    and `_pad_attention_caches` passes a cache without attention through."""
+    from repro_torch.models.model import _pad_attention_caches
+    full = Model(get_arch("xlstm-1.3b"), device="cpu")
+    assert len(full.mlstm) == 42 and full.device.type == "cpu"
+    del full
+    cfg = smoke_config(get_arch("xlstm-1.3b"))
+    m = Model(cfg, device="cpu").init(torch.Generator().manual_seed(4))
+    _, cache = m.prefill({"tokens": torch.zeros(2, 9, dtype=torch.long)},
+                         cache_len=40)
+    empty = m.init_cache(2, 40)
+    assert set(cache) == set(empty) == {"mlstm", "slstm"}
+    for key in ("mlstm", "slstm"):
+        assert len(empty[key]) == len(cache[key]) == {"mlstm": 3,
+                                                      "slstm": 1}[key]
+        for e, c in zip(empty[key], cache[key]):
+            assert {n: (tuple(t.shape), t.dtype) for n, t in e.items()} == \
+                {n: (tuple(t.shape), t.dtype) for n, t in c.items()}
+            assert all(t.dtype == torch.float32 for t in c.values())
+    assert _pad_attention_caches(cache, 64, 0) is cache

@@ -23,7 +23,8 @@ from repro_torch.serve.engine import (ServeEngine,  # noqa: E402
 STEPS = 8
 
 
-@pytest.mark.parametrize("arch,prompt", [("zamba2-7b", 100), ("yi-6b", 24)])
+@pytest.mark.parametrize("arch,prompt", [("zamba2-7b", 100), ("yi-6b", 24),
+                                         ("xlstm-1.3b", 70)])
 def test_generate_matches_reference_greedy_tokens(arch, prompt):
     """bf16 serving copies of the same weights emit the same greedy tokens.
     A near-tie could flip a token between the two frameworks' bf16
@@ -134,6 +135,15 @@ def test_serve_cli_runs_on_cpu(capsys):
     assert "CAB: X=" in out and "LB: X=" in out
     with pytest.raises(NotImplementedError, match="not yet ported"):
         serve.main(["--arch", "yi-6b", "--device", "cpu", "--traffic"])
+
+
+def test_serve_cli_serves_the_ssm_family_on_cpu(capsys):
+    """xlstm-1.3b (mLSTM + sLSTM blocks) through the CLI's engine."""
+    from repro_torch.launch import serve
+    serve.main(["--arch", "xlstm-1.3b", "--batch", "2", "--prompt-len", "40",
+                "--steps", "4", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "xlstm-1.3b on cpu: generated (2, 4) tokens" in out
 
 
 def test_serve_cli_defaults_to_cuda(monkeypatch):

@@ -108,9 +108,34 @@ def test_smoke_solve_bound_counts_the_steps_taken():
     assert energy[3] > b1[3] and energy[2] > b1[2]
 
 
+@pytest.mark.parametrize("dv", [64, 1])
+def test_smoke_wide_check_sees_a_cut_carry_at_slow_decay(dv):
+    """The smoke's wide-kernel check, run here with the plain version as
+    the scan (chunk 32, 8 chunks). It passes the plain version at both
+    forget biases. The plain version with its carry over chunks cut to one
+    chunk (a carry that drops its exp(lt) * S_in term) passes at fast
+    decay, where that term is e^-26 of the state, and fails at slow decay,
+    where the check reports it as a fault."""
+    import importlib.util
+    from repro_torch.models.linear_scan import linear_scan_chunked
+    spec = importlib.util.spec_from_file_location("chip_smoke", SMOKE)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    slow = smoke.SLOW_FORGET_BIAS
+    shape = (torch.device("cpu"), 5, 1, 256, 2, 64, dv, 32)
+    sound = smoke.check_wide_ssd(*shape, linear_scan_chunked)
+    assert all(r["ok"] for r in sound.values())
+    assert smoke.wide_ssd_faults(sound) == []
+    assert sound[0.0]["cut_carry_ok"] and not sound[slow]["cut_carry_ok"]
+    cut = smoke.check_wide_ssd(*shape, smoke.scan_cut_carry)
+    assert cut[0.0]["ok"] and not cut[slow]["ok"]
+    assert smoke.wide_ssd_faults(cut)
+
+
 @pytest.mark.parametrize("name,entry,replaces", [
     ("flash_attention", "flash_attention_fwd", "flash_attention_pallas"),
     ("ssd_scan", "ssd_scan_fwd", "ssd_scan_pallas"),
+    ("ssd_scan_wide", "ssd_scan_wide_fwd", "ssd_scan_pallas"),
     ("rmsnorm", "rmsnorm_fwd", "rmsnorm_pallas")])
 def test_model_kernel_sources_are_in_the_package(name, entry, replaces):
     import importlib
