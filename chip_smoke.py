@@ -35,7 +35,8 @@ launch counts set to 0 just before it and read just after:
     then CAB against LB over two pools of that engine in virtual time; and
     xlstm-1.3b at full width and depth (42 mLSTM blocks with 512 x 512
     memories, 6 sLSTM blocks, d_model 2048) on the same prompts and steps
-    (the wide SSD-scan kernel, twice per mLSTM block) with its own
+    (the wide SSD-scan kernel's pair: memory and normaliser in one call
+    per mLSTM block) with its own
     decode-vs-forward check;
   * `ops.rmsnorm`, the RMSNorm kernel's only entry point;
 
@@ -2061,6 +2062,19 @@ def ssd_bound(b, s, h, dk, dv, chunk, shared_qk):
     return _bound(nbytes, ops, BF16_OPS_PER_S)
 
 
+def mlstm_bound(b, s, h, dk, dv, chunk):
+    """The pair (`mlstm_scan_cuda`): the memory's `ssd_bound` plus the
+    normaliser's own work, which shares the causal scores: per chunk and row
+    the row sums of G, q . n and the state update at dv = 1; bytes also nm
+    (bf16) written and n (float32)."""
+    _, _, nbytes, ops = ssd_bound(b, s, h, dk, dv, chunk, False)
+    c = min(chunk, s)
+    n = -(-s // c)
+    ops += b * h * n * (2 * (c * (c + 1) // 2) + 4 * c * dk)
+    nbytes += 2 * b * s * h + 4 * b * h * dk
+    return _bound(nbytes, ops, BF16_OPS_PER_S)
+
+
 def _close(a, b, tol):
     """max |a - b| and whether |a - b| <= tol + tol * |b| everywhere."""
     d = (a.float() - b.float()).abs()
@@ -2147,24 +2161,34 @@ def scan_cut_carry(q, k, v, log_a, beta, *, chunk):
     return y.reshape(b, s, h, -1), st.reshape(b, n, *st.shape[1:])[:, -1]
 
 
-def check_wide_ssd(dev, seed, b, s, h, dk, dv, chunk, scan):
-    """`scan` (the wide kernel's wrapper, `ssd_scan_wide_cuda`) against the
-    plain version on mLSTM's inputs at each forget bias of FORGET_BIASES:
-    y within SSD_Y_TOL, the final state within SSD_STATE_TOL. Where S is a
-    multiple of the chunk, the plain version with its carry cut to one
-    chunk (`scan_cut_carry`) goes through the same check beside it.
-    Returns {bias: {"y_err", "state_err", "ok", and "cut_carry_y_err",
-    "cut_carry_state_err", "cut_carry_ok" where run}}."""
+def check_wide_ssd(dev, seed, b, s, h, dk, dv, chunk, scan, pair=False):
+    """`scan` (the wide kernel's wrapper, `ssd_scan_wide_cuda`, or with
+    `pair` `mlstm_scan_cuda`, which also returns the normaliser's nm and n)
+    against the plain version on mLSTM's inputs at each forget bias of
+    FORGET_BIASES: y (and nm) within SSD_Y_TOL, the final states within
+    SSD_STATE_TOL. Where S is a multiple of the chunk, the plain version
+    with its carry cut to one chunk (`scan_cut_carry`) goes through the
+    same check of y and the state beside it. Returns {bias: {"y_err",
+    "state_err" (the largest over both scans for the pair), "ok", with
+    `pair` "nm_err", "n_err", and "cut_carry_y_err", "cut_carry_state_err",
+    "cut_carry_ok" where run}}."""
+    from repro_torch.kernels.ssd_scan_wide import mlstm_scan_plain
     from repro_torch.models.linear_scan import linear_scan_chunked
     out = {}
     for bias in FORGET_BIASES:
         args = mlstm_scan_inputs(dev, seed, b, s, h, dk, dv, bias)
-        y, st = scan(*args, chunk=chunk)
-        yp, sp = linear_scan_chunked(*args, chunk=chunk)
-        err_y, ok_y = _close(y, yp, SSD_Y_TOL)
-        err_s, ok_s = _close(st, sp, SSD_STATE_TOL)
-        r = {"y_err": err_y, "state_err": err_s, "ok": ok_y and ok_s}
-        del y, st
+        got = scan(*args, chunk=chunk)
+        ref = (mlstm_scan_plain if pair else linear_scan_chunked)(
+            *args, chunk=chunk)
+        errs = [_close(x, xp, SSD_STATE_TOL if i % 2 else SSD_Y_TOL)
+                for i, (x, xp) in enumerate(zip(got, ref))]
+        r = {"y_err": max(e[0] for e in errs[0::2]),
+             "state_err": max(e[0] for e in errs[1::2]),
+             "ok": all(e[1] for e in errs)}
+        if pair:
+            r.update(nm_err=errs[2][0], n_err=errs[3][0])
+        yp, sp = ref[:2]
+        del got, ref
         if s % min(chunk, s) == 0:
             y, st = scan_cut_carry(*args, chunk=min(chunk, s))
             err_y, ok_y = _close(y, yp, SSD_Y_TOL)
@@ -2193,37 +2217,44 @@ def wide_ssd_faults(checks) -> list[str]:
     return bad
 
 
-def measure_wide_ssd(dev, dv):
-    """The wide kernel at one of xlstm-1.3b's prefill calls, B = 4, S =
-    8192, H = 4, dk = 512, chunk 256: its memory (dv = 512) or its
-    normaliser (v = ones, dv = 1). `check_wide_ssd` at the serving shape
-    and at a ragged one, then the kernel's and the plain version's ms, the
-    bound, and each of its five launches' device ms. Returns the kernel
-    table's row; `wide_ssd_faults` of its "checks" and "ragged_checks"
-    says whether it holds."""
+# the bf16 route's launches of the wide kernel, by kernel name
+WIDE_PHASES = ("decay", "states", "scores", "outputs")
+
+
+def measure_wide_ssd(dev, dv, pair=False):
+    """The wide kernel at xlstm-1.3b's prefill shape, B = 4, S = 8192, H =
+    4, dk = 512, chunk 256, bf16: the scan alone at its memory (dv = 512)
+    or its normaliser (v = ones, dv = 1), or with `pair` the memory and the
+    normaliser in one call (`mlstm_scan_cuda`, the serving path).
+    `check_wide_ssd` at the serving shape and at a ragged one, then the
+    kernel's and the plain version's ms, the bound, and each launch's
+    device ms (WIDE_PHASES). Returns the kernel table's row;
+    `wide_ssd_faults` of its "checks" and "ragged_checks" says whether it
+    holds."""
     import torch
     from repro_torch.kernels import ssd_scan_wide as SSDW
-    scan = SSDW.ssd_scan_wide_cuda
+    scan = SSDW.mlstm_scan_cuda if pair else SSDW.ssd_scan_wide_cuda
+    plain = SSDW.mlstm_scan_plain if pair else SSDW.ssd_scan_plain
     b, s, h, d, chunk = SERVE_B, SERVE_S, XLSTM_H, XLSTM_D, 256
-    checks = check_wide_ssd(dev, 210 + dv, b, s, h, d, dv, chunk, scan)
-    ragged = check_wide_ssd(dev, 220 + dv, *WIDE_RAGGED, d, dv,
-                            WIDE_RAGGED_CHUNK, scan)
-    args = mlstm_scan_inputs(dev, 210 + dv, b, s, h, d, dv,
-                             SLOW_FORGET_BIAS)
-    ms = cuda_ms(lambda: scan(*args, chunk=chunk), iters=5, warmup=1)
-    plain_ms = cuda_ms(lambda: SSDW.ssd_scan_plain(*args, chunk=chunk),
-                       iters=2, warmup=1)
-    bound, by, nbytes, ops = ssd_bound(b, s, h, d, dv, chunk, False)
+    seed = 210 + dv + 100 * pair
+    checks = check_wide_ssd(dev, seed, b, s, h, d, dv, chunk, scan, pair)
+    ragged = check_wide_ssd(dev, seed + 10, *WIDE_RAGGED, d, dv,
+                            WIDE_RAGGED_CHUNK, scan, pair)
+    args = mlstm_scan_inputs(dev, seed, b, s, h, d, dv, SLOW_FORGET_BIAS)
+    ms = cuda_ms(lambda: scan(*args, chunk=chunk), iters=10, warmup=2)
+    plain_ms = cuda_ms(lambda: plain(*args, chunk=chunk), iters=2, warmup=1)
+    bound, by, nbytes, ops = (mlstm_bound(b, s, h, d, dv, chunk) if pair
+                              else ssd_bound(b, s, h, d, dv, chunk, False))
     top = device_busy(lambda: scan(*args, chunk=chunk), cpu=False)["top"]
     phases = {name: sum(t["device_s"] * 1e3 for t in top
                         if f"wide_{name}" in t["kernel"])
-              for name in ("decay", "scores", "chunk_states", "carry",
-                           "outputs")}
+              for name in WIDE_PHASES}
     del args
     torch.cuda.empty_cache()
     errs = [x for c in (checks, ragged) for r in c.values()
             for x in (r["y_err"], r["state_err"])]
-    return {"B": b, "S": s, "H": h, "dk": d, "dv": dv, "chunk": chunk,
+    return {"pair": pair, "B": b, "S": s, "H": h, "dk": d, "dv": dv,
+            "chunk": chunk,
             "max_abs_err": max(errs),
             "y_err": max(r["y_err"] for r in checks.values()),
             "state_err": max(r["state_err"] for r in checks.values()),
@@ -2232,11 +2263,11 @@ def measure_wide_ssd(dev, dv):
             "ragged_checks": ragged,
             "ms": ms, "plain_ms": plain_ms, "library_ms": None,
             "bound_ms": bound, "bound_by": by, "bytes": nbytes, "ops": ops,
-            "fp32_core_ops_ms": ops / FP32_OPS_PER_S * 1e3,
-            "phase_ms": phases}
+            "bound_share": bound / ms, "phase_ms": phases}
 
 
 def print_wide_ssd(row) -> None:
+    what = "mlstm pair" if row["pair"] else "ssd wide"
     for name, checks in (("", row["checks"]),
                          (" ragged " + str(row["ragged_shape"]),
                           row["ragged_checks"])):
@@ -2246,31 +2277,32 @@ def print_wide_ssd(row) -> None:
                    f"{r['cut_carry_state_err']:.2e} "
                    f"({'passes' if r['cut_carry_ok'] else 'rejected'})"
                    if "cut_carry_ok" in r else "")
-            print(f"  ssd wide dv={row['dv']}{name} forget bias {bias}: y "
-                  f"err {r['y_err']:.2e} state err {r['state_err']:.2e} "
+            nm = (f" (nm {r['nm_err']:.2e}, n {r['n_err']:.2e})"
+                  if "nm_err" in r else "")
+            print(f"  {what} dv={row['dv']}{name} forget bias {bias}: y "
+                  f"err {r['y_err']:.2e} state err {r['state_err']:.2e}{nm} "
                   f"({'ok' if r['ok'] else 'OFF'}){ctl}")
-    print(f"  ssd wide B={row['B']} S={row['S']} H={row['H']} "
+    print(f"  {what} B={row['B']} S={row['S']} H={row['H']} "
           f"dk={row['dk']} dv={row['dv']} chunk={row['chunk']}: ms "
           f"{row['ms']:.3f} plain {row['plain_ms']:.1f} bound "
-          f"{row['bound_ms']:.3f} ({row['bound_by']}; its operations take "
-          f"{row['fp32_core_ops_ms']:.3f} ms at the float32 CUDA-core "
-          f"rate); launches (ms) "
+          f"{row['bound_ms']:.3f} ({row['bound_by']}; "
+          f"{row['bound_share']:.3f} of the bound); launches (ms) "
           f"{ {k: round(v, 3) for k, v in row['phase_ms'].items()} }")
 
 
 def phase_model_kernels(dev, detail):
-    """The flash-attention, SSD-scan (both kernels) and RMSNorm kernels
-    against their plain versions on the card, bf16, at the shapes the
-    serving paths give them (and B = 1 causal, windowed and GQA cases);
-    kernel, plain and library times and bounds. Returns the four summary
-    entries."""
+    """The flash-attention, SSD-scan (both kernels; the wide one alone and
+    as mLSTM's pair) and RMSNorm kernels against their plain versions on
+    the card, bf16, at the shapes the serving paths give them (and B = 1
+    causal, windowed and GQA cases); kernel, plain and library times and
+    bounds. Returns the five summary entries."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import rmsnorm as RN
     from repro_torch.kernels import ssd_scan as SSD
     rows = {"flash_attention": [], "ssd_scan": [], "ssd_scan_wide": [],
-            "rmsnorm": []}
+            "mlstm_scan": [], "rmsnorm": []}
 
     # (B, S, H, KV, dh, window): the serving prefill's call first
     for i, (b, s, h, kv, dh, win) in enumerate([
@@ -2377,17 +2409,18 @@ def phase_model_kernels(dev, detail):
     del q, k, v, la, beta, y, st, yp, sp
     torch.cuda.empty_cache()
 
-    # the wide kernel at xlstm-1.3b's two prefill calls: its memory (dv =
-    # 512) and its normaliser (v = ones, dv = 1)
-    for dv in (XLSTM_D, 1):
-        row = measure_wide_ssd(dev, dv)
+    # the wide kernel at xlstm-1.3b's prefill shape: the scan alone at its
+    # memory (dv = 512) and its normaliser (v = ones, dv = 1), then both in
+    # one call, the pair the serving path launches
+    for dv, pair in ((XLSTM_D, False), (1, False), (XLSTM_D, True)):
+        row = measure_wide_ssd(dev, dv, pair)
         print_wide_ssd(row)
         faults = wide_ssd_faults(row["checks"]) + wide_ssd_faults(
             row["ragged_checks"])
         if faults:
-            raise AssertionError(f"wide SSD scan (dv={dv}): "
+            raise AssertionError(f"wide SSD scan (dv={dv}, pair={pair}): "
                                  + "; ".join(faults))
-        rows["ssd_scan_wide"].append(row)
+        rows["mlstm_scan" if pair else "ssd_scan_wide"].append(row)
 
     g = torch.Generator(device=dev).manual_seed(300)
     for d in (3584, 7168):
@@ -2451,7 +2484,14 @@ def phase_model_kernels(dev, detail):
                              f"dk={XLSTM_D},dv=1,chunk=256,bf16",
             normaliser_ms=rows["ssd_scan_wide"][1]["ms"],
             normaliser_plain_ms=rows["ssd_scan_wide"][1]["plain_ms"],
-            normaliser_bound_ms=rows["ssd_scan_wide"][1]["bound_ms"]),
+            normaliser_bound_ms=rows["ssd_scan_wide"][1]["bound_ms"],
+            phase_ms=rows["ssd_scan_wide"][0]["phase_ms"]),
+        "mlstm_scan": dict(entry(
+            "mlstm_scan", "ssd_scan_wide.cu",
+            "src/repro/kernels/ssd_scan.py:85",
+            f"B={SERVE_B},S={SERVE_S},H={XLSTM_H},dk=dv={XLSTM_D},chunk=256,"
+            f"bf16, memory + normaliser (v = ones) in one call"),
+            phase_ms=rows["mlstm_scan"][0]["phase_ms"]),
         "rmsnorm": entry(
             "rmsnorm", "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:33",
             f"T={SERVE_B * SERVE_S},D=3584,bf16"),
@@ -2652,7 +2692,7 @@ def phase_serve(dev, state, detail, cfg=None):
                              f"{launches}")
     # one SSD launch per Mamba2 block, all on the 64 x 64 kernel
     if launches["ssd_scan"] != cfg.n_layers or launches["ssd_scan_wide"] \
-            or res["plain_ssd_calls"]:
+            or launches["mlstm_scan"] or res["plain_ssd_calls"]:
         raise AssertionError(f"expected {cfg.n_layers} ssd_scan launches, "
                              f"no wide ones and no plain SSD call per "
                              f"prefill: {launches}, plain calls "
@@ -2691,27 +2731,29 @@ def decode_vs_forward(model, toks):
 
 @contextlib.contextmanager
 def counting_plain_ssd(counter: dict):
-    """Count calls of the plain SSD version through `ops.ssd_scan` (the
-    route a CPU tensor takes) in counter["calls"]."""
+    """Count calls of the plain SSD version through `ops.ssd_scan` and
+    `ops.mlstm_scan` (the routes a CPU tensor takes) in counter["calls"]."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan_wide as SSDW
     real = ops.linear_scan_chunked
 
     def counted(*args, **kw):
         counter["calls"] += 1
         return real(*args, **kw)
-    ops.linear_scan_chunked = counted
+    ops.linear_scan_chunked = SSDW.linear_scan_chunked = counted
     try:
         yield
     finally:
-        ops.linear_scan_chunked = real
+        ops.linear_scan_chunked = SSDW.linear_scan_chunked = real
 
 
 def phase_serve_xlstm(dev, detail, cfg=None):
     """xlstm-1.3b at full width and depth (48 blocks: 6 groups of 7 mLSTM
     blocks and one sLSTM block; d_model 2048, 4 heads of 512) in a
     ServeEngine: 4 requests of 8192-token prompts and 64 greedy decode steps
-    through `generate` (the counted path: 84 wide-SSD launches per prefill,
-    two per mLSTM block, and no plain SSD call), then timed prefill and
+    through `generate` (the counted path: 42 launches of the wide kernel's
+    pair per prefill, memory and normaliser in one call per mLSTM block,
+    no other SSD launch and no plain SSD call), then timed prefill and
     decode runs, profiles, and decode-vs-forward on 4 x 2048 with the
     carried mLSTM memories dropped as its negative control: gated on a
     float32 copy of the weights, reported for the bf16 serving copy. `cfg`
@@ -2722,7 +2764,7 @@ def phase_serve_xlstm(dev, detail, cfg=None):
     cfg = cfg or get_arch(XLSTM_ARCH)
     engine, size = serve_engine(dev, cfg)
     model = engine.model
-    n_wide = 2 * len(model.mlstm)        # memory + normaliser per block
+    n_pair = len(model.mlstm)            # memory + normaliser, one call
     print(f"  {cfg.name}: {size['params']:,} params, {len(model.mlstm)} "
           f"mLSTM + {len(model.slstm)} sLSTM blocks, d_model {cfg.d_model}, "
           f"{cfg.n_heads} heads of {cfg.resolved_head_dim}; init + bf16 "
@@ -2762,11 +2804,13 @@ def phase_serve_xlstm(dev, detail, cfg=None):
               f"equal {r['argmax_equal']}")
     print(f"  float32 gate: max gap {gap:.5f} <= {XLSTM_LOGIT_TOL} < the "
           f"control's least {fault_gap:.4f}")
-    if launches["ssd_scan_wide"] != n_wide or launches["ssd_scan"] != 0 \
-            or launches["flash_attention"] != 0 or plain_calls != 0:
-        raise AssertionError(f"the xlstm prefill should launch the wide SSD "
-                             f"kernel {n_wide} times and nothing else: "
-                             f"{launches}, plain calls {plain_calls}")
+    if launches["mlstm_scan"] != n_pair or launches["ssd_scan_wide"] != 0 \
+            or launches["ssd_scan"] != 0 or launches["flash_attention"] != 0 \
+            or plain_calls != 0:
+        raise AssertionError(f"the xlstm prefill should launch the wide "
+                             f"kernel's pair {n_pair} times and no other SSD "
+                             f"kernel: {launches}, plain calls "
+                             f"{plain_calls}")
     if gap > XLSTM_LOGIT_TOL:
         raise AssertionError(f"decode vs forward gap {gap:.4f} > "
                              f"{XLSTM_LOGIT_TOL}")
@@ -2983,6 +3027,7 @@ def main() -> int:
     model_entries["ssd_scan"]["launches"] = serve_launches["ssd_scan"]
     model_entries["ssd_scan_wide"]["launches"] = \
         xlstm_launches["ssd_scan_wide"]
+    model_entries["mlstm_scan"]["launches"] = xlstm_launches["mlstm_scan"]
     model_entries["rmsnorm"]["launches"] = rms_launches
     print(json.dumps({"kernels": [entry, solve_entry,
                                   *model_entries.values()]}))

@@ -68,7 +68,11 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace repro_torch::sm90;
 
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
@@ -102,147 +106,7 @@ __device__ __forceinline__ void tile_range(const FwdArgs& a, int q0, int bq,
   *end = e;
 }
 
-// --------------------------------------------------------------- mbarrier
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t ok;
-  asm volatile(
-      "{\n .reg .pred p;\n"
-      " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      " selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(ok) : "r"(bar), "r"(parity) : "memory");
-  return ok != 0;
-}
-
-// Wait for the phase of `bar` with the given parity to complete. A wait
-// that outlasts ~2^32 cycles (seconds) can only be a broken protocol: trap,
-// so the launch fails with an error instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try_wait(bar, parity)) {
-    if (clock64() - t0 > (1ll << 32)) __trap();
-  }
-}
-
-// TMA: a 4-d box of the tensor map into shared memory, completion counted
-// in bytes on `bar`.
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
-      "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3), "r"(bar)
-      : "memory");
-}
-
-// ------------------------------------------------------------------ wgmma
-
-// Shared-memory matrix descriptor, 128-byte swizzle. K-major tiles (Q, K):
-// rows of 128 bytes, 8-row groups 1024 bytes apart (SBO); LBO unused.
-// MN-major tiles (V as the B operand of P V): LBO is the distance between
-// 64-column panels, SBO between 8-key groups.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr,
-                                               uint32_t lbo_bytes,
-                                               uint32_t sbo_bytes) {
-  uint64_t d = 0;
-  d |= static_cast<uint64_t>((saddr & 0x3FFFF) >> 4);
-  d |= static_cast<uint64_t>((lbo_bytes >> 4) & 0x3FFF) << 16;
-  d |= static_cast<uint64_t>((sbo_bytes >> 4) & 0x3FFF) << 32;
-  d |= static_cast<uint64_t>(1) << 62;
-  return d;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keep the compiler from moving reads or writes of accumulator registers
-// across the asynchronous wgmma (its asm does not name them at the wait).
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-#define FA_R8(b)                                                          \
-  "+f"(d[b + 0]), "+f"(d[b + 1]), "+f"(d[b + 2]), "+f"(d[b + 3]),         \
-      "+f"(d[b + 4]), "+f"(d[b + 5]), "+f"(d[b + 6]), "+f"(d[b + 7])
-#define FA_R32 FA_R8(0), FA_R8(8), FA_R8(16), FA_R8(24)
-#define FA_R64 FA_R32, FA_R8(32), FA_R8(40), FA_R8(48), FA_R8(56)
-#define FA_D32                                                            \
-  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
-  "%30, %31"
-#define FA_D64                                                            \
-  FA_D32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
-         "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, " \
-         "%57, %58, %59, %60, %61, %62, %63"
-
-// S (64 x 128, f32) = A (64 x 16, smem, K-major) * B (16 x 128, smem,
-// K-major) + (scale_d ? S : 0).
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
-                                              uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" FA_D64
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : FA_R64
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// O (64 x 128, f32) += A (64 x 16, registers) * B (16 x 128, smem, MN-major).
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                              const uint32_t* a,
-                                              uint64_t db) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" FA_D64
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : FA_R64
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// O (64 x 64, f32) += A (64 x 16, registers) * B (16 x 64, smem, MN-major).
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                             const uint32_t* a,
-                                             uint64_t db) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" FA_D32
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : FA_R32
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
+// O += P V of one 16-key step, at the padded head dim.
 template <int DHP>
 __device__ __forceinline__ void wgmma_pv(float (&o)[DHP / 2],
                                          const uint32_t* a, uint64_t db) {
@@ -252,11 +116,6 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[DHP / 2],
     static_assert(DHP == 64, "DHP is 64 or 128");
     wgmma_rs_n64(o, a, db);
   }
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&p);
 }
 
 // ----------------------------------------------------------------- kernel

@@ -6,7 +6,8 @@ device as the reference's `kernels/ops.py` dispatches on the backend:
                     `rmsnorm_ref`): identical math, bounded memory.
   * CUDA tensors -> the hand-written kernels (`flash_attention_cuda`,
                     `ssd_scan_cuda` or `ssd_scan_wide_cuda` by the state's
-                    width, `rmsnorm_cuda`), or an error. Nothing falls back
+                    width, `mlstm_scan_cuda` for mLSTM's pair of scans,
+                    `rmsnorm_cuda`), or an error. Nothing falls back
                     to the plain route on a card.
 
 The wrappers keep the model layout at their interface ((B, S, heads, dh),
@@ -68,8 +69,10 @@ def ssd_scan(q, k, v, log_a, beta, *, chunk=256):
     """Model-layout SSD. q, k: (B, S, H, dk); v: (B, S, H, dv);
     log_a, beta: (B, S, H). Returns (y (B, S, H, dv), final_state
     (B, H, dk, dv) float32). On the card, states up to 128 x 128 (Mamba2)
-    take `ssd_scan_cuda` and wider ones up to 512 x 512 (mLSTM's memory and
-    normaliser) `ssd_scan_wide_cuda`."""
+    take `ssd_scan_cuda` and wider ones up to 512 x 512 `ssd_scan_wide_cuda`
+    (dv = 1 included), one counted launch a call. mLSTM's memory and
+    normaliser go to `mlstm_scan` instead, one call of the wide kernel for
+    both."""
     if not _on_card(q):
         return linear_scan_chunked(q, k, v, log_a, beta, chunk=chunk)
     kernel = {"ssd_scan": _ssd.ssd_scan_cuda,
@@ -77,6 +80,22 @@ def ssd_scan(q, k, v, log_a, beta, *, chunk=256):
         ssd_kernel_for(q.shape[-1], v.shape[-1])]
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     return kernel(q, k, v, log_a.float(), beta.float(), chunk=chunk)
+
+
+def mlstm_scan(q, k, v, log_a, beta, *, chunk=256):
+    """mLSTM's two scans, its memory and its normaliser (v = ones): q, k
+    (B, S, H, dk), v (B, S, H, dv), log_a, beta (B, S, H). Returns (y (B,
+    S, H, dv), C (B, H, dk, dv) float32, nm (B, S, H, 1) in v's dtype, n
+    (B, H, dk, 1) float32). On a CPU these are the two plain
+    `linear_scan_chunked` calls the reference makes
+    (`ssd_scan_wide.mlstm_scan_plain`); on the card one call
+    of `ssd_scan_wide.mlstm_scan_cuda` (dk, dv <= 512), which computes the
+    decays and causal scores once for both and never stores the ones."""
+    if not _on_card(q):
+        return _ssdw.mlstm_scan_plain(q, k, v, log_a, beta, chunk=chunk)
+    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    return _ssdw.mlstm_scan_cuda(q, k, v, log_a.float(), beta.float(),
+                                 chunk=chunk)
 
 
 def rmsnorm(x, w, *, eps=1e-5):

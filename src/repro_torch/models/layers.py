@@ -354,7 +354,8 @@ def apply_mlstm(p: MLSTM, x, cfg: ModelConfig, *, mode="full", cache=None,
     """mLSTM: matrix-memory linear attention with sigmoid forget / input
     gates. cache: {"C": (B,H,hd,hd) f32, "n": (B,H,hd,1) f32}. The memory
     and its normaliser are two SSD scans (a 512 x 512 and a 512 x 1 state
-    per head at xlstm-1.3b's width)."""
+    per head at xlstm-1.3b's width), one `ops.mlstm_scan` call over the
+    full sequence."""
     b, s, d = x.shape
     h, hd = cfg.n_heads, cfg.resolved_head_dim
     dt = _dtype(cfg)
@@ -378,9 +379,8 @@ def apply_mlstm(p: MLSTM, x, cfg: ModelConfig, *, mode="full", cache=None,
         cache["C"], cache["n"] = C, n
         new_cache = cache
     else:
-        ones = torch.ones((b, s, h, 1), dtype=dt, device=x.device)
-        y, C = ops.ssd_scan(q, k, v, log_f, i_in, chunk=cfg.ssm_chunk)
-        nm, n = ops.ssd_scan(q, k, ones, log_f, i_in, chunk=cfg.ssm_chunk)
+        y, C, nm, n = ops.mlstm_scan(q, k, v, log_f, i_in,
+                                     chunk=cfg.ssm_chunk)
         y = (y / torch.clamp(nm.float().abs(), min=1.0)).to(dt)
         new_cache = {"C": C, "n": n} if want_cache else None
 

@@ -589,6 +589,92 @@ def test_ssd_scan_wide_kernel_matches_the_mamba2_kernel(cuda, dtype,
                                    rtol=tol)
 
 
+def _assert_pair_close(out, ref, tol):
+    """The pair's (y, C, nm, n) against two plain calls: y and nm within
+    `tol`, the states within 1e-4; nm in v's dtype."""
+    assert [(t.shape, t.dtype) for t in out] == [(t.shape, t.dtype)
+                                                 for t in ref]
+    for x, xp, t in zip(out, ref, (tol, 1e-4, tol, 1e-4)):
+        torch.testing.assert_close(x.float(), xp.float(), atol=t, rtol=t)
+
+
+@pytest.mark.parametrize("forget_bias", FORGET_BIASES)
+def test_mlstm_scan_pair_matches_two_plain_calls_at_the_serving_shape(
+        cuda, forget_bias):
+    """xlstm-1.3b's prefill call of the pair, bf16: (4, 8192, 4, 512, 512)
+    and its normaliser in one launch, chunk 256, at fast and slow decay,
+    against the plain memory and normaliser scans: y and nm within 5e-2,
+    C and n within 1e-4."""
+    from repro_torch.kernels import ssd_scan_wide as SSDW
+    rng = np.random.default_rng(512)
+    args = _mlstm_scan_inputs(rng, 4, 8192, 4, 512, 512, torch.bfloat16,
+                              cuda, forget_bias)
+    before = dict(SSDW.launches)
+    out = SSDW.mlstm_scan_cuda(*args, chunk=256)
+    assert SSDW.launches == {**before,
+                             "mlstm_scan": before["mlstm_scan"] + 1}
+    ref = SSDW.mlstm_scan_plain(*args, chunk=256)
+    torch.cuda.synchronize()
+    _assert_pair_close(out, ref, 5e-2)
+
+
+@pytest.mark.parametrize("b,s,h,dk,dv,chunk", [
+    (2, 300, 3, 512, 512, 256), (1, 77, 2, 512, 1, 32),
+    (2, 130, 3, 200, 136, 64), (3, 45, 2, 24, 40, 16), (1, 1, 2, 512, 7, 256),
+    (2, 513, 1, 129, 17, 128)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("forget_bias", FORGET_BIASES)
+def test_mlstm_scan_pair_ragged_shapes(cuda, b, s, h, dk, dv, chunk, dtype,
+                                       forget_bias):
+    """The pair at the wide kernel's ragged shapes, both dtypes, fast and
+    slow decay: y and nm within 2e-4 (float32) or 5e-2 (bf16), C and n
+    within 1e-4."""
+    from repro_torch.kernels import ssd_scan_wide as SSDW
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(7 * s + dk + dv)
+    args = _mlstm_scan_inputs(rng, b, s, h, dk, dv, dt, cuda, forget_bias)
+    out = SSDW.mlstm_scan_cuda(*args, chunk=chunk)
+    ref = SSDW.mlstm_scan_plain(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    _assert_pair_close(out, ref, 2e-4 if dtype == "float32" else 5e-2)
+
+
+def test_ops_mlstm_scan_on_the_card_is_one_launch_of_the_pair(cuda,
+                                                              monkeypatch):
+    """`ops.mlstm_scan` on CUDA tensors is one launch of the pair and no
+    other kernel, never the plain version; a failed launch or build
+    raises instead of falling back; a state wider than 512 is refused."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as SSD
+    from repro_torch.kernels import ssd_scan_wide as SSDW
+
+    def plain(*a, **k):
+        raise AssertionError("the plain version ran on the card")
+    monkeypatch.setattr(SSDW, "linear_scan_chunked", plain)
+    monkeypatch.setattr(ops, "linear_scan_chunked", plain)
+    rng = np.random.default_rng(43)
+    args = _mlstm_scan_inputs(rng, 2, 100, 2, 512, 512, torch.bfloat16,
+                              cuda)
+    before = {**SSD.launches, **SSDW.launches}
+    y, C, nm, n = ops.mlstm_scan(*args, chunk=32)
+    assert {**SSD.launches, **SSDW.launches} == {
+        **before, "mlstm_scan": before["mlstm_scan"] + 1}
+    assert nm.shape == (2, 100, 2, 1) and n.shape == (2, 2, 512, 1)
+    monkeypatch.setattr(SSDW, "_kernel_lib", lambda: (lambda *a: 1))
+    with pytest.raises(RuntimeError, match="ssd_scan_wide_fwd launch failed"):
+        ops.mlstm_scan(*args)
+
+    def no_build():
+        raise RuntimeError("nvcc failed for ssd_scan_wide")
+    monkeypatch.setattr(SSDW, "_kernel_lib", no_build)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        ops.mlstm_scan(*args)
+    assert SSDW.launches["mlstm_scan"] == before["mlstm_scan"] + 1
+    with pytest.raises(ValueError, match="<= 512"):
+        ops.mlstm_scan(*_mlstm_scan_inputs(rng, 1, 10, 1, 513, 513,
+                                           torch.bfloat16, cuda))
+
+
 def test_ops_ssd_scan_on_the_card_never_takes_the_plain_version(cuda,
                                                                 monkeypatch):
     """`ops.ssd_scan` on CUDA tensors launches ssd_scan.cu up to 128 x 128

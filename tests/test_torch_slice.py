@@ -132,12 +132,15 @@ def test_smoke_wide_check_sees_a_cut_carry_at_slow_decay(dv):
     assert smoke.wide_ssd_faults(cut)
 
 
-@pytest.mark.parametrize("name,entry,replaces", [
-    ("flash_attention", "flash_attention_fwd", "flash_attention_pallas"),
-    ("ssd_scan", "ssd_scan_fwd", "ssd_scan_pallas"),
-    ("ssd_scan_wide", "ssd_scan_wide_fwd", "ssd_scan_pallas"),
-    ("rmsnorm", "rmsnorm_fwd", "rmsnorm_pallas")])
-def test_model_kernel_sources_are_in_the_package(name, entry, replaces):
+@pytest.mark.parametrize("name,entry,replaces,counters", [
+    ("flash_attention", "flash_attention_fwd", "flash_attention_pallas",
+     {"flash_attention"}),
+    ("ssd_scan", "ssd_scan_fwd", "ssd_scan_pallas", {"ssd_scan"}),
+    ("ssd_scan_wide", "ssd_scan_wide_fwd", "ssd_scan_pallas",
+     {"ssd_scan_wide", "mlstm_scan"}),
+    ("rmsnorm", "rmsnorm_fwd", "rmsnorm_pallas", {"rmsnorm"})])
+def test_model_kernel_sources_are_in_the_package(name, entry, replaces,
+                                                 counters):
     import importlib
     text = (PORT / "kernels" / "csrc" / f"{name}.cu").read_text()
     assert f'extern "C" int {entry}' in text
@@ -146,7 +149,7 @@ def test_model_kernel_sources_are_in_the_package(name, entry, replaces):
     mod = importlib.import_module(f"repro_torch.kernels.{name}")
     from repro_torch.kernels import build
     assert mod.SOURCES == (f"{name}.cu",)
-    assert set(mod.launches) == {name}
+    assert set(mod.launches) == counters       # one per wrapper
     assert any("sm_90a" in f for f in build.MODEL_NVCC_FLAGS)
     assert "--use_fast_math" not in build.MODEL_NVCC_FLAGS
 

@@ -1,22 +1,26 @@
 #!/usr/bin/env python3
 """Check and time the wide SSD-scan kernel (`csrc/ssd_scan_wide.cu`) at
-xlstm-1.3b's two prefill calls on an NVIDIA GPU, or show that its check
+xlstm-1.3b's prefill shape on an NVIDIA GPU, or show that its check
 catches a fault planted in a copy of the kernel:
 
     python3 tools/ssd_wide_check.py                 # the kernel as it is
     python3 tools/ssd_wide_check.py --plant carry lt
 
 Both run `chip_smoke.py`'s own wide-kernel check (`measure_wide_ssd`):
-B = 4, S = 8192, H = 4, dk = 512, dv = 512 (the memory) and dv = 1 (the
-normaliser, v = ones), chunk 256, bf16, against the plain version at fast
+B = 4, S = 8192, H = 4, dk = 512, chunk 256, bf16, the scan alone at dv =
+512 (the memory) and dv = 1 (the normaliser, v = ones), and the pair
+(`mlstm_scan_cuda`, both in one call), against the plain version at fast
 and slow forget-gate decay, and at a ragged shape; then the kernel's and
-the plain version's ms and each of its five launches' device ms.
+the plain version's ms and each of its launches' device ms.
 
 `--plant` builds, for each fault named, a copy of the kernel's source with
-that fault in its carry over chunks, into `kernels/_build/planted/`
-(removed afterwards), and runs the same check on it:
+that fault in its carry over chunks (the states phase, where the
+accumulators are scaled at each chunk's start), into
+`kernels/_build/planted/` (removed afterwards), and runs the same check on
+it:
 
-  * carry — the state carried into a chunk dropped (`cur = s`);
+  * carry — the state entering a chunk dropped from the carry (scaled by 0:
+    the next chunk's entering state is this chunk's own contribution);
   * lt    — the previous chunk's total decay applied in place of this one's.
 
 Prints the card's name and power limit, then per shape and fault the
@@ -38,10 +42,9 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
-CARRY = "cur = expf(__ldg(lt + c)) * cur + s;"
-PLANTS = {"carry": (CARRY, "cur = s;"),
-          "lt": (CARRY, "cur = expf(__ldg(lt + (c > 0 ? c - 1 : 0))) * cur "
-                        "+ s;")}
+CARRY = "const float carry = expf(LT[c]);"
+PLANTS = {"carry": (CARRY, "const float carry = 0.f;"),
+          "lt": (CARRY, "const float carry = expf(LT[c > 0 ? c - 1 : 0]);")}
 
 
 @contextlib.contextmanager
@@ -93,9 +96,11 @@ def main(argv=None) -> int:
     for fault in [None, *args.plant]:
         ctx = planted(fault) if fault else contextlib.nullcontext()
         with ctx:
-            for dv in (cs.XLSTM_D, 1):
-                print(f"{fault or 'the kernel as it is'}, dv={dv}:")
-                row = cs.measure_wide_ssd(dev, dv)
+            for dv, pair in ((cs.XLSTM_D, False), (1, False),
+                             (cs.XLSTM_D, True)):
+                print(f"{fault or 'the kernel as it is'}, dv={dv}"
+                      f"{' (the pair)' if pair else ''}:")
+                row = cs.measure_wide_ssd(dev, dv, pair)
                 cs.print_wide_ssd(row)
                 faults = cs.wide_ssd_faults(row["checks"]) + \
                     cs.wide_ssd_faults(row["ragged_checks"])
