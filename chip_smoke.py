@@ -28,11 +28,21 @@ launch counts set to 0 just before it and read just after:
     fault realizations, in the same pool), to conservation, Little's law
     and the benchmarks' claims; every refreshed segment grid is one fused
     GrIn launch whose targets are held to the plain per-step loop;
+  * the rest of the fault and capacity paths — the closed engine's fault
+    inputs on the Fig. 9 workload under a storm (every run against the
+    host fault loop; a never-firing scenario bit-equal to none),
+    `benchmarks/fig_hazard.py`'s drawn-availability workload (one
+    `simulate_open_batch` call, every point against the host fault
+    loop), and `benchmarks/fig_autoscale.py`'s governor (one fused GrIn
+    launch per decision epoch, its priced X against the host float64
+    price);
   * serving — zamba2-7b at full width and depth (81 Mamba2 layers, a shared
     attention block applied 13 times, d_model 3584; random weights from a
     seed) in a `ServeEngine`: 4 prompts of 8192 tokens and 64 greedy decode
     steps (flash-attention and SSD-scan kernels), a decode-vs-forward check,
-    then CAB against LB over two pools of that engine in virtual time; and
+    then CAB against LB over two pools of that engine in virtual time and
+    `serve --traffic` on it (the bundled trace through GrIn-P with SLO
+    admission, its decisions recorded and its solves profiled); and
     xlstm-1.3b at full width and depth (42 mLSTM blocks with 512 x 512
     memories, 6 sLSTM blocks, d_model 2048) on the same prompts and steps
     (the wide SSD-scan kernel's pair: memory and normaliser in one call
@@ -95,6 +105,22 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def fused_kernel_ms(mus, mixes, dev, iters: int = 5) -> float:
+    """Device ms of the fused GrIn kernel alone (max-x) on (B, k, l) rows
+    and (B, k) mixes: its inputs prepared once, then `iters` launches
+    between CUDA events. The launch counts are restored."""
+    from repro_torch.core import grin as GR
+    from repro_torch.kernels import grin_moves as GM
+    N0, mu_t, Ps, sizes, cap, obj = GR._batch_inputs(
+        mus, mixes, None, None, "max-x", None, None, dev)
+    counted = dict(GM.launches)
+    ms = cuda_ms(lambda: GM.grin_block_solve_cuda(N0, mu_t, sizes, cap,
+                                                  P=Ps, objective=obj),
+                 iters=iters, warmup=1)
+    GM.launches.update(counted)
+    return ms
 
 
 def device_busy(fn, cpu: bool = True) -> dict:
@@ -863,8 +889,9 @@ FIGP_COMPLETIONS, FIGP_WARMUP = 6000, 1200
 # PRIO alone runs longer: strict priority leaves the batch class about an
 # eighth of the completions, in long starved stretches, and single runs of
 # it at the benchmark's 6,000 scatter past P_PT_TOL between two correct
-# engines (PERF.md, section 6)
-FIGP_PRIO_COMPLETIONS, FIGP_PRIO_WARMUP = 48000, 9600
+# engines (PERF.md, section 6; the largest single run 0.117 at 32,000 on
+# the CPU streams, 0.050 on the card at 48,000)
+FIGP_PRIO_COMPLETIONS, FIGP_PRIO_WARMUP = 32000, 6400
 P_PT_TOL, P_MEAN_TOL = 0.2, 0.08    # tests/test_conformance.py multi-class
 
 
@@ -1599,16 +1626,20 @@ def phase_traffic(dev, detail, pool=None, fig=None):
 
 
 class SegmentGrids:
-    """Records every grid `segment_targets` hands to the batched solver —
-    its rows, mix, targets and the wall time of the call — while the faults
-    phase drives its path."""
+    """Records every grid `segment_targets` (or the module `mod` that
+    calls `solve_targets_grid_torch`) hands to the batched solver — its
+    rows, mix, targets and the wall time of the call — while a phase drives
+    its path."""
 
-    def __init__(self, dev):
-        self.dev, self.grids = dev, []
+    def __init__(self, dev, mod=None):
+        self.dev, self.grids, self._mod = dev, [], mod
 
     def __enter__(self):
-        from repro_torch.faults import targets as FT
-        self._mod, self._orig = FT, FT.solve_targets_grid_torch
+        if self._mod is None:
+            from repro_torch.faults import targets as FT
+            self._mod = FT
+        FT = self._mod
+        self._orig = FT.solve_targets_grid_torch
         sync = torch_sync(self.dev)
 
         def solve(mus, mixes, **kw):
@@ -1745,7 +1776,9 @@ def open_fault_batch(dev, work, T, W, seeds, qcap):
     """The keyword arguments of one `simulate_open_batch` call over every
     (variant, seed) point of a fault workload (its FaultBatch built here,
     with the refreshed segment targets solved on `dev`), the points, and
-    the oracle configs."""
+    the oracle configs. The workload's variants are (name, policy name,
+    FaultScenario), run at every seed, or already points (name, policy
+    name, FaultScenario, seed)."""
     import numpy as np
     from repro_torch.faults import build_fault_batch
     from repro_torch.sim import make_distribution
@@ -1753,7 +1786,8 @@ def open_fault_batch(dev, work, T, W, seeds, qcap):
     from repro_torch.traffic import open_sim_config
     mu, cls, spec, arr, storm, mix, variants = work[:7]
     dist = make_distribution("exponential")
-    points = [(v, p, sc, s) for v, p, sc in variants for s in seeds]
+    points = ([(v, p, sc, s) for v, p, sc in variants for s in seeds]
+              if len(variants[0]) == 3 else list(variants))
     pols = [open_policy(p) for _, p, _, _ in points]
     tg = np.stack([np.asarray(pol.solve_target(mu, mix)) if pol.needs_target
                    else np.zeros(mu.shape, np.int64) for pol in pols])
@@ -1917,6 +1951,516 @@ def phase_faults(dev, detail, pool=None, fig=None):
     if fails:
         raise AssertionError("; ".join(fails))
     return {"grids": n_grids, **rows}
+
+
+# ------------------------------------------------- closed-network faults
+
+# the Fig. 9 workload (phase_engine's first 3x3 affinity, N = 30) under a
+# two-burst storm (one pool a burst, 6 s down, inside the first ~45 s of
+# runs that last 90-135 s), 2% transient failures, refreshed targets, with
+# and without checkpoints
+CF_POLICIES = (("GrIn", "grin"), ("GrIn-E", "grin-e"), ("LB", "lb"),
+               ("JSQ", "jsq"))
+CF_STORM = dict(n_bursts=2, group_size=1, window=(15.0, 45.0), downtime=6.0,
+                seed=5)
+CF_FIG = {"n_completions": 4000, "warmup": 800, "seeds": (0, 1, 2),
+          "check_completions": 1000}
+CF_PT_TOL, CF_MEAN_TOL = 0.15, 0.05     # the engine's conformance gates
+
+
+def closed_fault_configs(fig):
+    """(label, SimConfig) per (order, checkpoint period) of the workload,
+    and the fault-free and never-firing configs of the bit-equality
+    check."""
+    import numpy as np
+    from repro_torch.core import PowerModel, random_affinity_matrix
+    from repro_torch.faults import FaultScenario, crash, make_storm
+    from repro_torch.sim import SimConfig, make_distribution
+    mu = random_affinity_matrix(np.random.default_rng(3), 3, 3)
+    storm = make_storm(3, **CF_STORM)
+
+    def cfg(order, faults, n, warm):
+        return SimConfig(mu=mu, n_programs_per_type=np.array([10, 10, 10]),
+                         distribution=make_distribution("exponential"),
+                         order=order, power=PowerModel(alpha=0.5),
+                         n_completions=n, warmup_completions=warm, seed=0,
+                         faults=faults)
+    runs = [((order, ck), cfg(order, FaultScenario(
+        events=storm, fail_prob=FAIL_PROB, ckpt_period=ck,
+        refresh_targets=True), fig["n_completions"], fig["warmup"]))
+        for order in ("PS", "FCFS") for ck in (None, CKPT_PERIOD)]
+    n = fig["check_completions"]
+    never = FaultScenario(events=crash(1, 1e9, 2e9))
+    return runs, cfg("PS", None, n, n // 5), cfg("PS", never, n, n // 5)
+
+
+def phase_closed_faults(dev, detail, pool=None, fig=None):
+    """The closed engine's fault inputs: the Fig. 9 workload under a storm
+    with transient failures, refreshed segment targets and, in half the
+    calls, checkpoints — one `compare_policies` call (4 policies x 3
+    seeds) per (order, checkpoint period). Every run is held to the port's
+    host fault loop (`run_closed_faults`, same config and seed, in the
+    host pool) at the engine gates, with equal topology events;
+    checkpoints cut the wasted work of every (order, policy); a scenario
+    that never fires is bit-equal to the fault-free run; every refreshed
+    segment grid is one fused launch, held to the plain per-step loop."""
+    import numpy as np
+    from repro_torch.kernels import grin_moves as GM
+    from repro_torch.sim import compare_policies
+    fig = {**CF_FIG, **(fig or {})}
+    seeds = list(fig["seeds"])
+    runs, plain_cfg, never_cfg = closed_fault_configs(fig)
+    jobs = [(dataclasses.replace(c, seed=s), key) for _, c in runs
+            for _, key in CF_POLICIES for s in seeds]
+    pending = (pool.map_async(host_run, jobs, chunksize=1)
+               if pool is not None else None)
+    sync = torch_sync(dev)
+    devs, calls = [], []
+    with SegmentGrids(dev) as rec:
+        for label, c in runs:
+            sync()
+            t0 = time.perf_counter()
+            rows = compare_policies(c, [k for _, k in CF_POLICIES],
+                                    seeds=seeds, device=dev)
+            sync()
+            calls.append({"order": label[0], "ckpt_period": label[1],
+                          "seconds": time.perf_counter() - t0})
+            devs += [(label, name, s, m) for name, _ in CF_POLICIES
+                     for s, m in zip(seeds, rows[name])]
+    t0 = time.perf_counter()
+    hosts = (pending.get() if pending is not None
+             else [host_run(j) for j in jobs])
+    t_host = time.perf_counter() - t0
+    fails, recs = [], []
+    for (label, name, s, m), h in zip(devs, hosts):
+        r = {"order": label[0], "ckpt_period": label[1], "policy": name,
+             "seed": s, "x_rel": abs(m.throughput - h.throughput)
+             / h.throughput,
+             "e_rel": abs(m.mean_energy - h.mean_energy) / h.mean_energy,
+             "wasted": m.wasted_work, "wasted_host": h.wasted_work,
+             "failures": m.failures, "failures_host": h.failures,
+             "topology": m.topology_events,
+             "topology_host": h.topology_events, "completed": m.completed}
+        recs.append(r)
+        if m.topology_events != h.topology_events:
+            fails.append(f"topology events differ at {label} {name} {s}")
+        if m.completed != fig["n_completions"] - fig["warmup"]:
+            fails.append(f"{label} {name} {s}: {m.completed} completions")
+    xr = np.array([r["x_rel"] for r in recs])
+    er = np.array([r["e_rel"] for r in recs])
+    if xr.max() >= CF_PT_TOL or er.max() >= CF_PT_TOL \
+            or xr.mean() >= CF_MEAN_TOL or er.mean() >= CF_MEAN_TOL:
+        fails.append(f"engine vs host: X rel max {xr.max():.3f} mean "
+                     f"{xr.mean():.3f}, E rel max {er.max():.3f} mean "
+                     f"{er.mean():.3f}")
+    wasted = {}
+    for r in recs:
+        wasted.setdefault((r["order"], r["policy"], r["ckpt_period"]),
+                          []).append(r["wasted"])
+    cut = {f"{o} {p}": float(np.mean(wasted[(o, p, CKPT_PERIOD)])
+                             / np.mean(wasted[(o, p, None)]))
+           for o, p, ck in wasted if ck is None}
+    if max(cut.values()) >= 1.0:
+        fails.append(f"checkpoints did not cut wasted work: {cut}")
+    # the fault stanza with nothing to do: bit for bit the fault-free run
+    names = [k for _, k in CF_POLICIES]
+    a = compare_policies(plain_cfg, names, seeds=seeds, device=dev)
+    b = compare_policies(never_cfg, names, seeds=seeds, device=dev)
+    fields = ("throughput", "mean_response_time", "mean_energy", "elapsed",
+              "mean_power", "state_occupancy", "class_throughput",
+              "completed")
+    n_diff = sum(not np.array_equal(np.asarray(getattr(x, f)),
+                                    np.asarray(getattr(y, f)))
+                 for name in a for x, y in zip(a[name], b[name])
+                 for f in fields)
+    if n_diff or any(y.failures or y.topology_events
+                     for name in b for y in b[name]):
+        fails.append(f"the never-firing scenario differs from the "
+                     f"fault-free run in {n_diff} fields")
+    counted = dict(GM.launches)
+    seg = check_segment_grids(dev, rec.grids)
+    GM.launches.update(counted)
+    res = {"grids": len(rec.grids), "calls": calls, "runs": recs,
+           "host_seconds": t_host, "host_runs": len(hosts),
+           "x_rel_max": float(xr.max()), "x_rel_mean": float(xr.mean()),
+           "e_rel_max": float(er.max()), "e_rel_mean": float(er.mean()),
+           "wasted_ratio_ckpt_over_none": cut,
+           "never_firing_fields_differing": n_diff, "segment_checks": seg}
+    detail["closed_faults"] = res
+    print(f"  closed faults: {len(devs)} runs in "
+          f"{sum(c['seconds'] for c in calls):.1f} s "
+          f"({[round(c['seconds'], 1) for c in calls]}); vs the host fault "
+          f"loop ({t_host:.1f} s after): X rel max {xr.max():.3f} mean "
+          f"{xr.mean():.3f}, E rel max {er.max():.3f} mean {er.mean():.3f}")
+    print(f"  wasted work with / without checkpoints: {cut}; never-firing "
+          f"fields differing: {n_diff}; segment grids {len(rec.grids)}: "
+          f"{seg[:1]}")
+    if fails:
+        raise AssertionError("; ".join(fails))
+    return res
+
+
+# ------------------------------------------------------------------ hazard
+
+# benchmarks/fig_hazard.py at its defaults: fig_faults' 2x4 system at
+# u = 1.1 with availability drawn from per-pool Weibull up/down processes
+HZ_SHAPES = (1.0, 2.2)
+HZ_MTBF_FRACS = (0.18, 0.45)
+HZ_MTTR_FRAC = 0.04
+HZ_HQ, HZ_HMIN = 0.95, 64
+HZ_OVERHEAD = 0.005
+
+
+def hazard_workload(T, seeds):
+    """fig_hazard.py's grid and variants: (points as (variant, policy name,
+    FaultScenario, seed), arrivals by seed, target mix)."""
+    import numpy as np
+    from repro_torch.faults import UpDownProcess, make_hazard_scenario
+    from repro_torch.traffic import PoissonArrivals, TrafficSpec
+    mu = np.asarray(FAULTS_MU)
+    l = mu.shape[1]
+    xk = knee(mu, OPEN_SHARES)
+    spec = TrafficSpec(tuple(PoissonArrivals(FAULTS_U * xk * s)
+                             for s in OPEN_SHARES), np.eye(2))
+    arr = {s: spec.sample(s, T) for s in seeds}
+    t_end = min(float(t[-1]) for t, _ in arr.values())
+    grid = [(shape, mf, s) for shape in HZ_SHAPES for mf in HZ_MTBF_FRACS
+            for s in seeds]
+    procs = {(shape, mf): UpDownProcess(mtbf=mf * t_end,
+                                        mttr=HZ_MTTR_FRAC * t_end,
+                                        up_shape=shape)
+             for shape in HZ_SHAPES for mf in HZ_MTBF_FRACS}
+    ref = dict(refresh_targets=True, restart_overhead=HZ_OVERHEAD)
+    variants = [
+        ("grin-p+refresh", "grin-p", ref),
+        ("grin-p+refresh+hedge-always", "grin-p",
+         dict(ref, hedge_classes=(0,))),
+        ("grin-p+refresh+hedge-q95", "grin-p",
+         dict(ref, hedge_quantile=HZ_HQ, hedge_min_obs=HZ_HMIN)),
+        ("grin-p+refresh+ckpt", "grin-p", dict(ref, ckpt_period=CKPT_PERIOD)),
+        ("grin-p+refresh+ckpt-age", "grin-p",
+         dict(ref, ckpt_period=CKPT_PERIOD, ckpt_age=3 * CKPT_PERIOD)),
+        ("lb", "lb", {}), ("jsq", "jsq", {})]
+    points = [(v, p, make_hazard_scenario(procs[(shape, mf)], l, t_end, s,
+                                          fail_prob=FAIL_PROB, **kw), s)
+              for v, p, kw in variants for shape, mf, s in grid]
+    mix = np.maximum(1, np.round(np.asarray(OPEN_SHARES) * 2 * l)
+                     ).astype(np.int64)
+    return mu, [0, 1], spec, arr, None, mix, points
+
+
+def phase_hazard(dev, detail, pool=None, fig=None):
+    """`benchmarks/fig_hazard.py::run()`'s workload at its defaults: 2
+    shapes x 2 MTBFs x 3 seeds of drawn availability under seven variants
+    (84 points) in ONE `simulate_open_batch` call from the captured graph
+    (per-point route modes and fault schedules; the reference takes one
+    call a variant). Every point is held to the host fault loop
+    (`run_open_faults`, same arrivals and realization, in the host pool)
+    at `open_gates`, with equal topology events (a p99 cell is a variant
+    over the availability grid); the benchmark's claims are asserted on
+    its own statistics; every refreshed segment grid is one fused launch,
+    and each distinct grid is held to the plain per-step loop."""
+    import numpy as np
+    from repro_torch.faults import (age_checkpoint_policy,
+                                    expected_completion_exp,
+                                    expected_completion_weibull)
+    from repro_torch.kernels import grin_moves as GM
+    fig = {**OPEN_FIG, **(fig or {})}
+    T, W, seeds = fig["n_arrivals"], fig["warmup"], fig["seeds"]
+    work = hazard_workload(T, seeds)
+    n_grid = len(HZ_SHAPES) * len(HZ_MTBF_FRACS) * len(seeds)
+    with SegmentGrids(dev) as rec:
+        batch, points, cfgs = open_fault_batch(dev, work, T, W, seeds,
+                                               TRAFFIC_QCAP)
+    jobs = list(zip(cfgs, [p for _, p, _, _ in points]))
+    pending = (pool.map_async(host_open, jobs, chunksize=1)
+               if pool is not None else None)
+    out, row = run_open_batch(dev, batch, "hazard", detail,
+                              busy_batch=shorter(batch,
+                                                 fig["busy_arrivals"]))
+    hosts = (pending.get() if pending is not None
+             else [host_open(j) for j in jobs])
+    fails, recs = [], []
+    for i, (h, secs) in enumerate(hosts):
+        r = open_record(out, i, h)
+        # a cell: one variant over the availability grid, whose points
+        # (shape, MTBF, seed) are each a realization of the outage process
+        # (the level fig_hazard.py's claims take their means at)
+        r.update(point=[points[i][0], points[i][3]], host_s=secs,
+                 cell=[points[i][0]])
+        if h.topology_events != int(out["topology_events"][i]):
+            fails.append(f"topology events differ at {r['point']}")
+        recs.append(r)
+    summary, f = open_gates(recs)
+    fails += f
+    # reported, not gated: the p99 seed means per (variant, shape, MTBF)
+    fine = open_gates([dict(r, cell=[points[i][0],
+                                     (i % n_grid) // len(seeds)])
+                       for i, r in enumerate(recs)])[0]
+    per = {}
+    for v in dict.fromkeys(p[0] for p in points):
+        idx = [i for i, p in enumerate(points) if p[0] == v]
+        per[v] = {n: np.asarray(out[n][idx], np.float64) for n in (
+            "goodput", "wasted_work", "topology_events")}
+
+    def mean(v, n):
+        return float(per[v][n].mean())
+    # fig_hazard.py's claims 0-3, on its statistics
+    if min(per[v]["topology_events"].min() for v in per) < 1:
+        fails.append("a point saw no crash")
+    for base in ("lb", "jsq"):
+        if not mean("grin-p+refresh", "goodput") > 1.02 * mean(base,
+                                                               "goodput"):
+            fails.append(f"refresh goodput not > 1.02 x {base}")
+    ga, gq = (per[v]["goodput"] for v in ("grin-p+refresh+hedge-always",
+                                          "grin-p+refresh+hedge-q95"))
+    wa, wq = (per[v]["wasted_work"] for v in ("grin-p+refresh+hedge-always",
+                                              "grin-p+refresh+hedge-q95"))
+    dom = (wq < wa) & (gq >= ga)
+    if not dom.any() or not wq.mean() < wa.mean():
+        fails.append("quantile hedging does not dominate always-hedge")
+    w_none, w_ckpt, w_age = (mean(v, "wasted_work") for v in (
+        "grin-p+refresh", "grin-p+refresh+ckpt", "grin-p+refresh+ckpt-age"))
+    if not (w_ckpt < w_none and w_ckpt <= w_age * (1 + 1e-9)
+            <= w_none * 1.05):
+        fails.append(f"restart economics: wasted {w_ckpt}, {w_age}, "
+                     f"{w_none}")
+    task_mean = 1.0 / FAIL_PROB
+    a_star, tau = age_checkpoint_policy(task_mean, max(HZ_SHAPES),
+                                        HZ_OVERHEAD)
+    ws, wl = 0.1 * task_mean, 1.6 * task_mean
+    e_s = expected_completion_exp(ws, 1.0 / task_mean, HZ_OVERHEAD)
+    e_l = expected_completion_exp(wl, 1.0 / task_mean, HZ_OVERHEAD)
+    if not (abs(expected_completion_weibull(ws, task_mean, 1.0, HZ_OVERHEAD)
+                - e_s) / e_s < 1e-6
+            and expected_completion_weibull(ws, task_mean, max(HZ_SHAPES),
+                                            HZ_OVERHEAD) < e_s
+            and expected_completion_weibull(wl, task_mean, max(HZ_SHAPES),
+                                            HZ_OVERHEAD) > e_l):
+        fails.append("restart-vs-resume forecasts")
+    # the refresh variants of one availability point solve the same grid
+    distinct = list({(g["mus"].tobytes(), g["mixes"].tobytes()): g
+                     for g in rec.grids}.values())
+    counted = dict(GM.launches)
+    seg = check_segment_grids(dev, distinct)
+    GM.launches.update(counted)
+    row.update(gates=summary, records=recs, p99_by_availability=fine,
+               host_seconds=[r["host_s"] for r in recs],
+               segment_grids=len(rec.grids), segment_checks=seg,
+               hedge_dominance_points=int(dom.sum()),
+               hedge_waste_ratio=float(wq.mean() / wa.mean()),
+               ckpt_wasted_reduction=1.0 - w_ckpt / max(w_none, 1e-12),
+               age_policy_a_star=a_star, daly_tau=tau,
+               variants={v: {n: float(a.mean()) for n, a in r.items()}
+                         for v, r in per.items()})
+    print(f"  hazard vs host ({len(recs)} points, host "
+          f"{sum(r['host_s'] for r in recs):.0f} s of runs): {summary}; "
+          f"class p99 on the (variant, shape, MTBF) seed means (not "
+          f"gated): max {fine['max_cell_p99_rel']:.3f}, mean "
+          f"{fine['mean_cell_p99_rel']:.3f}")
+    print(f"  hazard: {row['variants']}; segment grids {len(rec.grids)}")
+    if fails:
+        raise AssertionError("; ".join(fails))
+    return {"grids": len(rec.grids), **row}
+
+
+# --------------------------------------------------------------- autoscale
+
+# benchmarks/fig_autoscale.py at its defaults: 3 types x 4 pools, the
+# diurnal peak at 70% of the full-fleet f = 1 capacity
+AS_MU = ((14.0, 3.0, 3.0, 2.0), (2.0, 11.0, 3.0, 9.0), (4.0, 4.0, 8.0, 4.0))
+AS_TYPE_PROBS = (0.4, 0.35, 0.25)
+AS_LEVELS = (0.5, 0.75, 1.0, 1.25)
+AS_PEAK_UTIL, AS_AMPLITUDE, AS_EPOCH, AS_SLOTS = 0.70, 0.85, 4.0, 400
+AS_FIG = {"horizon": 240.0, "seeds": (0, 1, 2)}
+AS_X_REL = 5e-3         # guarded X at most this far above the host float64
+                        # price (the reference test's tolerance)
+
+
+def phase_autoscale(dev, detail, fig=None):
+    """`benchmarks/fig_autoscale.py::run()`'s workload at its defaults:
+    the diurnal, MMPP and flash traces (horizon 240, seeds 0-2) under the
+    static, threshold and governor controllers, through `run_autoscaled`.
+    Every governor epoch prices its 13 guarded (7, 5) candidates in one
+    `price_frequency_grid` call — one fused `grin_block_solve` launch —
+    asserted as solve_calls == epochs == launches; the benchmark's
+    frontier claims are asserted; every distinct priced grid is held to
+    the plain per-step loop and the single-move local-maximum property;
+    every priced candidate's guard-corrected X is compared with the host
+    float64 price of its live submatrix (`price_config_host`): never above
+    it by more than AS_X_REL, the largest gap either way reported."""
+    import numpy as np
+    from repro_torch.core import (DVFSModel, PROPORTIONAL_POWER,
+                                  grin_block_solve)
+    from repro_torch.core.grin import (grin_solve_batch_steps_torch,
+                                       grin_solve_batch_torch)
+    from repro_torch.kernels import grin_moves as GM
+    from repro_torch.sched import autoscale as A
+    from repro_torch.traffic import make_load_traces
+    fig = {**AS_FIG, **(fig or {})}
+    h, seeds = fig["horizon"], fig["seeds"]
+    mu = np.asarray(AS_MU)
+    l = mu.shape[1]
+    dvfs = DVFSModel(alpha=3.0, levels=AS_LEVELS)
+    P = PROPORTIONAL_POWER.power_matrix(mu)
+    x_full = grin_block_solve(
+        mu, np.round(np.asarray(AS_TYPE_PROBS) * 40).astype(np.int64)).x_sys
+    base = AS_PEAK_UTIL * x_full / (1.0 + AS_AMPLITUDE)
+    traces = make_load_traces(AS_TYPE_PROBS, base=base, horizon=h,
+                              period=h / 2.0, amplitude=AS_AMPLITUDE)
+    n_sample = int(1.6 * base * h) + 64
+    sync = torch_sync(dev)
+    priced, orig = [], A.price_frequency_grid
+
+    def recorded(nominal_mu, P_nominal, freq_grid, mixes, dvfs_, device=None):
+        sync()
+        t0 = time.perf_counter()
+        res = orig(nominal_mu, P_nominal, freq_grid, mixes, dvfs_,
+                   device=device)
+        sync()
+        priced.append((np.array(freq_grid), np.array(mixes), res["x"],
+                       res["conv"], (time.perf_counter() - t0) * 1e3))
+        return res
+    controllers = {
+        "static": lambda: A.StaticScaler(l),
+        "naive": lambda: A.UtilizationScaler(l, dvfs),
+        "governor": lambda: A.AutoscaleGovernor(
+            mu, dvfs=dvfs, config=A.GovernorConfig(epoch=AS_EPOCH,
+                                                   headroom=1.15),
+            device=dev)}
+    rows, epochs, solve_calls = {}, 0, 0
+    before = GM.launches["grin_solve"]
+    t_all = time.perf_counter()
+    A.price_frequency_grid = recorded
+    grids = SegmentGrids(dev, A)
+    try:
+        grids.__enter__()
+        for tname, spec in traces.items():
+            rows[tname] = {}
+            for cname, make in controllers.items():
+                acc = {k: [] for k in ("goodput", "x_per_joule", "energy",
+                                       "dropped", "mean_backlog")}
+                for s in seeds:
+                    times, types = spec.sample(s, n_sample)
+                    ctrl = make()
+                    r = A.run_autoscaled(mu, times, types, ctrl, dvfs=dvfs,
+                                         power=PROPORTIONAL_POWER,
+                                         epoch=AS_EPOCH,
+                                         queue_slots=AS_SLOTS, horizon=h)
+                    for key in acc:
+                        acc[key].append(float(getattr(r, key)))
+                    if cname == "governor":
+                        epochs += len(r.times)
+                        solve_calls += ctrl.solve_calls
+                rows[tname][cname] = {k: float(np.mean(v))
+                                      for k, v in acc.items()}
+    finally:
+        A.price_frequency_grid = orig
+        grids.__exit__()
+    t_all = time.perf_counter() - t_all
+    launched = GM.launches["grin_solve"] - before
+    fails = []
+    if not solve_calls == epochs == len(priced) == launched > 0:
+        fails.append(f"solve calls {solve_calls}, epochs {epochs}, priced "
+                     f"grids {len(priced)}, fused launches {launched}")
+    wins, frontier = 0, {}
+    for tname in traces:
+        g, n, st = (rows[tname][c] for c in ("governor", "naive", "static"))
+        wins += g["x_per_joule"] > n["x_per_joule"]
+        frontier[tname] = {
+            "gov_over_naive_xpj": g["x_per_joule"] / n["x_per_joule"],
+            "gov_over_static_xpj": g["x_per_joule"] / st["x_per_joule"],
+            "gov_goodput_vs_static": g["goodput"] / st["goodput"]}
+        if not (frontier[tname]["gov_goodput_vs_static"] > 0.95
+                and frontier[tname]["gov_over_static_xpj"] > 1.0):
+            fails.append(f"{tname}: {frontier[tname]}")
+    if wins < 2:
+        fails.append(f"the governor wins goodput per joule on {wins} of 3 "
+                     f"traces")
+    # the guard-corrected X of every priced candidate vs the host price
+    # of its live submatrix: never above it by more than AS_X_REL; below
+    # it where the batched block ascent stops in another basin than the
+    # host solve (the reference's solve does the same; ROADMAP queue C)
+    cache, gaps = {}, []
+    for fg, mixes, x, conv, _ in priced:
+        for c in range(len(fg)):
+            key = (tuple(fg[c]), tuple(mixes[0]))
+            if key not in cache:
+                cache[key] = A.price_config_host(mu, P, fg[c], mixes[0],
+                                                 dvfs)[0]
+            gaps.append((x[c, 0] - cache[key]) / cache[key])
+    gaps = np.asarray(gaps)
+    if not all(p[3].all() for p in priced):
+        fails.append("a priced candidate did not converge")
+    if gaps.max() > AS_X_REL:
+        fails.append(f"guarded X above the host price by {gaps.max():.2e}")
+    # every distinct priced grid: exact row sums, a single-move local
+    # maximum on its guarded rows, the plain per-step loop's targets
+    distinct = list({(g["mus"].tobytes(), g["mixes"].tobytes()): g
+                     for g in grids.grids}.values())
+    counted = dict(GM.launches)
+    checks = check_segment_grids(dev, distinct)
+    GM.launches.update(counted)
+    res = {"grids": launched, "epochs": epochs, "solve_calls": solve_calls,
+           "seconds": t_all, "traces": rows, "frontier": frontier,
+           "gov_beats_naive_on": wins, "candidates_priced": int(gaps.size),
+           "distinct_configs": len(cache), "distinct_grids": len(distinct),
+           "x_gap_max_abs": float(np.abs(gaps).max()),
+           "x_gap_max_over": float(gaps.max()),
+           "x_gap_mean_abs": float(np.abs(gaps).mean()),
+           "x_gaps_under_5e-3": int((gaps < -AS_X_REL).sum()),
+           "x_gaps_over_1e-4": int((np.abs(gaps) > 1e-4).sum()),
+           "grid_max_rel_single_move_gain": float(max(
+               c["max_rel_single_move_gain"] for c in checks)),
+           "grid_fused_ms": [c.get("fused_ms") for c in checks[:8]],
+           "price_ms_per_epoch": float(np.mean([p[4] for p in priced])),
+           "base_rate": base, "x_full": x_full}
+    # the distinct grid whose solve takes the most steps: the fused
+    # kernel's device ms, its bound over the steps it took, and the plain
+    # per-step loop's ms
+    counted = dict(GM.launches)
+    _, _, _, moves_all = grin_solve_batch_torch(
+        np.concatenate([g["mus"] for g in distinct]),
+        np.concatenate([np.repeat(g["mixes"], len(g["mus"]), axis=0)
+                        for g in distinct]), device=dev)
+    sizes = np.cumsum([0] + [len(g["mus"]) for g in distinct])
+    mv = moves_all.cpu().numpy()
+    hard = distinct[int(np.argmax([mv[a:b].sum() for a, b in
+                                   zip(sizes[:-1], sizes[1:])]))]
+    g_mus = hard["mus"]
+    g_mix = np.repeat(hard["mixes"], len(g_mus), axis=0)
+    _, _, _, moves = grin_solve_batch_torch(g_mus, g_mix, device=dev)
+    sync()
+    t0 = time.perf_counter()
+    grin_solve_batch_steps_torch(g_mus, g_mix, device=dev,
+                                 scorer=GM.block_move_scores_reference)
+    sync()
+    res["plain_ms_per_epoch"] = (time.perf_counter() - t0) * 1e3
+    GM.launches.update(counted)
+    steps = int(moves.sum()) + len(moves)
+    res["bound_ms_per_epoch"], res["bound_by"] = solve_bound(
+        len(moves), g_mus.shape[1], g_mus.shape[2],
+        _ladder_len(int(g_mix.sum(axis=1).max())), 0, steps)[:2]
+    res["steps_per_epoch"] = steps
+    if dev.type == "cuda":
+        res["fused_ms_per_epoch"] = fused_kernel_ms(g_mus, g_mix, dev,
+                                                    iters=20)
+    detail["autoscale"] = res
+    print(f"  autoscale: {epochs} governor epochs, {launched} fused "
+          f"launches, {t_all:.1f} s; gov > naive x/J on {wins}/3: "
+          f"{ {t: round(f['gov_over_naive_xpj'], 3) for t, f in frontier.items()} }")
+    print(f"  priced X vs host float64 over {gaps.size} candidates: "
+          f"largest |gap| {res['x_gap_max_abs']:.3e}, above the host at "
+          f"most {gaps.max():.2e}, mean |gap| {res['x_gap_mean_abs']:.2e}, "
+          f"{res['x_gaps_under_5e-3']} below by more than {AS_X_REL}; "
+          f"{len(distinct)} distinct grids held to the plain loop; price "
+          f"{res['price_ms_per_epoch']:.2f} ms an epoch, fused "
+          f"{res.get('fused_ms_per_epoch')} ms (bound "
+          f"{res['bound_ms_per_epoch']:.2e} ms, {res['bound_by']}; "
+          f"{steps} steps), plain loop {res['plain_ms_per_epoch']:.1f} ms")
+    if fails:
+        raise AssertionError("; ".join(fails))
+    return res
 
 
 # ------------------------------------------------------------ model kernels
@@ -2866,6 +3410,83 @@ def phase_serve_sched(dev, state, detail):
         raise AssertionError("serve-sched throughput not positive")
 
 
+def phase_serve_traffic(dev, state, detail):
+    """`serve --traffic` on the full-width engine (the reference launcher's
+    open-trace replay): the 2 x 2 mu of 1 x 1024 prefill / decode requests
+    measured in virtual time, the bundled trace scaled to 1.2 x the knee
+    and replayed through GrIn-P with SLO admission, per-class goodput,
+    shed and p99; the decisions recorded to a Chrome trace (more than 0
+    events), and the run under the profiler, with a 64 x 64 grid solve
+    whose spans must cover its fused kernel's device time (`span.ready`
+    waits on the card)."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import serve_traffic
+    from repro_torch.obs import get_profiler, profile_block
+    from repro_torch.sched.api import solve_targets_grid_torch
+    engine = state["engine"]
+    tg = torch.Generator(device=dev).manual_seed(2)
+    toks = torch.randint(0, engine.cfg.vocab_size, (1, 1024), device=dev,
+                         generator=tg)
+    mus, mixes = skewed_grid(0, 64, 64, K, L, N_TASKS)
+    before = all_launches()
+    get_profiler().clear()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as td, \
+            profile_block("serve-traffic") as prof:
+        path = os.path.join(td, "decisions.json")
+        m, mu, n_events = serve_traffic(engine, {"tokens": toks}, toks,
+                                        trace_out=path, device=dev)
+        t_replay = time.perf_counter() - t0
+        solve_targets_grid_torch(mus, mixes, device=dev)
+        with open(path) as f:
+            doc = json.load(f)
+    after = all_launches()
+    spans = prof.summary()
+    fused = (fused_kernel_ms(np.repeat(mus, len(mixes), axis=0),
+                             np.tile(mixes, (len(mus), 1)), dev, iters=3)
+             if dev.type == "cuda" else 0.0)
+    cats = sorted({e["cat"] for e in doc["traceEvents"]})
+    res = {"mu": mu.tolist(), "replay_s": t_replay,
+           "goodput": m.throughput, "trace_events": n_events,
+           "categories": cats,
+           "classes": {name: {"done": int(m.class_completed[c]),
+                              "shed": int(m.class_shed[c]),
+                              "deferred": int(m.class_deferred[c]),
+                              "p50_s": float(m.class_p50[c]),
+                              "p99_s": float(m.class_p99[c]),
+                              "slo_met": float(m.class_deadline_met[c])}
+                       for c, name in enumerate(("prefill", "decode"))},
+           "spans": spans, "fused_ms": fused,
+           "launches": {k: after[k] - before[k] for k in after}}
+    detail["serve_traffic"] = res
+    print(f"  replay {t_replay:.1f} s; {n_events} trace events {cats}; "
+          f"spans { {k: (v['count'], round(v['total_s'] * 1e3, 2)) for k, v in spans.items()} }; "
+          f"64 x 64 fused solve {fused:.2f} ms; launches {res['launches']}")
+    fails = []
+    if not n_events > 0 or len(doc["traceEvents"]) != n_events \
+            or not {"sched", "admission"} <= set(cats):
+        fails.append(f"trace: {n_events} events, categories {cats}")
+    for name, r in res["classes"].items():
+        if not (r["done"] > 0 and np.isfinite(r["p99_s"])):
+            fails.append(f"class {name}: {r}")
+    for name in ("solve_targets_grid_torch", "grin_solve_batch_torch"):
+        if name not in spans:
+            fails.append(f"no {name} span")
+    # a span that closed before its kernel ran would time the launch only
+    if "grin_solve_batch_torch" in spans and \
+            spans["grin_solve_batch_torch"]["max_s"] * 1e3 < 0.9 * fused:
+        fails.append(f"the solve's span ({spans['grin_solve_batch_torch']}) "
+                     f"is shorter than its kernel ({fused:.2f} ms)")
+    if dev.type == "cuda" and not (res["launches"]["flash_attention"] > 0
+                                   and res["launches"]["ssd_scan"] > 0):
+        fails.append(f"the replay ran no model kernel: {res['launches']}")
+    if fails:
+        raise AssertionError("; ".join(fails))
+    return res
+
+
 def phase_ops_rmsnorm(dev, detail):
     """The RMSNorm kernel's one entry point, `ops.rmsnorm`, on a serving-
     sized hidden state (4 x 8192 x 3584, bf16); checked against the plain
@@ -2967,23 +3588,26 @@ def main() -> int:
     pool = multiprocessing.get_context("spawn").Pool(
         min(8, os.cpu_count() or 1))
     reset_all_launches()                # the scheduling path's count starts
-    per_phase, solve_entry, fault_res = {}, None, None
+    per_phase, solve_entry, grids = {}, None, {}
     try:
         for name, fn, args in (
                 ("solver", phase_solver, (dev, [(16, 16, 1), (64, 64, 2)],
                                           64, detail)),
                 ("scheduler", phase_scheduler, (dev, 16, 4096, detail)),
-                ("engine", phase_engine, (dev, 4, [0, 1, 2], 4000, 800,
+                ("engine", phase_engine, (dev, 2, [0, 1, 2], 4000, 800,
                                           detail, pool)),
                 ("priority", phase_priority, (dev, 64, 64, detail, pool)),
                 ("traffic", phase_traffic, (dev, detail, pool)),
-                ("faults", phase_faults, (dev, detail, pool))):
+                ("faults", phase_faults, (dev, detail, pool)),
+                ("closed-faults", phase_closed_faults, (dev, detail, pool)),
+                ("hazard", phase_hazard, (dev, detail, pool)),
+                ("autoscale", phase_autoscale, (dev, detail))):
             before = dict(grin_moves.launches)
             res = run(name, fn, *args)
             if name == "solver":
                 solve_entry = res
-            if name == "faults":
-                fault_res = res
+            if isinstance(res, dict) and "grids" in res:
+                grids[name] = res["grids"]
             per_phase[name] = {k: grin_moves.launches[k] - before[k]
                                for k in before}
     finally:
@@ -2993,20 +3617,22 @@ def main() -> int:
     print(f"launches on the scheduling path: {launches} {per_phase}")
     # every grid solve is one fused launch: the per-step scorer kernel is
     # off the path (held against its plain version in the kernel phase);
-    # the traffic phase's targets are host solves (no kernel on its path),
-    # and the faults phase makes one launch per segment grid
+    # the traffic phase's targets are host solves (no kernel on its path);
+    # the fault and hazard phases make one launch per segment grid, the
+    # autoscale phase one per governor epoch
     if any(per_phase[p]["grin_solve"] <= 0 for p in per_phase
            if p != "traffic") \
             or launches["block_move_gains"] != 0 \
             or per_phase["traffic"]["grin_solve"] != 0 \
-            or (fault_res is not None and per_phase["faults"]["grin_solve"]
-                != fault_res["grids"]):
+            or any(per_phase[p]["grin_solve"] != n
+                   for p, n in grids.items()):
         failed.append("launches")
     detail["launches"] = {"total": launches, **per_phase}
 
     state = {}                          # the serving engine, shared
     serve_launches = run("serve", phase_serve, dev, state, detail)
     run("serve-sched", phase_serve_sched, dev, state, detail)
+    run("serve-traffic", phase_serve_traffic, dev, state, detail)
     state.clear()
     torch.cuda.empty_cache()
     xlstm_launches = run("serve-xlstm", phase_serve_xlstm, dev, detail)

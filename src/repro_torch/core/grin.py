@@ -49,6 +49,7 @@ from repro_torch.core.throughput import (delta_x_add, delta_x_add_block,
                                          delta_x_remove, delta_x_remove_block,
                                          system_throughput,
                                          system_throughput_torch)
+from repro_torch.obs.profile import span as _obs_span
 
 _TOL = 1e-12
 # float32 solvers: accept only gains clearly above accumulated rounding
@@ -495,13 +496,15 @@ def grin_solve_batch_torch(mu, n_tasks_batch, *, n_sizes: int | None = None,
     """
     N0, mus, Ps, sizes, cap, obj = _batch_inputs(
         mu, n_tasks_batch, n_sizes, max_moves, objective, power, P, device)
-    if N0.device.type == "cuda":
-        from repro_torch.kernels.grin_moves import grin_block_solve_cuda
-        N, conv, moves = grin_block_solve_cuda(N0, mus, sizes, cap, P=Ps,
-                                               objective=obj)
-    else:
-        N, conv, moves = grin_block_steps(N0, mus, sizes, cap, P=Ps,
-                                          objective=obj)
+    with _obs_span("grin_solve_batch_torch") as sp:
+        if N0.device.type == "cuda":
+            from repro_torch.kernels.grin_moves import grin_block_solve_cuda
+            N, conv, moves = grin_block_solve_cuda(N0, mus, sizes, cap, P=Ps,
+                                                   objective=obj)
+        else:
+            N, conv, moves = grin_block_steps(N0, mus, sizes, cap, P=Ps,
+                                              objective=obj)
+        N, conv, moves = sp.ready((N, conv, moves))
     return N, system_throughput_torch(N, mus), conv, moves
 
 

@@ -6,8 +6,10 @@ every per-point schedule is padded to a common number of breakpoints
 per-arrival failure counts / hedge masks are realized from the SAME host
 substreams the host loops use — so one `simulate_open_batch` call sweeps a
 (scenario x policy x seed) grid against bit-identical fault realizations.
-Closed-mode batches are built too (the reference's layout), but the
-port's closed device engine takes no fault inputs yet (ROADMAP A4).
+Closed-mode batches feed the closed engine
+(`repro_torch.sim.engine_torch.simulate_batch(..., faults=...)`).
+`segment_rows` and `ckpt_preserved` are the per-step pieces both device
+event loops share.
 
 `extra_steps` sizes the event loop: every fault breakpoint and every
 transient failure consumes one event step on top of the fault-free budget
@@ -21,9 +23,29 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from repro_torch.faults.scenario import FaultScenario
 from repro_torch.faults.targets import segment_targets
+
+
+def segment_rows(x: torch.Tensor, sp: torch.Tensor) -> torch.Tensor:
+    """x (B, S, ...) at each point's segment sp (B,) -> (B, ...)."""
+    B = x.shape[0]
+    idx = sp.view(B, 1, *([1] * (x.dim() - 2))).expand(B, 1, *x.shape[2:])
+    return x.gather(1, idx)[:, 0]
+
+
+def ckpt_preserved(done, period, age, period_finite):
+    """Checkpoint-restart: the work preserved after `done` seconds of
+    service. No checkpoint before the age threshold `age`, then one every
+    `period` from it on (age 0: the uniform grid; period +inf: none);
+    `period_finite` is `period` with +inf replaced by 0."""
+    return torch.where(
+        torch.isfinite(period) & (done >= age),
+        age + torch.floor(torch.clamp(done - age, min=0.0)
+                          / torch.clamp(period, min=1e-30)) * period_finite,
+        0.0)
 
 
 @dataclasses.dataclass(frozen=True)

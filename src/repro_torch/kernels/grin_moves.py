@@ -38,6 +38,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels.build import load_library
+from repro_torch.obs.profile import span as _obs_span
 
 _NEG = float("-inf")
 
@@ -373,8 +374,10 @@ def block_move_scores(N, mu, sizes, *, return_gains: bool = True, P=None,
     if objective != OBJ_X and P is None:
         raise ValueError("energy objectives need the power matrix P")
     if N.device.type == "cuda":
-        return block_move_gains_cuda(N, mu, sizes, return_gains=return_gains,
-                                     P=P, objective=objective)
+        with _obs_span("cuda_gain_kernel") as sp:
+            return sp.ready(block_move_gains_cuda(
+                N, mu, sizes, return_gains=return_gains, P=P,
+                objective=objective))
     if N.device.type != "cpu":
         raise ValueError(f"unsupported device {N.device}")
     return block_move_scores_reference(N, mu, sizes,

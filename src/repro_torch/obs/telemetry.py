@@ -1,10 +1,11 @@
 """Time-resolved telemetry: fixed-bin series shared by host and device.
 
-The open device engine (`repro_torch.traffic.engine_torch`) can carry
-four fixed-bin time series through the run — per-pool occupancy,
-per-pool true-work backlog, total power draw, and in-flight hedge count —
-and the host oracle loops accumulate the identical series through
-`TelemetryAccumulator` (the twin the conformance cell compares against).
+The device engines (`repro_torch.sim.engine_torch`,
+`repro_torch.traffic.engine_torch`) can carry four fixed-bin time series
+through the run — per-pool occupancy, per-pool true-work backlog, total
+power draw, and in-flight hedge count — and the host oracle loops
+accumulate the identical series through `TelemetryAccumulator` (the twin
+the conformance cell compares against).
 
 Binning convention (both sides MUST match):
 
@@ -25,6 +26,15 @@ telemetry state is allocated and every result is unchanged.
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+
+def telemetry_bin_weights(now, w, bin_width, bins) -> torch.Tensor:
+    """The device side of the convention: (B, n_bins) charges, each
+    point's interval weight w (B,) in the bin holding its start `now` (B,);
+    `bins` is arange(n_bins)[None]."""
+    b = torch.clamp((now / bin_width).to(torch.int64), 0, bins.shape[1] - 1)
+    return torch.where(bins == b[:, None], w[:, None], 0.0)
 
 
 class TelemetryAccumulator:
@@ -86,4 +96,5 @@ def telemetry_series(raw: dict) -> dict:
     return out
 
 
-__all__ = ["TelemetryAccumulator", "telemetry_series"]
+__all__ = ["TelemetryAccumulator", "telemetry_series",
+           "telemetry_bin_weights"]

@@ -30,7 +30,10 @@ class ordering at the processors.
 `SchedulerCore.route_backup` places a hedged backup copy off its
 primary's pool, and `deficit_route_masked_torch` is the device router
 restricted to pools that are up (the fault layer, `repro_torch.faults`).
-Not ported yet: the decision recorder (ROADMAP A4).
+`SchedulerCore(..., recorder=TraceRecorder())` records every route,
+re-solve (cache hit / miss / eviction), backup route, burst and unroute
+(`repro_torch.obs`); the batched solves and `route_many` open profiling
+spans (`repro_torch.obs.profile`).
 """
 from __future__ import annotations
 
@@ -54,6 +57,7 @@ from repro_torch.core.slsqp import round_largest_remainder, slsqp_solve
 from repro_torch.core.throughput import (state_from_pair, system_throughput,
                                          system_throughput_torch,
                                          throughput_map_2x2)
+from repro_torch.obs.profile import span as _obs_span
 from repro_torch.train.fault_tolerance import StragglerTracker
 
 
@@ -422,16 +426,20 @@ def solve_targets_torch(mu, n_tasks_batch, solver: str = "block",
     if mixes_np.ndim != 2 or mixes_np.shape[1] != mu.shape[0]:
         raise ValueError(f"n_tasks_batch must be (B, k={mu.shape[0]}); got "
                          f"{tuple(mixes_np.shape)}")
-    if solver == "block":
-        targets, xs, _, _ = grin_solve_batch_torch(
-            mu, mixes_np, objective=objective, power=power, P=P, device=dev)
-    elif solver == "single":
-        if objective != "max-x":
-            raise ValueError("energy objectives need solver='block'")
-        targets, xs, _ = _solve_single_batch(
-            np.broadcast_to(mu, (len(mixes_np),) + mu.shape), mixes_np, dev)
-    else:
-        raise ValueError(f"unknown solver {solver!r}: block | single")
+    with _obs_span("solve_targets_torch") as sp:
+        if solver == "block":
+            targets, xs, _, _ = grin_solve_batch_torch(
+                mu, mixes_np, objective=objective, power=power, P=P,
+                device=dev)
+        elif solver == "single":
+            if objective != "max-x":
+                raise ValueError("energy objectives need solver='block'")
+            targets, xs, _ = _solve_single_batch(
+                np.broadcast_to(mu, (len(mixes_np),) + mu.shape), mixes_np,
+                dev)
+        else:
+            raise ValueError(f"unknown solver {solver!r}: block | single")
+        targets, xs = sp.ready((targets, xs))
     return (_repair_targets(targets.cpu().numpy(), mixes_np),
             xs.cpu().numpy())
 
@@ -459,15 +467,18 @@ def solve_targets_grid_torch(mus, mixes, solver: str = "block",
     mix_b = np.tile(mixes, (G, 1))                      # (G*M, k)
     if P is not None and np.ndim(P) == 3:
         P = np.repeat(np.asarray(P), M, axis=0)         # align with mu_b
-    if solver == "block":
-        raw, xs, conv, _ = grin_solve_batch_torch(
-            mu_b, mix_b, objective=objective, power=power, P=P, device=dev)
-    elif solver == "single":
-        if objective != "max-x":
-            raise ValueError("energy objectives need solver='block'")
-        raw, xs, conv = _solve_single_batch(mu_b, mix_b, dev)
-    else:
-        raise ValueError(f"unknown solver {solver!r}: block | single")
+    with _obs_span("solve_targets_grid_torch") as sp:
+        if solver == "block":
+            raw, xs, conv, _ = grin_solve_batch_torch(
+                mu_b, mix_b, objective=objective, power=power, P=P,
+                device=dev)
+        elif solver == "single":
+            if objective != "max-x":
+                raise ValueError("energy objectives need solver='block'")
+            raw, xs, conv = _solve_single_batch(mu_b, mix_b, dev)
+        else:
+            raise ValueError(f"unknown solver {solver!r}: block | single")
+        raw, xs, conv = sp.ready((raw, xs, conv))
     targets = _repair_targets(raw.cpu().numpy(), mix_b).reshape(G, M, k, l)
     return (targets, xs.cpu().numpy().reshape(G, M),
             conv.cpu().numpy().reshape(G, M))
@@ -563,7 +574,8 @@ class SchedulerCore:
                  rate_alpha: float = 0.3,
                  resolve_rate_rel_change: float = 0.25, seed: int = 0,
                  refresh_on_topology: bool = False,
-                 cache_capacity: int | None = None, device=None):
+                 cache_capacity: int | None = None, recorder=None,
+                 device=None):
         self.policy = get_policy(policy)
         # batched solves (warm_targets, elastic_what_if) and route_many run
         # here; the scalar route() hot path stays on the host
@@ -580,6 +592,10 @@ class SchedulerCore:
             raise ValueError(f"cache_capacity must be >= 1; "
                              f"got {cache_capacity}")
         self._cache_cap = int(cache_capacity)
+        # Optional flight recorder (repro_torch.obs.TraceRecorder): hot
+        # paths pay one `is not None` check when unattached. Survives
+        # reset() — the recorder's lifetime is the driver's, not the run's.
+        self.recorder = recorder
         self.reset(mu)
 
     # ---------------- lifecycle ----------------
@@ -668,6 +684,9 @@ class SchedulerCore:
             evicted = next(iter(self._targets))
             self._targets.pop(evicted)
             self._cache_evictions += 1
+            if self.recorder is not None:
+                self.recorder.record("sched", "cache_evict",
+                                     key=repr(evicted))
             if (not self._churn_warned
                     and self._cache_evictions >= self._cache_cap):
                 # a full capacity of evictions means the working set cycled
@@ -721,8 +740,14 @@ class SchedulerCore:
                     "targets must be re-pinned after pool_lost/pool_added)")
             self._cache_put(key, hit)
             self.resolves += 1
+            if self.recorder is not None:
+                self.recorder.record("sched", "resolve", hit=False,
+                                     mix=key[0], mu_token=key[1])
         else:
             self._cache_hits += 1
+            if self.recorder is not None:
+                self.recorder.record("sched", "resolve", hit=True,
+                                     mix=key[0], mu_token=key[1])
         return hit
 
     def notify_type_counts(self, n_tasks: np.ndarray) -> None:
@@ -918,6 +943,11 @@ class SchedulerCore:
                     d = trow[jj] - crow[jj]
                     if d > best_d or (d == best_d and mrow[jj] > best_m):
                         best_d, best_m, j = d, mrow[jj], jj
+                if self.recorder is not None:
+                    self.recorder.record(
+                        "sched", "route", type=task_type, pool=j,
+                        deficit=[trow[jj] - crow[jj]
+                                 for jj in range(self.l)])
             else:
                 counts = view.counts if view is not None else self.counts
                 if self._mix is not None:
@@ -930,10 +960,16 @@ class SchedulerCore:
                 deficit = target[task_type] - counts[task_type]
                 best = np.flatnonzero(deficit == deficit.max())
                 j = int(best[np.argmax(self.mu[task_type][best])])
+                if self.recorder is not None:
+                    self.recorder.record("sched", "route", type=task_type,
+                                         pool=j, deficit=deficit.tolist())
         else:
             j = int(self.policy.choose(
                 task_type, view if view is not None else self._internal_view(),
                 rng if rng is not None else self._rng))
+            if self.recorder is not None:
+                self.recorder.record("sched", "route", type=task_type,
+                                     pool=j, policy=self.policy.key)
         self._counts_rows[task_type][j] += 1
         self._backlog[j] += self._inv_mu_rows[task_type][j]
         return j
@@ -991,6 +1027,9 @@ class SchedulerCore:
                 opts = np.flatnonzero(ok)
                 r = rng if rng is not None else self._rng
                 j = int(opts[r.integers(len(opts))])
+        if self.recorder is not None:
+            self.recorder.record("sched", "route_backup", type=task_type,
+                                 pool=j, exclude=exclude)
         self._counts_rows[task_type][j] += 1
         self._backlog[j] += self._inv_mu_rows[task_type][j]
         return j
@@ -1012,13 +1051,19 @@ class SchedulerCore:
         target = self._target_for(self._mix, key_hint=self._mix_key)
         if self._ranks is None:
             self._ranks = _mu_tiebreak_ranks(self.mu)
-        counts, js = _route_many_torch(
-            torch.as_tensor(target, dtype=torch.int64, device=self.device),
-            torch.as_tensor(self._ranks, dtype=torch.int64,
-                            device=self.device),
-            torch.as_tensor(self.counts, dtype=torch.int64,
-                            device=self.device), types)
+        with _obs_span("route_many") as sp:
+            counts, js = sp.ready(_route_many_torch(
+                torch.as_tensor(target, dtype=torch.int64,
+                                device=self.device),
+                torch.as_tensor(self._ranks, dtype=torch.int64,
+                                device=self.device),
+                torch.as_tensor(self.counts, dtype=torch.int64,
+                                device=self.device), types))
         js = js.cpu().numpy()
+        if self.recorder is not None:
+            self.recorder.record(
+                "sched", "route_many", n=int(types.size),
+                pools=np.bincount(js, minlength=self.l).tolist())
         self._counts_rows = counts.cpu().numpy().tolist()
         backlog = self.backlog_work
         # np.add.at applies in arrival order: bit-equal to sequential route().
@@ -1050,6 +1095,9 @@ class SchedulerCore:
         self._counts_rows[task_type][pool] -= 1
         b = self._backlog[pool] - self._inv_mu_rows[task_type][pool]
         self._backlog[pool] = b if b > 0.0 else 0.0
+        if self.recorder is not None:
+            self.recorder.record("sched", "unroute", type=task_type,
+                                 pool=pool)
 
     def complete(self, task_type: int, pool: int,
                  service_s: float | None = None) -> None:

@@ -15,14 +15,16 @@ admission control, the host open loop and the batched device engine.
     `ClosedNetworkSimulator.run` whenever `SimConfig.traffic` is set.
   * `engine_torch` — the batched open-network device engine
     (`simulate_open_batch`, `simulate_open_policy`).
-
-Trace replay for the serving path and the load generators are not ported
-yet (ROADMAP A4).
+  * `loadgen`   — the canonical diurnal / bursty / flash-crowd load
+    traces the autoscale controllers compare on.
+  * `replay`    — virtual-time open-loop trace replay for the serving path
+    (`repro_torch.launch.serve --traffic`).
 """
 from repro_torch.traffic.arrivals import (ArrivalProcess, DiurnalArrivals,
                                           MMPPArrivals, PoissonArrivals,
                                           TraceArrivals, TrafficSpec,
                                           load_trace)
+from repro_torch.traffic.loadgen import flash_crowd_times, make_load_traces
 from repro_torch.traffic.quantiles import LogHistogram, exact_quantiles
 from repro_torch.traffic.admission import (AdmissionController, SLOClass,
                                            default_admit_limits)
@@ -32,5 +34,6 @@ from repro_torch.traffic.host import run_open
 from repro_torch.traffic.engine_torch import (open_metrics_row,
                                               simulate_open_batch,
                                               simulate_open_policy)
+from repro_torch.traffic.replay import OpenReplayMetrics, replay_open
 
 __all__ = [s for s in dir() if not s.startswith("_")]

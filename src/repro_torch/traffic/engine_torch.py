@@ -59,14 +59,15 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.affinity import PROPORTIONAL_POWER, PowerModel
+from repro_torch.faults.device import ckpt_preserved, segment_rows
 from repro_torch.obs.meta import run_meta
-from repro_torch.sched.api import (_mu_tiebreak_ranks,
-                                   deficit_route_masked_torch,
-                                   deficit_route_torch)
-from repro_torch.sim.engine_torch import (MODE_BF, MODE_DEFICIT, MODE_JSQ,
-                                          MODE_LB, MODE_RD,
+from repro_torch.obs.telemetry import telemetry_bin_weights
+from repro_torch.sched.api import _mu_tiebreak_ranks
+from repro_torch.sim.engine_torch import (MODE_BF, MODE_DEFICIT,
                                           _device_route_mode, _policy_of,
-                                          _sizes_from_uniforms)
+                                          _sizes_from_uniforms,
+                                          fault_fields, route_modes,
+                                          row_telemetry)
 from repro_torch.sim.simulator import SimMetrics
 from repro_torch.traffic.quantiles import (QUANTILES, LogHistogram,
                                            hist_quantile_rows_torch)
@@ -150,49 +151,11 @@ def _simulate_open_fleet(mu, P, target, rank, arr_t, arr_ty, sizes_c, u_rd,
         return counts.view(B, k * l).scatter_add(
             1, (t * l + j)[:, None], delta[:, None]).view(B, k, l)
 
-    def row3(x, sp):
-        """x (B, S, ...) at segment sp (B,) -> (B, ...)."""
-        idx = sp.view(B, 1, *([1] * (x.dim() - 2))).expand(
-            B, 1, *x.shape[2:])
-        return x.gather(1, idx)[:, 0]
-
     def route_one(counts, backlog, t, u, avail=None, tgt=None):
         """Per-point route modes; with `avail` masked to pools that are up
         (deficit routing toward `tgt`, the segment's targets)."""
-        rows = t[:, None, None].expand(B, 1, l)
-        cand = {}
-        if MODE_DEFICIT in present:
-            cand[MODE_DEFICIT] = (
-                deficit_route_torch(target, rank, counts, t) if avail is None
-                else deficit_route_masked_torch(tgt, rank, counts, t, avail))
-        if MODE_JSQ in present:
-            q = counts.sum(dim=1)
-            cand[MODE_JSQ] = torch.argmin(
-                q if avail is None else torch.where(avail, q, 2**30), dim=1)
-        if MODE_LB in present:
-            cand[MODE_LB] = torch.argmin(
-                backlog if avail is None
-                else torch.where(avail, backlog, _INF), dim=1)
-        if MODE_BF in present:
-            m = mu.gather(1, rows)[:, 0]
-            cand[MODE_BF] = torch.argmax(
-                m if avail is None else torch.where(avail, m, -_INF), dim=1)
-        if MODE_RD in present:
-            if avail is None:
-                cand[MODE_RD] = torch.clamp((u * l).to(i64), max=l - 1)
-            else:
-                na = avail.sum(dim=1)
-                r = torch.minimum((u * torch.clamp(na, min=1)).to(i64),
-                                  torch.clamp(na - 1, min=0))
-                # the r-th pool that is up (pool l - 1 when none is: the
-                # caller then admits nothing)
-                cand[MODE_RD] = torch.clamp((torch.cumsum(
-                    avail.to(i64), dim=1) < (r + 1)[:, None]).sum(dim=1),
-                    max=l - 1)
-        j = cand[present[0]]
-        for m in present[1:]:
-            j = torch.where(modes == m, cand[m], j)
-        return j
+        return route_modes(present, modes, mu, target, rank, counts,
+                           backlog, t, u=u, avail=avail, tgt=tgt)
 
     def size_for(t, a_idx):
         """The size draw of arrival a_idx (B,) from its class's
@@ -207,14 +170,6 @@ def _simulate_open_fleet(mu, P, target, rank, arr_t, arr_ty, sizes_c, u_rd,
         period, c_age, overhead = (fault["period"], fault["age"],
                                    fault["overhead"])
         p_fin = torch.where(torch.isfinite(period), period, 0.0)
-
-        def preserved(done, p, a, pf):
-            """Checkpoint-restart: work preserved after `done` alone-secs;
-            `a` the age threshold (0: the uniform-period grid)."""
-            return torch.where(
-                torch.isfinite(p) & (done >= a),
-                a + torch.floor(torch.clamp(done - a, min=0.0)
-                                / torch.clamp(p, min=1e-30)) * pf, 0.0)
 
     def zeros(*shape, dtype=f32):
         return torch.zeros(shape, dtype=dtype, device=dev)
@@ -248,7 +203,7 @@ def _simulate_open_fleet(mu, P, target, rank, arr_t, arr_ty, sizes_c, u_rd,
         S.update(occ_t=zeros(B, nbt, l), bl_t=zeros(B, nbt, l),
                  pw_t=zeros(B, nbt), hg_t=zeros(B, nbt))
         binw = torch.clamp(t_end, min=1e-30) / nbt
-        cols_t = torch.arange(nbt, device=dev)[None, :]
+        bins_t = torch.arange(nbt, device=dev)[None, :]
 
     def onehot(idx, cond):
         """(B, ns) mask of slot idx[b] where cond[b]."""
@@ -261,10 +216,10 @@ def _simulate_open_fleet(mu, P, target, rank, arr_t, arr_ty, sizes_c, u_rd,
         counts = S["counts"]
         if has_faults:
             sp = S["sp"]
-            sc = row3(fault["scale"], sp)                # (B, l)
+            sc = segment_rows(fault["scale"], sp)        # (B, l)
             avail = sc > 0.0
             sc_safe = torch.where(avail, sc, 1.0)
-            tgt_cur = row3(fault["seg"], sp)             # (B, k, l)
+            tgt_cur = segment_rows(fault["seg"], sp)     # (B, k, l)
         active = proc >= 0
         proc_safe = torch.clamp(proc, min=0)
         mask = proc[:, :, None] == cols                  # (B, ns, l)
@@ -333,10 +288,8 @@ def _simulate_open_fleet(mu, P, target, rank, arr_t, arr_ty, sizes_c, u_rd,
         if telemetry_bins:
             # pre-event state over [now, new_now) clipped at t_end, charged
             # to the bin holding the interval start (the host convention)
-            w_t = torch.clamp(torch.minimum(new_now, t_end) - now, min=0.0)
-            oh_t = cols_t == torch.clamp((now / binw).to(i64), 0,
-                                         nbt - 1)[:, None]   # (B, nbt)
-            wb = torch.where(oh_t, w_t[:, None], 0.0)
+            wb = telemetry_bin_weights(now, torch.clamp(
+                torch.minimum(new_now, t_end) - now, min=0.0), binw, bins_t)
             bl_pre = torch.where(mask, size_left[:, :, None],
                                  0.0).sum(dim=1)
             hg = ((active & (S["partner"] >= 0)).to(f32).sum(dim=1)
@@ -413,7 +366,7 @@ def _simulate_open_fleet(mu, P, target, rank, arr_t, arr_ty, sizes_c, u_rd,
                     succ.to(f32)[:, None]).view(B, k, nb)
             # failed attempt: the full service was done, then lost back to
             # the last checkpoint (the host's restart(pid, need))
-            pres_f = preserved(need_pid, period, c_age, p_fin)
+            pres_f = ckpt_preserved(need_pid, period, c_age, p_fin)
             newrem_f = need_pid - pres_f + overhead
             fw = fail_now & inw_t
             wasted = S["wasted"] + torch.where(fw, need_pid - pres_f, 0.0)
@@ -470,12 +423,12 @@ def _simulate_open_fleet(mu, P, target, rank, arr_t, arr_ty, sizes_c, u_rd,
         if has_faults:
             # ---- fault-event branch (identity unless do_fault) ----
             sp_new = sp + do_fault.to(i64)
-            sc_next = row3(fault["scale"], sp_new)
+            sc_next = segment_rows(fault["scale"], sp_new)
             crash_col = do_fault[:, None] & (sc > 0.0) & (sc_next <= 0.0)
             hit = (proc >= 0) & crash_col.gather(1, torch.clamp(proc, min=0))
             done_t = torch.clamp(need - remaining, min=0.0)
-            pres_t = preserved(done_t, period[:, None], c_age[:, None],
-                               p_fin[:, None])
+            pres_t = ckpt_preserved(done_t, period[:, None],
+                                    c_age[:, None], p_fin[:, None])
             newrem_t = need - pres_t + overhead[:, None]
             wasted = wasted + torch.where(
                 inw_t, torch.where(hit, done_t - pres_t, 0.0).sum(dim=1),
@@ -579,8 +532,8 @@ def _simulate_open_fleet(mu, P, target, rank, arr_t, arr_ty, sizes_c, u_rd,
                                    th_k, _INF)
                 # post-event availability (sp already advanced on fault
                 # iterations: no backup lands on a pool that just crashed)
-                avail3 = row3(fault["scale"], sp_new) > 0.0
-                tgt3 = row3(fault["seg"], sp_new)
+                avail3 = segment_rows(fault["scale"], sp_new) > 0.0
+                tgt3 = segment_rows(fault["seg"], sp_new)
                 score = torch.where((proc >= 0) & (partner < 0),
                                     (now[:, None] - entry)
                                     - th_k.gather(1, types), -_INF)
@@ -930,10 +883,8 @@ def simulate_open_policy(cfg, policy, device=None,
 def open_metrics_row(out: dict, i: int,
                      track_deadlines: bool = True) -> SimMetrics:
     """One batch row of a `simulate_open_batch` result as SimMetrics."""
-    tel = out.get("telemetry")
     return SimMetrics(
-        meta=run_meta(out["device"]),
-        telemetry=None if tel is None else {n: v[i] for n, v in tel.items()},
+        meta=run_meta(out["device"]), telemetry=row_telemetry(out, i),
         throughput=float(out["throughput"][i]),
         mean_response_time=float(out["mean_response_time"][i]),
         mean_energy=float(out["mean_energy"][i]),
@@ -952,13 +903,7 @@ def open_metrics_row(out: dict, i: int,
         class_quantiles=out["class_quantiles"][i],
         class_deadline_met=(out["class_deadline_met"][i]
                             if track_deadlines else None),
-        **({"goodput": float(out["goodput"][i]),
-            "wasted_work": float(out["wasted_work"][i]),
-            "failures": int(out["failures"][i]),
-            "topology_events": int(out["topology_events"][i]),
-            "reroute_latency": float(out["reroute_latency"][i]),
-            "recovery_time": float(out["recovery_time"][i])}
-           if "goodput" in out else {}))
+        **fault_fields(out, i))
 
 
 __all__ = ["simulate_open_batch", "simulate_open_policy", "open_metrics_row"]

@@ -788,3 +788,72 @@ def test_open_engine_with_faults_on_the_card(cuda, order):
     assert (eager["topology_events"] == cpu["topology_events"]).all()
     for key in ("goodput", "completed"):
         assert abs(eager[key].mean() / cpu[key].mean() - 1) < 0.05, key
+
+
+@pytest.mark.parametrize("order", ["PS", "FCFS", "PRIO"])
+def test_closed_engine_with_faults_on_the_card(cuda, order):
+    """The closed engine's fault stanza on the card: a scenario that never
+    fires and telemetry leave the fault-free run bit for bit as it was; a
+    storm with failures, checkpoints and refreshed targets makes one fused
+    launch per refreshing policy and agrees with the CPU run (other
+    random streams) on topology events and, on the seed mean, goodput."""
+    from repro_torch.faults import FaultScenario, crash, make_storm
+    from repro_torch.kernels import grin_moves as GM
+    from repro_torch.sim import SimConfig, compare_policies, make_distribution
+    mu = np.random.default_rng(31).uniform(1, 30, size=(3, 3))
+
+    def cfg(faults):
+        return SimConfig(mu=mu, n_programs_per_type=np.array([6, 6, 6]),
+                         distribution=make_distribution("exponential"),
+                         order=order, n_completions=1500,
+                         warmup_completions=300, seed=0, faults=faults,
+                         class_of_type=[0, 1, 1] if order == "PRIO" else None)
+    pols, seeds = ["grin", "lb", "rd"], [0, 1, 2]
+    base = compare_policies(cfg(None), pols, seeds=seeds, device=cuda)
+    never = compare_policies(cfg(FaultScenario(events=crash(1, 1e9, 2e9))),
+                             pols, seeds=seeds, device=cuda)
+    for name in base:
+        for a, b in zip(base[name], never[name]):
+            for f in ("throughput", "mean_response_time", "mean_energy",
+                      "elapsed", "state_occupancy", "class_throughput"):
+                assert np.array_equal(np.asarray(getattr(a, f)),
+                                      np.asarray(getattr(b, f))), (name, f)
+    storm = FaultScenario(events=make_storm(
+        3, n_bursts=2, group_size=1, window=(5.0, 15.0), downtime=3.0,
+        seed=2), fail_prob=0.05, ckpt_period=0.02, refresh_targets=True)
+    before = GM.launches["grin_solve"]
+    card = compare_policies(cfg(storm), pols, seeds=seeds, device=cuda)
+    assert GM.launches["grin_solve"] == before + 1   # grin refreshes
+    cpu = compare_policies(cfg(storm), pols, seeds=seeds, device="cpu")
+    for name in card:
+        assert [m.topology_events for m in card[name]] == \
+            [m.topology_events for m in cpu[name]]
+        g, h = (np.mean([m.goodput for m in r[name]]) for r in (card, cpu))
+        assert abs(g / h - 1) < 0.1, name
+
+
+def test_profile_span_waits_on_the_card(cuda):
+    """With profiling on, `span.ready` synchronizes: the span of a 64 x 64
+    grid solve lasts at least its fused kernel's device time."""
+    from repro_torch.core.grin import _batch_inputs, grin_solve_batch_torch
+    from repro_torch.obs import get_profiler, profile_block
+    rng = np.random.default_rng(0)
+    mus = rng.uniform(1.0, 30.0, size=(4096, 4, 6))
+    mixes = np.stack([rng.multinomial(6000, rng.dirichlet([0.3] * 4))
+                      for _ in range(4096)])
+    grin_solve_batch_torch(mus, mixes, device=cuda)
+    torch.cuda.synchronize()
+    get_profiler().clear()
+    with profile_block("t") as prof:
+        grin_solve_batch_torch(mus, mixes, device=cuda)
+    span = [s for s in prof.spans if s.name == "grin_solve_batch_torch"][0]
+    # the kernel alone, between CUDA events (its inputs prepared before)
+    N0, mu_t, _, sizes, cap, _ = _batch_inputs(mus, mixes, None, None,
+                                               "max-x", None, None, cuda)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    G.grin_block_solve_cuda(N0, mu_t, sizes, cap)
+    end.record()
+    end.synchronize()
+    assert span.dur * 1e3 >= 0.9 * start.elapsed_time(end) > 1.0

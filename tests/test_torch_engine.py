@@ -123,13 +123,26 @@ def test_engine_validates_inputs(monkeypatch):
               n_completions=50, warmup_completions=10, device="cpu")
     with pytest.raises(ValueError, match="unknown order"):
         simulate_batch(MUS[0], tgt, t0, [0], order="LIFO", **kw)
-    # the closed engine takes no fault inputs yet (ROADMAP A4); open
-    # traffic has its own engine, and sweeps of it go there
-    from repro_torch.faults import FaultScenario, crash
+    # the closed engine runs fault scenarios (and refuses the inputs it
+    # cannot take, as the reference does); open traffic has its own
+    # engine, and sweeps of it go there
+    from repro_torch.faults import FaultScenario, build_fault_batch, crash
     cfg = _cfg("PS", n=50, warm=10)
-    cfg.faults = FaultScenario(events=crash(0, 1.0, 2.0))
-    with pytest.raises(NotImplementedError, match="A4"):
-        simulate_policy(cfg, "grin", device="cpu")
+    cfg.faults = FaultScenario(events=crash(0, 0.2, 0.4))
+    m = simulate_policy(cfg, "grin", device="cpu")
+    assert m.topology_events == 1 and m.completed == 40
+    assert np.isfinite(m.goodput) and np.isnan(m.recovery_time)
+    fb = build_fault_batch([cfg.faults], MUS[0], tgt, seeds=[0],
+                           mode="open", n_arrivals=10)
+    with pytest.raises(ValueError, match="closed-mode FaultBatch"):
+        simulate_batch(MUS[0], tgt, t0, [0], faults=fb, **kw)
+    fb = build_fault_batch([cfg.faults], MUS[0], tgt, seeds=[0],
+                           mode="closed", n_completions=50)
+    with pytest.raises(ValueError, match="type_mix"):
+        simulate_batch(MUS[0], tgt, t0, [0], faults=fb,
+                       type_mix=[0.5, 0.25, 0.25], **kw)
+    with pytest.raises(ValueError, match="telemetry_horizon"):
+        simulate_batch(MUS[0], tgt, t0, [0], telemetry_bins=4, **kw)
     cfg.faults, cfg.traffic = None, object()
     with pytest.raises(ValueError, match="simulate_open_batch"):
         sweep(cfg, "grin", device="cpu")

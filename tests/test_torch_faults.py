@@ -215,9 +215,12 @@ def test_host_closed_fault_loop_is_bit_equal(policy, order):
         "class_quantiles", "offered", "dropped", "class_dropped",
         "spec_hedges")])
     assert np.isnan(p.recovery_time) and p.failures > 0
-    # the closed device engine takes no fault inputs yet
-    with pytest.raises(NotImplementedError, match="A4"):
-        simulate_policy(pc, policy, device=CPU)
+    # the closed device engine runs the same scenario (its own streams)
+    # within the engine gates of this host run
+    d = simulate_policy(pc, policy, device=CPU)
+    assert d.topology_events == p.topology_events and d.failures > 0
+    assert abs(d.throughput - p.throughput) / p.throughput < 0.15
+    assert abs(d.mean_energy - p.mean_energy) / p.mean_energy < 0.15
 
 
 @pytest.mark.parametrize("policy", ["grin", "lb", "jsq", "rd", "bf"])

@@ -126,15 +126,30 @@ def test_request_service_fns_and_retries_run_real_tasks():
         with_retries(flaky, max_attempts=0)
 
 
-def test_serve_cli_runs_on_cpu(capsys):
+def test_serve_cli_runs_on_cpu(capsys, tmp_path):
+    import json
     from repro_torch.launch import serve
+    # --traffic on the first 60 requests of the bundled trace
+    with open(serve._TRACE) as f:
+        tr = json.load(f)
+    short = tmp_path / "trace.json"
+    short.write_text(json.dumps({k: v[:60] for k, v in tr.items()}))
+    chrome = tmp_path / "decisions.json"
     serve.main(["--arch", "zamba2-7b", "--batch", "1", "--prompt-len", "8",
-                "--steps", "4", "--device", "cpu", "--heterogeneous"])
+                "--steps", "4", "--device", "cpu", "--heterogeneous",
+                "--traffic", "--trace", str(short), "--trace-out",
+                str(chrome)])
     out = capsys.readouterr().out
     assert "generated (1, 4) tokens" in out
     assert "CAB: X=" in out and "LB: X=" in out
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        serve.main(["--arch", "yi-6b", "--device", "cpu", "--traffic"])
+    for c, name in enumerate(("prefill", "decode")):
+        line = [ln for ln in out.splitlines()
+                if f"class {c} ({name}): done" in ln]
+        assert len(line) == 1 and " shed " in line[0] \
+            and " p99 " in line[0], out
+    assert "GrIn-P + admission @ load 1.20: goodput" in out
+    events = json.loads(chrome.read_text())["traceEvents"]
+    assert events and {e["cat"] for e in events} >= {"sched", "admission"}
 
 
 def test_serve_cli_serves_the_ssm_family_on_cpu(capsys):

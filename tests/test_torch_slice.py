@@ -38,7 +38,9 @@ def test_port_imports_neither_jax_nor_the_reference_package():
         "import repro_torch.models.attention, repro_torch.models.linear_scan\n"
         "import repro_torch.models.layers, repro_torch.models.model\n"
         "import repro_torch.serve.engine, repro_torch.sched.virtual\n"
-        "import repro_torch.launch.serve\n"
+        "import repro_torch.launch.serve, repro_torch.faults.hazard\n"
+        "import repro_torch.traffic.replay, repro_torch.traffic.loadgen\n"
+        "import repro_torch.sched.autoscale, repro_torch.sched.cluster\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'repro') or\n"
         "             m.startswith(('jax.', 'jaxlib', 'repro.')))\n"
         "assert not bad, bad\n"
@@ -176,9 +178,15 @@ def test_smoke_refuses_to_run_alone(tmp_path):
 
 def _entry_points():
     from repro_torch.core import grin_solve_batch_torch, grin_solve_torch
-    from repro_torch.sched import (BaselineClusterScheduler, SchedulerCore,
+    from repro_torch.faults import (completion_forecast_torch,
+                                    expected_completion_exp_torch)
+    from repro_torch.sched import (AutoscaleGovernor,
+                                   BaselineClusterScheduler,
+                                   ClusterScheduler, SchedulerCore,
+                                   price_frequency_grid,
                                    solve_targets_grid_torch,
                                    solve_targets_torch)
+    from repro_torch.core import DVFSModel
     from repro_torch.configs import get_arch, smoke_config
     from repro_torch.convert import model_params_from_reference
     from repro_torch.models.model import Model
@@ -213,6 +221,14 @@ def _entry_points():
         "VirtualTimeCluster.run_closed": lambda: VirtualTimeCluster(
             [{0: lambda s: 1.0}], measure_real=False).run_closed(
                 "lb", [0], n_completions=2, warmup=1, mu=np.ones((1, 1))),
+        "ClusterScheduler": lambda: ClusterScheduler(mu, "grin"),
+        "AutoscaleGovernor": lambda: AutoscaleGovernor(mu),
+        "price_frequency_grid": lambda: price_frequency_grid(
+            mu, mu, np.ones((1, 3)), mixes, DVFSModel()),
+        "completion_forecast_torch": lambda: completion_forecast_torch(
+            [0.0], 1.0, 2.0, 1.5, 0.1),
+        "expected_completion_exp_torch": lambda:
+            expected_completion_exp_torch([1.0], 0.5, 0.1),
     }
 
 
@@ -220,7 +236,9 @@ def _entry_points():
     "SchedulerCore", "BaselineClusterScheduler", "solve_targets_torch",
     "solve_targets_grid_torch", "grin_solve_batch_torch", "grin_solve_torch",
     "simulate_batch", "simulate_policy", "sweep", "compare_policies",
-    "Model", "model_params_from_reference", "VirtualTimeCluster.run_closed"])
+    "Model", "model_params_from_reference", "VirtualTimeCluster.run_closed",
+    "ClusterScheduler", "AutoscaleGovernor", "price_frequency_grid",
+    "completion_forecast_torch", "expected_completion_exp_torch"])
 def test_entry_point_without_device_raises_where_there_is_no_cuda(
         name, monkeypatch):
     call = _entry_points()[name]
