@@ -47,7 +47,12 @@ launch counts set to 0 just before it and read just after:
     memories, 6 sLSTM blocks, d_model 2048) on the same prompts and steps
     (the wide SSD-scan kernel's pair: memory and normaliser in one call
     per mLSTM block) with its own
-    decode-vs-forward check;
+    decode-vs-forward check; and the moe, audio and vlm families at full
+    width and depth, granite-moe-3b-a800m (40 experts, top 8) on the same
+    prompts and steps, musicgen-medium on 4 prompts of 1500 frames x 4
+    codebooks, phi-3-vision-4.2b on 4 x (256 patches + 8192 tokens) (the
+    flash kernel once per attention layer per prefill), each with a
+    decode-vs-forward check against a negative control;
   * `ops.rmsnorm`, the RMSNorm kernel's only entry point;
 
 and checks each result by the repository's own means. It prints the card's
@@ -2498,6 +2503,10 @@ FLASH_PREVIOUS_MS_QUOTED = (12.28, 3.33, 4.76, 5.07)
 RMS_TOL = 2e-2          # bf16 RMSNorm (the reference sweep's)
 SERVE_ARCH = "zamba2-7b"
 SERVE_B, SERVE_S, SERVE_STEPS = 4, 8192, 64
+# the serve-traffic phase replays the bundled trace's first 120 of its 240
+# requests (cut to make room for the moe, audio and vlm phases within the
+# smoke's 1,200 s: its replay took 98-148 s at 240)
+SERVE_TRAFFIC_REQUESTS = 120
 CHECK_S = 4600          # decode-vs-forward prompt, longer than the 4096 window
 # decode-vs-forward: the largest gap between the logits prefill + decode_step
 # give for the last token and forward's last position, bf16 through 81
@@ -2525,6 +2534,40 @@ XLSTM_CHECK_S = 2048        # (4, 2048, 50304) float32 logits: 1.6 GB
 # ten times above the largest sound gap, for summation-order noise, and a
 # hundred times below the control; the bf16 gaps are reported.
 XLSTM_LOGIT_TOL = 0.05
+MOE_ARCH, AUDIO_ARCH, VLM_ARCH = ("granite-moe-3b-a800m", "musicgen-medium",
+                                  "phi-3-vision-4.2b")
+AUDIO_S = 1500          # 30 s of EnCodec frames at 50 Hz, what musicgen makes
+# decode-vs-forward of the moe, audio and vlm phases: 8 requests of 1024
+# positions (vlm: after its 256 patches), gated at LOGIT_TOL like zamba2's,
+# each against a negative control that must exceed it
+FAMILY_CHECK_B, FAMILY_CHECK_S = 8, 1024
+# routing faults smaller than top_k - 1, reported beside serve-moe's gate
+# (not gated): each token's k-th expert swapped for its (k+1)-th in the
+# last n MoE layers (None: every layer)
+MOE_SWAP_CONTROLS = (("every layer", None), ("the last 8 layers", 8),
+                     ("the last layer", 1))
+# granite-moe's decode-vs-forward. Decode (8 rows a GEMM, the plain decode
+# attention) and forward (8,192 rows, the flash kernel) round their bf16
+# products differently, so at the checked position a token's MoE inputs
+# differ by ~0.4-1.0% of their rms, and where its k-th and (k+1)-th router
+# scores lie a few bf16 steps apart the router picks another expert. That
+# flip moves the layer's output row by 25-52% of its rms and the later
+# layers' inputs by 5-8%, so more flips follow. On an NVIDIA H100 80GB
+# HBM3 at 700 W (PERF.md, section 6): 7 of 8 requests flipped, each
+# first at a probability margin of 0-0.0117 (after 0.7-1.0% of input
+# drift), 35 flips in all at margins up to 0.10; logit gaps 0.035-0.205
+# against 0.340-0.447 for the negative control (a forward with top_k - 1).
+# So every request is gated at LOGIT_TOL against that control, and the
+# same decode step routed to the forward's own experts in every layer
+# (0.031-0.039) is gated at LOGIT_TOL against the same control. The
+# router's own rounding is held per layer: each MoE layer applied to the
+# forward's own input at the checked position as a decode-sized call must
+# choose the forward's experts except at near-ties, where the k-th and
+# (k+1)-th router scores lie within MOE_TIE_SPACINGS bf16 spacings (at the
+# larger of the two) of each other (each path rounds a score to the
+# nearest bf16), and must give the forward's output rows on the other
+# tokens (ATTN_TOL of the row's rms).
+MOE_TIE_SPACINGS = 2
 
 
 def _bound(nbytes, ops, ops_per_s):
@@ -2848,11 +2891,17 @@ def phase_model_kernels(dev, detail):
     rows = {"flash_attention": [], "ssd_scan": [], "ssd_scan_wide": [],
             "mlstm_scan": [], "rmsnorm": []}
 
-    # (B, S, H, KV, dh, window): the serving prefill's call first
+    # (B, S, H, KV, dh, window): the zamba2 prefill's call first; the last
+    # three are granite-moe-3b's prefill call (GQA 24 / 8, dh 64),
+    # phi-3-vision's (256 patches + 8192 tokens, dh 96) and musicgen's
+    # (1500 frames, a ragged last tile of 92 rows), causal
     for i, (b, s, h, kv, dh, win) in enumerate([
             (SERVE_B, SERVE_S, 32, 32, 112, 4096), (1, SERVE_S, 32, 32, 112,
                                                     4096),
-            (1, SERVE_S, 32, 32, 112, 0), (1, SERVE_S, 32, 4, 128, 0)]):
+            (1, SERVE_S, 32, 32, 112, 0), (1, SERVE_S, 32, 4, 128, 0),
+            (SERVE_B, SERVE_S, 24, 8, 64, 0),
+            (SERVE_B, 256 + SERVE_S, 32, 32, 96, 0),
+            (SERVE_B, AUDIO_S, 24, 24, 64, 0)]):
         q, k, v = _attn_inputs(dev, 100 + i, b, s, h, kv, dh)
         out = FA.flash_attention_cuda(q, k, v, window=win)
         plain = FA.flash_attention_plain(q, k, v, window=win)
@@ -2912,11 +2961,13 @@ def phase_model_kernels(dev, detail):
             "tflops": ops / ms / 1e9, "bound_share": bound / ms,
             "dh_padded": FA.padded_head_dim(dh), "padded_ops": padded_ops,
             "padded_bound_ms": padded, **tiles, **st})
+        quoted = (f" (earlier design {FLASH_PREVIOUS_MS_QUOTED[i]} ms, "
+                  f"quoted from PERF.md, not measured here)"
+                  if i < len(FLASH_PREVIOUS_MS_QUOTED) else "")
         print(f"  flash B={b} S={s} H={h} KV={kv} dh={dh} window={win}: "
               f"err {err:.2e} = {rel:.2e} x row rms (one-tile fault "
-              f"{bad_rel:.2e}, rejected) ms {ms:.3f} (earlier design "
-              f"{FLASH_PREVIOUS_MS_QUOTED[i]} ms, quoted from PERF.md, not "
-              f"measured here) plain {plain_ms:.1f} sdpa {lib_ms:.3f} bound "
+              f"{bad_rel:.2e}, rejected) ms {ms:.3f}{quoted} "
+              f"plain {plain_ms:.1f} sdpa {lib_ms:.3f} bound "
               f"{bound:.3f} ({by}; {padded:.3f} at dh padded to "
               f"{FA.padded_head_dim(dh)}) {ops / ms / 1e9:.1f} TFLOP/s = "
               f"{bound / ms:.2f} of the bound; tiles {tiles['block_q']} x "
@@ -3014,6 +3065,10 @@ def phase_model_kernels(dev, detail):
             causal_shape=f"B=1,S={SERVE_S},H=KV=32,dh=112,causal,bf16",
             causal_ms=rows["flash_attention"][2]["ms"],
             causal_library_ms=rows["flash_attention"][2]["library_ms"],
+            **{f"{tag}_{key}": rows["flash_attention"][i][key]
+               for i, tag in ((4, "gqa24_8_dh64"), (5, "dh96"),
+                              (6, "audio_dh64"))
+               for key in ("ms", "bound_ms", "library_ms", "plain_ms")},
             bound_share=rows["flash_attention"][0]["bound_share"]),
         "ssd_scan": entry(
             "ssd_scan", "ssd_scan.cu", "src/repro/kernels/ssd_scan.py:85",
@@ -3060,9 +3115,11 @@ def all_launches() -> dict:
     return out
 
 
-def serve_engine(dev, cfg):
+def serve_engine(dev, cfg, prompt=None):
     """A ServeEngine over `cfg` at full width with random weights from seed
-    0 (the bf16 serving copy); returns (engine, record of its size)."""
+    0 (the bf16 serving copy), its caches `prompt` positions (vlm: plus the
+    patches) + SERVE_STEPS + 8 long; returns (engine, record of its
+    size)."""
     import torch
     from repro_torch.models.model import Model
     from repro_torch.serve.engine import ServeEngine
@@ -3070,32 +3127,59 @@ def serve_engine(dev, cfg):
     model = Model(cfg, device=dev).init(
         torch.Generator(device=dev).manual_seed(0))
     n_params = sum(p.numel() for p in model.parameters())
-    engine = ServeEngine(model, max_len=SERVE_S + SERVE_STEPS + 8)
+    patches = cfg.n_patches if cfg.family == "vlm" else 0
+    engine = ServeEngine(model, max_len=patches + (prompt or SERVE_S)
+                         + SERVE_STEPS + 8)
     torch.cuda.synchronize()
     return engine, {"arch": cfg.name, "params": n_params, "weight_bytes": sum(
         p.numel() * p.element_size() for p in model.parameters()),
         "init_s": time.perf_counter() - t0}
 
 
-def serve_runs(dev, engine):
-    """The runs both serving phases make: a warm-up at a short prompt (not
-    counted), `generate` on SERVE_B random prompts of SERVE_S tokens and
-    SERVE_STEPS greedy steps (the counted path: the launch counts and the
-    plain SSD version's calls set to 0 just before it and read just
-    after), then timed prefill and decode runs and their device profiles.
-    Returns (prompts, record); record["plain_ssd_calls"] must be 0."""
+def serve_batch(dev, cfg, b, s, seed=1):
+    """b random prompts of s positions from a seed: (b, s) token ids, audio
+    (b, K, s) (one row per codebook), vlm also (b, n_patches, d) bf16
+    patch embeddings (put before the tokens)."""
+    import torch
+    tg = torch.Generator(device=dev).manual_seed(seed)
+    shape = (b, cfg.n_codebooks, s) if cfg.family == "audio" else (b, s)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, shape, device=dev,
+                                     generator=tg)}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.randn(
+            (b, cfg.n_patches, cfg.d_model), device=dev, generator=tg).to(
+            torch.bfloat16)
+    return batch
+
+
+def head_of(batch, n):
+    """The batch with its prompts cut to their first n positions (along
+    the last axis of the tokens; patches kept)."""
+    return dict(batch, tokens=batch["tokens"][..., :n])
+
+
+def serve_runs(dev, engine, prompt=None):
+    """The runs every serving phase makes: a warm-up at a short prompt (not
+    counted), `generate` on SERVE_B random prompts of `prompt` positions
+    (`serve_batch`) and SERVE_STEPS greedy steps (the counted path: the
+    launch counts and the plain versions' calls set to 0 just before it
+    and read just after), then timed prefill and decode runs and their
+    device profiles. Returns (batch, record); record["plain_ssd_calls"]
+    and record["plain_attention_calls"] must be 0. Tokens per second
+    count positions: an audio position is one frame of K codebook tokens,
+    and a vlm prefill's positions include its patches."""
     import torch
     cfg = engine.cfg
-    tg = torch.Generator(device=dev).manual_seed(1)
-    toks = torch.randint(0, cfg.vocab_size, (SERVE_B, SERVE_S), device=dev,
-                         generator=tg)
-    batch = {"tokens": toks}
+    prompt = prompt or SERVE_S
+    batch = serve_batch(dev, cfg, SERVE_B, prompt)
+    n_pre = engine.prompt_len(batch)
     # warm-up at a short prompt: cuBLAS handles, allocator (not counted)
-    engine.generate({"tokens": toks[:1, :256]}, steps=2)
+    engine.generate({k: v[:1] for k, v in head_of(batch, 256).items()},
+                    steps=2)
     engine.synchronize()
 
-    plain = {"calls": 0}
-    with counting_plain_ssd(plain):
+    plain = {"ssd": 0, "attention": 0}
+    with counting_plain_routes(plain):
         reset_all_launches()             # the serving path's count starts
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
@@ -3104,7 +3188,9 @@ def serve_runs(dev, engine):
         t_gen = time.perf_counter() - t0
         launches = all_launches()        # ... and ends here
     peak = torch.cuda.max_memory_allocated(dev)
-    if out.shape != (SERVE_B, SERVE_STEPS) or not bool(
+    audio = cfg.family == "audio"
+    want = (SERVE_B, SERVE_STEPS) + ((cfg.n_codebooks,) if audio else ())
+    if out.shape != want or not bool(
             ((out >= 0) & (out < cfg.vocab_size)).all()):
         raise AssertionError(f"generate returned {tuple(out.shape)} / ids "
                              f"out of range")
@@ -3113,12 +3199,13 @@ def serve_runs(dev, engine):
     logits, cache = engine.prefill(batch)
     engine.synchronize()
     t_prefill = time.perf_counter() - t0
-    if logits.shape != (SERVE_B, 1, cfg.vocab_size) or not bool(
-            torch.isfinite(logits).all()):
+    want = (SERVE_B, 1) + ((cfg.n_codebooks,) if audio else ()) + (
+        cfg.vocab_size,)
+    if logits.shape != want or not bool(torch.isfinite(logits).all()):
         raise AssertionError("prefill logits not finite / wrong shape")
     first, feed = engine._greedy_next(logits)
     t0 = time.perf_counter()
-    dec, cache = engine.decode_run(feed, cache, SERVE_S, SERVE_STEPS)
+    dec, cache = engine.decode_run(feed, cache, n_pre, SERVE_STEPS)
     engine.synchronize()
     t_dec = time.perf_counter() - t0
     same = bool(torch.equal(out[:, 0], first)) and bool(
@@ -3132,26 +3219,28 @@ def serve_runs(dev, engine):
     prof_prefill = device_busy(prefill_once)
     lg, cache = hold.pop("lc")
     _, feed = engine._greedy_next(lg)
-    prof_decode = device_busy(lambda: engine.decode_run(feed, cache, SERVE_S,
+    prof_decode = device_busy(lambda: engine.decode_run(feed, cache, n_pre,
                                                         8))
     del cache, lg
     torch.cuda.empty_cache()
 
-    res = {"batch": SERVE_B, "prompt": SERVE_S, "steps": SERVE_STEPS,
-           "generate_s": t_gen, "prefill_s": t_prefill,
-           "prefill_tok_per_s": SERVE_B * SERVE_S / t_prefill,
+    res = {"batch": SERVE_B, "prompt": prompt, "positions": n_pre,
+           "steps": SERVE_STEPS, "generate_s": t_gen, "prefill_s": t_prefill,
+           "prefill_tok_per_s": SERVE_B * n_pre / t_prefill,
            "decode_s": t_dec,
            "decode_tok_per_s": SERVE_B * SERVE_STEPS / t_dec,
            "decode_ms_per_step": t_dec / SERVE_STEPS * 1e3,
            "peak_bytes": peak, "launches": launches,
-           "plain_ssd_calls": plain["calls"],
+           "plain_ssd_calls": plain["ssd"],
+           "plain_attention_calls": plain["attention"],
            "generate_equals_prefill_plus_decode": same,
            "profile_prefill": prof_prefill, "profile_decode_8": prof_decode}
     top = [(t["kernel"][:40], round(t["device_s"], 4))
            for t in prof_prefill["top"][:4]]
-    print(f"  generate {SERVE_B} x {SERVE_S} + {SERVE_STEPS} steps: "
+    print(f"  generate {SERVE_B} x {n_pre} + {SERVE_STEPS} steps: "
           f"{t_gen:.2f} s; launches {launches}; plain SSD calls "
-          f"{plain['calls']}; peak {peak / 1e9:.2f} GB")
+          f"{plain['ssd']}, plain attention calls {plain['attention']}; "
+          f"peak {peak / 1e9:.2f} GB")
     print(f"  prefill (time to first token) {t_prefill:.3f} s = "
           f"{res['prefill_tok_per_s']:.0f} tok/s; decode "
           f"{res['decode_tok_per_s']:.1f} tok/s, "
@@ -3165,7 +3254,7 @@ def serve_runs(dev, engine):
           f"{prof_decode['busy_share']}")
     if not same:
         raise AssertionError("generate != prefill + decode_run")
-    return toks, res
+    return batch, res
 
 
 def phase_serve(dev, state, detail, cfg=None):
@@ -3186,7 +3275,8 @@ def phase_serve(dev, state, detail, cfg=None):
           f"init + bf16 cast {size['init_s']:.1f} s, weights "
           f"{size['weight_bytes'] / 1e9:.2f} GB")
     state["engine"] = engine
-    toks, res = serve_runs(dev, engine)
+    batch, res = serve_runs(dev, engine)
+    toks = batch["tokens"]
     launches = res["launches"]
 
     # decode-vs-forward on SERVE_B requests longer than the window, and the
@@ -3236,11 +3326,13 @@ def phase_serve(dev, state, detail, cfg=None):
                              f"{launches}")
     # one SSD launch per Mamba2 block, all on the 64 x 64 kernel
     if launches["ssd_scan"] != cfg.n_layers or launches["ssd_scan_wide"] \
-            or launches["mlstm_scan"] or res["plain_ssd_calls"]:
+            or launches["mlstm_scan"] or res["plain_ssd_calls"] \
+            or res["plain_attention_calls"]:
         raise AssertionError(f"expected {cfg.n_layers} ssd_scan launches, "
-                             f"no wide ones and no plain SSD call per "
-                             f"prefill: {launches}, plain calls "
-                             f"{res['plain_ssd_calls']}")
+                             f"no wide ones and no plain SSD or attention "
+                             f"call per prefill: {launches}, plain calls "
+                             f"{res['plain_ssd_calls']} SSD, "
+                             f"{res['plain_attention_calls']} attention")
     if gap > LOGIT_TOL:
         raise AssertionError(f"decode vs forward gap {gap:.4f} > "
                              f"{LOGIT_TOL}")
@@ -3274,21 +3366,29 @@ def decode_vs_forward(model, toks):
 
 
 @contextlib.contextmanager
-def counting_plain_ssd(counter: dict):
+def counting_plain_routes(counter: dict):
     """Count calls of the plain SSD version through `ops.ssd_scan` and
-    `ops.mlstm_scan` (the routes a CPU tensor takes) in counter["calls"]."""
+    `ops.mlstm_scan` in counter["ssd"], and of the plain attention through
+    `ops.flash_attention` in counter["attention"] (the routes a CPU tensor
+    takes)."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import ssd_scan_wide as SSDW
-    real = ops.linear_scan_chunked
+    real_ssd, real_attn = ops.linear_scan_chunked, ops.chunked_attention
 
-    def counted(*args, **kw):
-        counter["calls"] += 1
-        return real(*args, **kw)
-    ops.linear_scan_chunked = SSDW.linear_scan_chunked = counted
+    def counted_ssd(*args, **kw):
+        counter["ssd"] += 1
+        return real_ssd(*args, **kw)
+
+    def counted_attn(*args, **kw):
+        counter["attention"] += 1
+        return real_attn(*args, **kw)
+    ops.linear_scan_chunked = SSDW.linear_scan_chunked = counted_ssd
+    ops.chunked_attention = counted_attn
     try:
         yield
     finally:
-        ops.linear_scan_chunked = SSDW.linear_scan_chunked = real
+        ops.linear_scan_chunked = SSDW.linear_scan_chunked = real_ssd
+        ops.chunked_attention = real_attn
 
 
 def phase_serve_xlstm(dev, detail, cfg=None):
@@ -3314,7 +3414,8 @@ def phase_serve_xlstm(dev, detail, cfg=None):
           f"{cfg.n_heads} heads of {cfg.resolved_head_dim}; init + bf16 "
           f"cast {size['init_s']:.1f} s, weights "
           f"{size['weight_bytes'] / 1e9:.2f} GB")
-    toks, res = serve_runs(dev, engine)
+    batch, res = serve_runs(dev, engine)
+    toks = batch["tokens"]
     launches, plain_calls = res["launches"], res["plain_ssd_calls"]
 
     ct = toks[:, :XLSTM_CHECK_S]
@@ -3365,6 +3466,423 @@ def phase_serve_xlstm(dev, detail, cfg=None):
     return launches
 
 
+def serve_family(dev, cfg, prompt=None):
+    """The serving runs of the moe, audio and vlm phases: a full-width
+    engine (`serve_engine`) and `serve_runs` on it. Returns (engine,
+    batch, record)."""
+    engine, size = serve_engine(dev, cfg, prompt)
+    blocks = (f"MoE blocks of {cfg.n_experts} experts, top {cfg.top_k}"
+              if cfg.family == "moe" else "attention + MLP blocks")
+    print(f"  {cfg.name}: {size['params']:,} params, {cfg.n_layers} "
+          f"{blocks}, d_model {cfg.d_model}, {cfg.n_heads} / "
+          f"{cfg.n_kv_heads} heads of {cfg.resolved_head_dim}; init + bf16 "
+          f"cast {size['init_s']:.1f} s, weights "
+          f"{size['weight_bytes'] / 1e9:.2f} GB")
+    batch, res = serve_runs(dev, engine, prompt)
+    res.update(size)
+    return engine, batch, res
+
+
+def clone_cache(cache):
+    """A copy of an attention cache (decode writes into its cache)."""
+    return {"attn": [{k: (v.clone() if hasattr(v, "clone") else v)
+                      for k, v in c.items()} for c in cache["attn"]]}
+
+
+def per_request_gap(a, b):
+    """The largest |a - b| of each request over its logits."""
+    return [float(x) for x in (a - b).abs().reshape(a.shape[0], -1)
+            .amax(-1)]
+
+
+def family_verdict(name, cfg, res, gaps, gated, control_gaps, control):
+    """Print and check a family phase: the flash kernel once per attention
+    layer in the prefill and no other model kernel or plain route;
+    decode-vs-forward gaps of the `gated` requests <= LOGIT_TOL (at least
+    one gated); every negative-control gap > LOGIT_TOL. Raises on a
+    fault."""
+    launches = res["launches"]
+    gate = [g for g, ok in zip(gaps, gated) if ok]
+    res.update({"check_requests": len(gaps), "check_prompt": FAMILY_CHECK_S,
+                "decode_vs_forward_gaps": gaps, "gated": gated,
+                "decode_vs_forward_max_gap": max(gate) if gate else None,
+                "decode_vs_forward_tol": LOGIT_TOL,
+                "negative_control": control,
+                "negative_control_gaps": control_gaps,
+                "flash_launches_per_prefill": launches["flash_attention"]})
+    print(f"  decode vs forward ({len(gaps)} x {FAMILY_CHECK_S}): gaps "
+          f"{[round(x, 4) for x in gaps]} (gated {gated}, tol {LOGIT_TOL}); "
+          f"{control}: {[round(x, 4) for x in control_gaps]}")
+    print(f"  flash-attention launches per prefill: "
+          f"{launches['flash_attention']} ({cfg.n_layers} attention layers)")
+    fails = []
+    if launches["flash_attention"] != cfg.n_layers or any(
+            launches[k] for k in ("ssd_scan", "ssd_scan_wide", "mlstm_scan",
+                                  "grin_solve", "block_move_gains")) \
+            or res["plain_ssd_calls"] or res["plain_attention_calls"]:
+        fails.append(f"expected {cfg.n_layers} flash launches per prefill "
+                     f"and no other kernel or plain route: {launches}, "
+                     f"plain calls {res['plain_ssd_calls']} SSD, "
+                     f"{res['plain_attention_calls']} attention")
+    if not gate:
+        fails.append("no request is gated")
+    elif max(gate) > LOGIT_TOL:
+        fails.append(f"decode vs forward gap {max(gate):.4f} > {LOGIT_TOL}")
+    if min(control_gaps) <= LOGIT_TOL:
+        fails.append(f"{control}: gap {min(control_gaps):.4f} <= "
+                     f"{LOGIT_TOL}; the check cannot see that fault")
+    if fails:
+        raise AssertionError(f"{name}: " + "; ".join(fails))
+    return launches
+
+
+@contextlib.contextmanager
+def recording_moe_routes(routes: list):
+    """Record every `apply_moe` call (in layer order) in `routes`: its
+    route (the call runs `moe_route` once and hands it to `moe_experts`,
+    as `apply_moe` does), and its input and output rows at the last
+    position ("x_last", "y_last")."""
+    from repro_torch.models import layers as L
+    real = L.apply_moe
+
+    def recorded(p, x, cfg):
+        route = L.moe_route(p, x, cfg)
+        y = L.moe_experts(p, x, cfg, route)
+        routes.append(dict(route, x_last=x[:, -1].clone(),
+                           y_last=y[:, -1].clone()))
+        return y, route["aux"]
+    L.apply_moe = recorded
+    try:
+        yield
+    finally:
+        L.apply_moe = real
+
+
+@contextlib.contextmanager
+def choosing_experts(cfg, choose):
+    """The MoE router's choice of experts overridden: in the i-th MoE call
+    (layer order), `choose(i, probs)` gives each token's k experts (T, k),
+    or None to keep the router's; the gates are the token's own
+    probabilities there, renormalised as before."""
+    from repro_torch.models import layers as L
+    real, calls = L.top_k, [0]
+
+    def chosen(x, k):
+        if k != cfg.top_k or x.shape[-1] != cfg.n_experts:
+            return real(x, k)          # not the router's choice of experts
+        idx = choose(calls[0], x)
+        calls[0] += 1
+        return real(x, k) if idx is None else (x.gather(-1, idx), idx)
+    L.top_k = chosen
+    try:
+        yield
+    finally:
+        L.top_k = real
+
+
+def kth_expert_swapped(cfg, last=None):
+    """A routing fault for a negative control (a `choose` for
+    `choosing_experts`): in the `last` MoE layers (None: every layer), each
+    token's k-th expert replaced by its (k+1)-th. It is the change one
+    routing flip makes, at every token of those layers."""
+    from repro_torch.models.layers import top_k
+    k = cfg.top_k
+    pick = [*range(k - 1), k]
+
+    def choose(i, probs):
+        if last is not None and i < cfg.n_layers - last:
+            return None
+        return top_k(probs, k + 1)[1][..., pick]
+    return choose
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """`ops.flash_attention` replaced by its plain version (the route a CPU
+    tensor takes), for a diagnostic forward on the card."""
+    from repro_torch.kernels import ops
+    real = ops.flash_attention
+
+    def plain(q, k, v, *, causal=True, window=0, block_q=128, block_k=128):
+        return ops.chunked_attention(q, k, v, causal=causal, window=window,
+                                     chunk_q=block_q, chunk_k=block_k)
+    ops.flash_attention = plain
+    try:
+        yield
+    finally:
+        ops.flash_attention = real
+
+
+def rel_drift(a, b):
+    """Per row of (B, d): rms(b - a) / rms(a), in float32."""
+    a, b = a.float(), b.float()
+    return [float(x) for x in (b - a).pow(2).mean(-1).sqrt()
+            / a.pow(2).mean(-1).sqrt()]
+
+
+def bf16_spacing(x):
+    """The spacing of bfloat16 numbers at |x| (8 significant bits)."""
+    import torch
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(2.0 ** -126)))
+                      - 7)
+
+
+def moe_layer_checks(model, fw, cfg, s):
+    """Each MoE layer applied to the forward's own input rows at the
+    checked position as a decode-sized call (one row per request) against
+    the forward's route and output there (`fw`, recorded at dropless
+    capacity). Per layer: the tokens whose experts differ, whether each is
+    a near-tie (k-th and (k+1)-th router scores within MOE_TIE_SPACINGS
+    bf16 spacings), and the output rows' largest error over their rms on
+    the other tokens."""
+    import torch
+    from repro_torch.models import layers as L
+    k, out = cfg.top_k, []
+    for blk, rf in zip(model.layers, fw):
+        h = rf["x_last"]                                   # (B, d)
+        r1 = L.moe_route(blk.moe, h[:, None], cfg)
+        y1 = L.moe_experts(blk.moe, h[:, None], cfg, r1)[:, 0]
+        gf = rf["gate_idx"].reshape(h.shape[0], s, k)[:, -1]
+        flip = (gf.sort(-1).values != r1["gate_idx"].sort(-1).values).any(-1)
+        sc = (h @ blk.moe.router.to(h.dtype)).float().sort(
+            -1, descending=True).values
+        tie = (sc[:, k - 1] - sc[:, k]) <= MOE_TIE_SPACINGS * bf16_spacing(
+            torch.maximum(sc[:, k - 1].abs(), sc[:, k].abs()))
+        keep = ~flip
+        _, rel, ok = (_close_rows(y1[keep], rf["y_last"][keep], ATTN_TOL)
+                      if bool(keep.any()) else (0.0, 0.0, True))
+        out.append({"flips": int(flip.sum()),
+                    "flips_not_near_ties": int((flip & ~tie).sum()),
+                    "y_err_over_row_rms": rel, "y_ok": ok})
+    return out
+
+
+def phase_serve_moe(dev, detail, cfg=None):
+    """granite-moe-3b-a800m at full width and depth (32 blocks of GQA
+    attention (24 / 8 heads of 64) and 40 experts, top 8; d_model 1536) in
+    a ServeEngine: 4 requests of 8192 tokens and 64 greedy steps through
+    `generate` (the counted path: 32 flash launches per prefill, no other
+    model kernel), timed prefill and decode runs and profiles, the tokens
+    the prefill's capacity drops in each layer, then decode-vs-forward on
+    8 x 1024 at dropless capacity (the reference's test's setting) against
+    a forward with top_k - 1 as its negative control, natural and routed
+    to the forward's experts; the routing flips at the checked position
+    per layer and each request's first, the MoE inputs' and outputs' drift
+    per layer, smaller routing faults and a forward on plain attention
+    reported; and each layer's router and experts held on the forward's
+    own inputs there (`moe_layer_checks`).
+    `cfg` replaces the model (a reduced one for a rehearsal on a CPU)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models.layers import moe_capacity
+    cfg = cfg or get_arch(MOE_ARCH)
+    engine, batch, res = serve_family(dev, cfg)
+    model = engine.model
+    routes = []
+    with recording_moe_routes(routes), torch.no_grad():
+        engine.prefill(batch)
+    dropped = [int(r["dropped"]) for r in routes]
+    choices = batch["tokens"].numel() * cfg.top_k
+    cap = moe_capacity(cfg, batch["tokens"].numel(), batch["tokens"].shape[-1])
+    del routes
+    print(f"  prefill capacity {cap} tokens an expert: "
+          f"dropped choices per layer {dropped} of {choices} "
+          f"({sum(dropped) / (choices * cfg.n_layers):.4f} overall)")
+
+    chk = serve_batch(dev, cfg, FAMILY_CHECK_B, FAMILY_CHECK_S, seed=3)
+    s, k = FAMILY_CHECK_S, cfg.top_k
+    dropless = cfg.with_(capacity_factor=cfg.n_experts / cfg.top_k)
+    fw, dc = [], []
+    try:
+        with torch.no_grad():
+            model.cfg = dropless
+            with recording_moe_routes(fw):
+                full = model.forward(chk)[:, -1]
+            model.cfg = dropless.with_(top_k=k - 1)
+            fewer = model.forward(chk)[:, -1]
+            model.cfg = dropless
+            swapped = {}
+            for tag, which in MOE_SWAP_CONTROLS:
+                with choosing_experts(dropless,
+                                      kth_expert_swapped(dropless, which)):
+                    swapped[tag] = model.forward(chk)[:, -1]
+            fp = []             # diagnostic: the forward on plain attention
+            with recording_moe_routes(fp), plain_attention():
+                plain_fw = model.forward(chk)[:, -1]
+            _, c = engine.prefill(head_of(chk, s - 1))
+            # the decode step again, routed to the forward's experts at the
+            # checked position: the gap without routing flips
+            forward_choice = [r["gate_idx"].reshape(FAMILY_CHECK_B, s, k)[:, -1]
+                              for r in fw]
+            with choosing_experts(dropless,
+                                  lambda i, _: forward_choice[i]):
+                forced = model.decode_step(chk["tokens"][..., -1:],
+                                           clone_cache(c), s - 1)[0][:, -1]
+            with recording_moe_routes(dc):
+                dl = model.decode_step(chk["tokens"][..., -1:], c,
+                                       s - 1)[0][:, -1]
+            layers = moe_layer_checks(model, fw, dropless, s)
+    finally:
+        model.cfg = cfg
+    del c, forward_choice
+    flips, margins, x_drift, y_drift, xp_drift = [], [], [], [], []
+    for rf, rd, rp in zip(fw, dc, fp):   # the checked position, per layer
+        x_drift.append(rel_drift(rf["x_last"], rd["x_last"]))
+        y_drift.append(rel_drift(rf["y_last"], rd["y_last"]))
+        xp_drift.append(rel_drift(rp["x_last"], rd["x_last"]))
+        gi = rf["gate_idx"].reshape(FAMILY_CHECK_B, s, k)[:, -1]
+        flips.append([bool(x) for x in (gi.sort(-1).values
+                                        != rd["gate_idx"].sort(-1).values)
+                      .any(-1)])
+        p = rf["probs"].reshape(FAMILY_CHECK_B, s, -1)[:, -1].sort(
+            -1, descending=True).values
+        margins.append([float(x) for x in (p[:, k - 1] - p[:, k])
+                        / p[:, k - 1]])
+    del fw, dc, fp
+    flipped = [any(f[b] for f in flips) for b in range(FAMILY_CHECK_B)]
+    # per request: the layer of its first flip, that flip's margin, and its
+    # MoE inputs' largest drift up to that layer (all layers if none)
+    first_flips = []
+    for b in range(FAMILY_CHECK_B):
+        at = next((i for i, f in enumerate(flips) if f[b]), None)
+        upto = len(flips) if at is None else at + 1
+        first_flips.append({
+            "layer": at, "margin": None if at is None else margins[at][b],
+            "input_drift_up_to_it": max(x[b] for x in x_drift[:upto])})
+    flip_margins = [m[b] for f, m in zip(flips, margins)
+                    for b in range(FAMILY_CHECK_B) if f[b]]
+    gaps = per_request_gap(dl, full)
+    control = per_request_gap(dl, fewer)
+    swap_gaps = {tag: per_request_gap(dl, v) for tag, v in swapped.items()}
+    plain_gaps = per_request_gap(dl, plain_fw)
+    forced_gaps = per_request_gap(forced, full)
+    forced_control = per_request_gap(forced, fewer)
+    del full, fewer, dl, swapped, plain_fw, forced
+    torch.cuda.empty_cache()
+    res.update({"prefill_capacity": cap,
+                "prefill_dropped_per_layer": dropped,
+                "prefill_choices_per_layer": choices,
+                "flips_per_layer": [sum(f) for f in flips],
+                "flipped_requests": flipped, "flip_margins": flip_margins,
+                "first_flip_per_request": first_flips,
+                "forward_routed_decode_gaps": forced_gaps,
+                "forward_routed_decode_control_gaps": forced_control,
+                "moe_input_drift_per_layer": x_drift,
+                "moe_output_drift_per_layer": y_drift,
+                "plain_attention_forward": {
+                    "moe_input_drift_per_layer": xp_drift,
+                    "decode_vs_forward_gaps": plain_gaps},
+                "kth_expert_swapped_gaps": swap_gaps,
+                "layer_checks": layers,
+                "near_tie_spacings": MOE_TIE_SPACINGS})
+    detail["serve_moe"] = res
+    print(f"  routing flips at the checked position (decode vs forward): "
+          f"per layer {[sum(f) for f in flips]}, requests {flipped}; their "
+          f"probability margins {[round(x, 5) for x in flip_margins]}")
+    print(f"  decode vs forward at the checked position, rms(diff) / rms "
+          f"per layer, largest over the requests: MoE inputs "
+          f"{[round(max(x), 5) for x in x_drift]}; MoE outputs "
+          f"{[round(max(x), 5) for x in y_drift]}")
+    firsts = [(x["layer"], x["margin"] and round(x["margin"], 5),
+               round(x["input_drift_up_to_it"], 5)) for x in first_flips]
+    print(f"  per request, its first flip (layer, probability margin, "
+          f"largest MoE-input drift up to it): {firsts}")
+    print(f"  decode routed to the forward's experts, against the forward: "
+          f"gaps {[round(x, 4) for x in forced_gaps]} (tol {LOGIT_TOL}); "
+          f"against the forward with top_k - 1: "
+          f"{[round(x, 4) for x in forced_control]}")
+    print(f"  diagnostic, a forward on plain attention instead of the flash "
+          f"kernel: MoE inputs {[round(max(x), 5) for x in xp_drift]} off "
+          f"the decode's; logit gaps {[round(x, 4) for x in plain_gaps]}")
+    for tag, g in swap_gaps.items():
+        print(f"  reported control, forward with each token's k-th expert "
+              f"swapped for its (k+1)-th in {tag}: "
+              f"{[round(x, 4) for x in g]} "
+              f"({sum(x > LOGIT_TOL for x in g)} of {len(g)} over "
+              f"{LOGIT_TOL})")
+    print(f"  each layer on the forward's own inputs, decode-sized: flips "
+          f"{[x['flips'] for x in layers]}, not near-ties "
+          f"{sum(x['flips_not_near_ties'] for x in layers)}; output rows "
+          f"off by at most "
+          f"{max(x['y_err_over_row_rms'] for x in layers):.3g} of their "
+          f"rms (tol {ATTN_TOL})")
+    launches = family_verdict("serve-moe", cfg, res, gaps,
+                              [True] * len(gaps), control,
+                              "forward with top_k - 1")
+    bad = [i for i, x in enumerate(layers)
+           if x["flips_not_near_ties"] or not x["y_ok"]]
+    if bad:
+        raise AssertionError(f"serve-moe: layers {bad} on the forward's own "
+                             f"inputs: {[layers[i] for i in bad]}")
+    if max(forced_gaps) > LOGIT_TOL or min(forced_control) <= LOGIT_TOL:
+        raise AssertionError(f"serve-moe: the decode routed to the "
+                             f"forward's experts is off by "
+                             f"{max(forced_gaps):.4f} (tol {LOGIT_TOL}), and "
+                             f"by {min(forced_control):.4f} from the forward "
+                             f"with top_k - 1 (must exceed the tol)")
+    return launches
+
+
+def phase_serve_audio(dev, detail, cfg=None):
+    """musicgen-medium at full width and depth (48 blocks, 24 heads of 64,
+    d_model 1536, 4 codebooks) in a ServeEngine: 4 prompts of 1500 frames x
+    4 codebooks (30 s of EnCodec at 50 Hz) and 64 greedy steps of one token
+    per codebook through `generate` (48 flash launches per prefill), timed
+    runs and profiles, then decode-vs-forward on 8 x 1024 frames against a
+    decode whose codebooks are shifted by one (the negative control).
+    `cfg` replaces the model (a reduced one for a rehearsal on a CPU)."""
+    import torch
+    from repro_torch.configs import get_arch
+    cfg = cfg or get_arch(AUDIO_ARCH)
+    engine, batch, res = serve_family(dev, cfg, AUDIO_S)
+    model = engine.model
+    chk = serve_batch(dev, cfg, FAMILY_CHECK_B, FAMILY_CHECK_S, seed=3)
+    s = FAMILY_CHECK_S
+    last = chk["tokens"][..., -1:]                    # (B, K, 1)
+    with torch.no_grad():
+        full = model.forward(chk)[:, -1]              # (B, K, V)
+    _, c = engine.prefill(head_of(chk, s - 1))
+    shifted = model.decode_step(torch.roll(last, 1, dims=1),
+                                clone_cache(c), s - 1)[0][:, -1]
+    dl = model.decode_step(last, c, s - 1)[0][:, -1]
+    gaps, control = per_request_gap(dl, full), per_request_gap(shifted, full)
+    del c, full, shifted, dl
+    torch.cuda.empty_cache()
+    detail["serve_audio"] = res
+    return family_verdict("serve-audio", cfg, res, gaps, [True] * len(gaps),
+                          control, "decode with codebooks shifted by one")
+
+
+def phase_serve_vlm(dev, detail, cfg=None):
+    """phi-3-vision-4.2b at full width and depth (32 blocks, 32 heads of
+    96, d_model 3072) in a ServeEngine: 4 requests of 256 image patches
+    (random embeddings through `patch_proj`) + 8192 tokens and 64 greedy
+    steps through `generate` (32 flash launches per prefill, 8448
+    positions each), timed runs and profiles, then decode-vs-forward on 8
+    x (256 + 1024) against a forward without the patches (the negative
+    control). `cfg` replaces the model (a reduced one for a rehearsal on a
+    CPU)."""
+    import torch
+    from repro_torch.configs import get_arch
+    cfg = cfg or get_arch(VLM_ARCH)
+    engine, batch, res = serve_family(dev, cfg)
+    model = engine.model
+    chk = serve_batch(dev, cfg, FAMILY_CHECK_B, FAMILY_CHECK_S, seed=3)
+    n = engine.prompt_len(chk)
+    with torch.no_grad():
+        full = model.forward(chk)[:, -1]
+        no_patches = model.forward({"tokens": chk["tokens"]})[:, -1]
+    _, c = engine.prefill(head_of(chk, FAMILY_CHECK_S - 1))
+    dl = model.decode_step(chk["tokens"][:, -1:], c, n - 1)[0][:, -1]
+    gaps = per_request_gap(dl, full)
+    control = per_request_gap(dl, no_patches)
+    del c, full, no_patches, dl
+    torch.cuda.empty_cache()
+    detail["serve_vlm"] = res
+    return family_verdict("serve-vlm", cfg, res, gaps, [True] * len(gaps),
+                          control, "forward without the patches")
+
+
 def phase_serve_sched(dev, state, detail):
     """CAB against LB over two pools of the full-width engine in virtual
     time (the reference launcher's --heterogeneous experiment): 1 x 1024
@@ -3413,8 +3931,9 @@ def phase_serve_sched(dev, state, detail):
 def phase_serve_traffic(dev, state, detail):
     """`serve --traffic` on the full-width engine (the reference launcher's
     open-trace replay): the 2 x 2 mu of 1 x 1024 prefill / decode requests
-    measured in virtual time, the bundled trace scaled to 1.2 x the knee
-    and replayed through GrIn-P with SLO admission, per-class goodput,
+    measured in virtual time, the bundled trace's first
+    SERVE_TRAFFIC_REQUESTS requests scaled to 1.2 x the knee and replayed
+    through GrIn-P with SLO admission, per-class goodput,
     shed and p99; the decisions recorded to a Chrome trace (more than 0
     events), and the run under the profiler, with a 64 x 64 grid solve
     whose spans must cover its fused kernel's device time (`span.ready`
@@ -3436,8 +3955,15 @@ def phase_serve_traffic(dev, state, detail):
     with tempfile.TemporaryDirectory() as td, \
             profile_block("serve-traffic") as prof:
         path = os.path.join(td, "decisions.json")
+        trace = os.path.join(td, "trace.json")
+        with open(ROOT / "examples" / "data" / "serve_trace.json") as f:
+            bundled = json.load(f)
+        with open(trace, "w") as f:
+            json.dump({k: v[:SERVE_TRAFFIC_REQUESTS]
+                       for k, v in bundled.items()}, f)
         m, mu, n_events = serve_traffic(engine, {"tokens": toks}, toks,
-                                        trace_out=path, device=dev)
+                                        trace=trace, trace_out=path,
+                                        device=dev)
         t_replay = time.perf_counter() - t0
         solve_targets_grid_torch(mus, mixes, device=dev)
         with open(path) as f:
@@ -3448,7 +3974,8 @@ def phase_serve_traffic(dev, state, detail):
                              np.tile(mixes, (len(mus), 1)), dev, iters=3)
              if dev.type == "cuda" else 0.0)
     cats = sorted({e["cat"] for e in doc["traceEvents"]})
-    res = {"mu": mu.tolist(), "replay_s": t_replay,
+    res = {"mu": mu.tolist(), "requests": SERVE_TRAFFIC_REQUESTS,
+           "replay_s": t_replay,
            "goodput": m.throughput, "trace_events": n_events,
            "categories": cats,
            "classes": {name: {"done": int(m.class_completed[c]),
@@ -3513,28 +4040,10 @@ def phase_ops_rmsnorm(dev, detail):
 
 # ------------------------------------------------------------------- main
 
-def main() -> int:
-    if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
-        _fail("src/repro_torch not found beside chip_smoke.py: run it from "
-              "the root of a checkout")
-    sys.path.insert(0, str(ROOT / "src"))
-    import torch
-    if not torch.cuda.is_available():
-        _fail("torch.cuda.is_available() is false: this smoke needs a GPU")
-    for mod in list(sys.modules):
-        if mod == "jax" or mod.startswith(("jax.", "repro.")) \
-                or mod == "repro":
-            _fail(f"{mod} was imported")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
-    print(smi.splitlines()[0])
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"python {sys.version.split()[0]}")
-
+def build_kernels() -> float:
+    """Build the five CUDA libraries (one nvcc per source, all started
+    together), load them, and print the build's seconds and ptxas's
+    register counts; returns the seconds."""
     from repro_torch.kernels import (build, flash_attention, grin_moves,
                                      rmsnorm, ssd_scan, ssd_scan_wide)
     t0 = time.perf_counter()
@@ -3560,6 +4069,33 @@ def main() -> int:
         used = [ln.split("info    : ")[-1] for ln in
                 build.build_log[name]["ptxas"].splitlines() if "Used" in ln]
         print(f"  {name}: {'; '.join(sorted(set(used)))[:400]}")
+    return t_build
+
+
+def main() -> int:
+    if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
+        _fail("src/repro_torch not found beside chip_smoke.py: run it from "
+              "the root of a checkout")
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    if not torch.cuda.is_available():
+        _fail("torch.cuda.is_available() is false: this smoke needs a GPU")
+    for mod in list(sys.modules):
+        if mod == "jax" or mod.startswith(("jax.", "repro.")) \
+                or mod == "repro":
+            _fail(f"{mod} was imported")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(smi.splitlines()[0])
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]}")
+
+    from repro_torch.kernels import build, grin_moves
+    t_build = build_kernels()
 
     detail = {"card": smi, "build_s": t_build,
               "build": {n: {"seconds": b["seconds"], "ptxas": b["ptxas"]}
@@ -3637,6 +4173,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     xlstm_launches = run("serve-xlstm", phase_serve_xlstm, dev, detail)
     torch.cuda.empty_cache()
+    family_launches = {}
+    for name, fn in (("serve-moe", phase_serve_moe),
+                     ("serve-audio", phase_serve_audio),
+                     ("serve-vlm", phase_serve_vlm)):
+        family_launches[name] = run(name, fn, dev, detail)
+        torch.cuda.empty_cache()        # each engine is freed before the next
     rms_launches = run("ops-rmsnorm", phase_ops_rmsnorm, dev, detail)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -3644,12 +4186,16 @@ def main() -> int:
         json.dumps(detail, indent=1, default=str))
     if failed or entry is None or model_entries is None \
             or solve_entry is None or serve_launches is None \
-            or xlstm_launches is None or rms_launches is None:
+            or xlstm_launches is None or rms_launches is None \
+            or None in family_launches.values():
         _fail(f"phases failed: {failed}")
     entry["launches"] = launches["block_move_gains"]
     solve_entry["launches"] = launches["grin_solve"]
-    model_entries["flash_attention"]["launches"] = \
-        serve_launches["flash_attention"]
+    flash_by_phase = {"serve": serve_launches["flash_attention"], **{
+        name: n["flash_attention"] for name, n in family_launches.items()}}
+    model_entries["flash_attention"]["launches"] = sum(
+        flash_by_phase.values())
+    model_entries["flash_attention"]["launches_by_phase"] = flash_by_phase
     model_entries["ssd_scan"]["launches"] = serve_launches["ssd_scan"]
     model_entries["ssd_scan_wide"]["launches"] = \
         xlstm_launches["ssd_scan_wide"]

@@ -208,8 +208,12 @@ def _load(module: torch.nn.Module, tree: dict, index=(), prefix="") -> int:
 def model_params_from_reference(cfg, tree: dict, device=None):
     """A port `Model` for `cfg` holding the reference's parameters `tree`
     (nested dicts of NumPy arrays, e.g. `jax.tree.map(np.asarray,
-    params)`). The scanned stacks unstack along their leading axes:
-    `stack` (n_layers, ...) into the dense blocks, `stack_groups` (groups,
+    params)`). The top-level `embed`, `lm_head`, `ln_f`, audio's codebook
+    `embed` (K, V, d) and `heads` (K, d, V) and vlm's `patch_proj` cross as
+    they are. The scanned stacks unstack along their leading axes:
+    `stack` (n_layers, ...) into the blocks of the dense, audio and vlm
+    families, and of the moe family, whose blocks carry a `moe` subtree
+    (`router`, `w_in`, `w_out`) in place of `mlp`; `stack_groups` (groups,
     attn_every, ...) and `stack_tail` (rest, ...) into the hybrid's Mamba2
     blocks in order, `shared` into its shared block; the ssm family's
     `stack_groups["mlstm"]` (groups, slstm_every - 1, ...) and
@@ -217,9 +221,10 @@ def model_params_from_reference(cfg, tree: dict, device=None):
     in order. Every port parameter must be filled."""
     from repro_torch.models.model import Model
     model = Model(cfg, device=device)
-    n = _load(model, {k: tree[k] for k in ("embed", "lm_head", "ln_f")
+    n = _load(model, {k: tree[k] for k in ("embed", "lm_head", "ln_f",
+                                           "heads", "patch_proj")
                       if k in tree})
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe", "audio", "vlm"):
         for i, blk in enumerate(model.layers):
             n += _load(blk, tree["stack"], (i,))
     elif cfg.family == "ssm":

@@ -33,7 +33,7 @@ realize identical schedules):
 * transient-failure counts (open mode): ``np.random.default_rng([seed, 2])``
   — the host engines own ``default_rng(seed)`` / ``[seed, 0]`` / ``[seed, 1]``;
 * storm generation: ``np.random.default_rng([seed, 3])``;
-* stochastic availability realization (the hazard module, not ported yet):
+* stochastic availability realization (`repro_torch.faults.hazard`):
   ``np.random.default_rng([seed, 4, pool])`` per pool;
 * the open device engine (`repro_torch.traffic.engine_torch`) draws its
   RD choices for primaries, class hedges and speculative backups from the

@@ -1,9 +1,12 @@
 """Serving launcher: ``python -m repro_torch.launch.serve --arch <id> [...]``.
 
 Batched prefill + greedy decode with the ServeEngine on the reduced
-(`smoke_config`) model of an architecture of the dense, hybrid or ssm family
-(yi-6b, qwen2.5-3b/32b, granite-34b; zamba2-7b; xlstm-1.3b), with random
-weights from a seed;
+(`smoke_config`) model of an architecture of any family: dense (yi-6b,
+qwen2.5-3b/32b, granite-34b), moe (granite-moe-1b-a400m,
+granite-moe-3b-a800m), audio (musicgen-medium: (B, K, S) prompts, one
+token per codebook a step), vlm (phi-3-vision-4.2b: random image-patch
+embeddings before the prompt), hybrid (zamba2-7b) or ssm (xlstm-1.3b),
+with random weights and prompts from a seed;
 optionally schedules a mixed request stream across two pools with the
 paper's CAB policy against LB (--heterogeneous), or replays an open request
 trace through GrIn-P placement plus SLO admission control (--traffic,
@@ -115,12 +118,19 @@ def main(argv=None) -> None:
     cfg = smoke_config(get_arch(args.arch))
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     model = Model(cfg, device=dev).init(gen)
-    engine = ServeEngine(model, max_len=args.prompt_len + args.steps + 8)
+    n_patches = cfg.n_patches if cfg.family == "vlm" else 0
+    engine = ServeEngine(model, max_len=n_patches + args.prompt_len
+                         + args.steps + 8)
 
     tgen = torch.Generator().manual_seed(args.seed + 1)
-    toks = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
-                         generator=tgen).to(dev)
+    shape = ((args.batch, cfg.n_codebooks, args.prompt_len)
+             if cfg.family == "audio" else (args.batch, args.prompt_len))
+    toks = torch.randint(0, cfg.vocab_size, shape, generator=tgen).to(dev)
     batch = {"tokens": toks}
+    if n_patches:
+        batch["patch_embeds"] = torch.randn(
+            (args.batch, n_patches, cfg.d_model), generator=tgen).to(
+            dev, torch.bfloat16)
 
     t0 = time.perf_counter()
     out = engine.generate(batch, steps=args.steps)

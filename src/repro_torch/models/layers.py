@@ -1,5 +1,5 @@
-"""Layer library: the blocks the dense, hybrid (zamba2) and ssm (xLSTM)
-families use.
+"""Layer library: the blocks every family uses (attention, the MLP and
+MoE experts, Mamba2, mLSTM, sLSTM).
 
 Conventions, as in the reference package:
   * every block is an `nn.Module` holding its parameters (param_dtype,
@@ -15,9 +15,8 @@ Conventions, as in the reference package:
                       cache tensors in place (no copy of the KV ring per
                       step) and returns the same dict.
   * the reference's sharding annotations (`parallel.sharding.constrain`)
-    have no counterpart: on one card they are no-ops.
-  * MoE blocks are not ported yet (`models.model.Model` raises for their
-    family).
+    have no counterpart: on one card they are no-ops, and the MoE block's
+    `shard_map` dispatch is its local one.
 """
 from __future__ import annotations
 
@@ -218,6 +217,121 @@ def apply_mlp(p: MLP, x, cfg: ModelConfig):
     else:                                           # GeLU (2 matrices)
         h = F.gelu(u, approximate="tanh")           # jax.nn.gelu's default
     return h @ p.wd.to(dt)
+
+
+# ---------------------------------------------------------------- MoE
+
+class MoE(nn.Module):
+    """Top-k routed SwiGLU experts: `router` (d, E), `w_in` (E, d, 2f)
+    holding each expert's gate and up projections side by side, `w_out`
+    (E, f, d)."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        d, e, f = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+        self.router = _param((d, e), cfg, device)
+        self.w_in = _param((e, d, 2 * f), cfg, device)
+        self.w_out = _param((e, f, d), cfg, device)
+
+    def init(self, cfg: ModelConfig, generator: torch.Generator):
+        dense_init(self.router, generator, 0.02)
+        dense_init(self.w_in, generator)
+        dense_init(self.w_out, generator, 1.0 / math.sqrt(cfg.moe_d_ff))
+
+
+def init_moe(cfg: ModelConfig, generator, device=None) -> MoE:
+    p = MoE(cfg, device)
+    p.init(cfg, generator)
+    return p
+
+
+def top_k(x, k: int):
+    """The k largest entries of each row of x and their indices, equal
+    entries in index order (as `jax.lax.top_k` orders them): a stable
+    descending sort, so the choice at a tie is the same on every device
+    and in every run."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_capacity(cfg: ModelConfig, t: int, s: int) -> int:
+    """Tokens each expert takes of a call's t = B * s: ceil(t k / E *
+    capacity_factor) capped at t, and all of them in decode (s = 1, where
+    a dropped token would corrupt generation)."""
+    if s == 1:
+        return t
+    cap = max(1, math.ceil(t * cfg.top_k / cfg.n_experts
+                           * cfg.capacity_factor))
+    return min(cap, t)
+
+
+def moe_route(p: MoE, x, cfg: ModelConfig) -> dict:
+    """The router's decisions for x (B, S, D), as the reference's
+    `_apply_moe_local` makes them: float32 softmax over `x @ router`
+    (computed in cfg.dtype), the top-k experts of each token with their
+    gates renormalised (floor 1e-9), then for each expert the `cap`
+    tokens of largest gate (`top_i`, `top_w` (E, cap)), of which those of
+    positive gate are kept (`keep`). Also `probs` (T, E), `gate_idx` and
+    `gate_vals` (T, k), the tokens' choices the capacity dropped
+    (`dropped`, a 0-dim tensor) and the Switch-style load-balancing loss
+    (`aux`, float32)."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    t = b * s
+    scores = (x.reshape(t, d) @ p.router.to(_dtype(cfg))).float()
+    probs = torch.softmax(scores, dim=-1)
+    gate_vals, gate_idx = top_k(probs, k)
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                        min=1e-9)
+    comb = torch.zeros_like(probs).scatter_(1, gate_idx, gate_vals)
+    top_w, top_i = top_k(comb.t(), moe_capacity(cfg, t, s))     # (E, cap)
+    keep = top_w > 0.0
+    chosen = torch.zeros_like(probs).scatter_(1, gate_idx, 1.0)
+    aux = cfg.router_aux_coef * e * torch.sum(chosen.mean(0)
+                                              * probs.mean(0))
+    return {"probs": probs, "gate_idx": gate_idx, "gate_vals": gate_vals,
+            "top_w": top_w, "top_i": top_i, "keep": keep,
+            "dropped": (gate_vals > 0).sum() - keep.sum(), "aux": aux}
+
+
+def moe_experts(p: MoE, x, cfg: ModelConfig, route: dict):
+    """The experts' output for x (B, S, D) under `route`: each expert's
+    `cap` tokens gathered, SwiGLU over `w_in`, `w_out`, scaled by the
+    token's gate. The reference zeroes the rows it does not keep and
+    scatter-adds every row back; here each (token, choice) reads its row
+    through the inverse of the selection, which holds only kept rows (a
+    dropped choice reads a zero row), so a row not kept is computed but
+    never read, and the k rows are summed in choice order in float32. A
+    scatter-add on the card orders its atomic adds anew in every run; this
+    sum is the same in every run."""
+    b, s, d = x.shape
+    e, dt = cfg.n_experts, _dtype(cfg)
+    t = b * s
+    top_w, top_i, keep = route["top_w"], route["top_i"], route["keep"]
+    cap = top_i.shape[1]
+    xin = x.reshape(t, d)[top_i.reshape(-1)].reshape(e, cap, d)
+    g, u = torch.bmm(xin, p.w_in.to(dt)).chunk(2, dim=-1)
+    y_e = torch.bmm(F.silu(g) * u, p.w_out.to(dt))
+    y_e = y_e * top_w[..., None].to(dt)                          # (E, cap, D)
+    slots = torch.arange(cap, device=x.device).expand(e, cap)
+    slot = torch.full((e, t), -1, dtype=torch.long, device=x.device)
+    slot.scatter_(1, top_i, torch.where(keep, slots, -1))        # (E, T)
+    gate_idx = route["gate_idx"]
+    sl = slot.t().gather(1, gate_idx)                            # (T, k)
+    row = torch.where(sl >= 0, gate_idx * cap + sl, e * cap)
+    rows = torch.cat([y_e.reshape(e * cap, d), y_e.new_zeros((1, d))])
+    y = torch.zeros((t, d), dtype=f32, device=x.device)
+    for j in range(gate_idx.shape[1]):
+        y += rows[row[:, j]].float()
+    return y.to(dt).reshape(b, s, d)
+
+
+def apply_moe(p: MoE, x, cfg: ModelConfig):
+    """Top-k routed experts on one device (the reference's
+    `_apply_moe_local`; its `shard_map` dispatch has no counterpart on one
+    card). Returns (y, aux)."""
+    route = moe_route(p, x, cfg)
+    return moe_experts(p, x, cfg, route), route["aux"]
 
 
 # ---------------------------------------------------------------- Mamba2

@@ -1,5 +1,5 @@
-"""The model API of the port, for the dense, hybrid (zamba2) and ssm (xLSTM)
-families.
+"""The model API of the port, for all six families: dense, moe, audio,
+vlm, hybrid (zamba2) and ssm (xLSTM).
 
 `Model(cfg, device=...)` is an `nn.Module` whose parameters are allocated on
 the device (uninitialised); `init(generator)` fills them with the
@@ -7,21 +7,31 @@ reference's initial distributions from a `torch.Generator`, and
 `repro_torch.convert.model_params_from_reference` fills them with the JAX
 package's own parameters instead. Then:
 
-    forward(batch) -> logits (fp32), (B, S, V)
+    forward(batch) -> logits (fp32), (B, S, V); audio (B, S, K, V)
+    forward(batch, with_aux=True) -> (logits, aux)
     init_cache(batch_size, cache_len) -> cache
     prefill(batch, cache_len) -> (last_logits, cache)
     decode_step(tokens, cache, pos) -> (logits, cache)
 
+A batch is {"tokens": (B, S)}; audio's tokens are (B, K, S), one row per
+codebook (embeddings summed over the codebooks, one head each), and vlm's
+batch may carry "patch_embeds" (B, n_patches, d), projected by
+`patch_proj` and put before the tokens. Decode takes tokens only ((B, 1),
+audio (B, K, 1)). `aux` is the moe family's summed load-balancing loss
+(float32; 0 for the others).
+
 The reference stacks each family's layers along a leading axis and scans
 over them; here they are an `nn.ModuleList` applied in a Python loop in the
-same order. The hybrid family is `n_layers` Mamba2 blocks with ONE shared
-attention + MLP block applied after every `attn_every` of them (13 times in
-zamba2-7b: 81 = 13 x 6 + a tail of 3). The ssm family is
-n_layers / slstm_every groups, each of slstm_every - 1 mLSTM blocks then one
-sLSTM block (xlstm-1.3b: 6 x (7 + 1) = 48). Caches are plain dicts and
-lists: {"mamba": [per Mamba block], "attn": [per attention application]},
-or {"mlstm": [...], "slstm": [...]} per block in order.
-Loss, training and the MoE / audio / vlm families are not ported yet.
+same order. The dense, moe, audio and vlm families are `n_layers` blocks of
+attention then an MLP (moe: routed experts). The hybrid family is
+`n_layers` Mamba2 blocks with ONE shared attention + MLP block applied
+after every `attn_every` of them (13 times in zamba2-7b: 81 = 13 x 6 + a
+tail of 3). The ssm family is n_layers / slstm_every groups, each of
+slstm_every - 1 mLSTM blocks then one sLSTM block (xlstm-1.3b: 6 x (7 + 1)
+= 48). Caches are plain dicts and lists: {"attn": [per block]},
+{"mamba": [per Mamba block], "attn": [per attention application]}, or
+{"mlstm": [...], "slstm": [...]} per block in order. Loss and training are
+not ported yet.
 """
 from __future__ import annotations
 
@@ -34,23 +44,27 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 
-_FAMILIES = ("dense", "hybrid", "ssm")
+_FAMILIES = ("dense", "moe", "audio", "vlm", "hybrid", "ssm")
+_ATTENTION_STACKS = ("dense", "moe", "audio", "vlm")
 
 
 class DenseBlock(nn.Module):
-    """Pre-norm attention + MLP (the dense stack, and zamba2's shared
-    block)."""
+    """Pre-norm attention + MLP (the dense, audio and vlm stacks, and
+    zamba2's shared block), or + routed experts (`moe`, the moe stack)."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device=None, moe: bool = False):
         super().__init__()
         self.ln1 = L._param((cfg.d_model,), cfg, device, 0.0)
         self.ln2 = L._param((cfg.d_model,), cfg, device, 0.0)
         self.attn = L.Attention(cfg, device)
-        self.mlp = L.MLP(cfg, device)
+        if moe:
+            self.moe = L.MoE(cfg, device)
+        else:
+            self.mlp = L.MLP(cfg, device)
 
     def init(self, cfg, generator):
         self.attn.init(cfg, generator)
-        self.mlp.init(cfg, generator)
+        (self.moe if hasattr(self, "moe") else self.mlp).init(cfg, generator)
 
 
 class MambaBlock(nn.Module):
@@ -85,12 +99,18 @@ class SLSTMBlock(nn.Module):
 
 def _apply_dense_block(p: DenseBlock, x, cfg, *, positions, mode, cache,
                        want_cache, window=0):
+    """Returns (x, cache, aux): aux the MoE block's load-balancing loss, or
+    None after an MLP."""
     a, c = L.apply_attention(p.attn, L.rmsnorm(x, p.ln1, cfg.norm_eps), cfg,
                              positions=positions, mode=mode, cache=cache,
                              want_cache=want_cache, window=window)
     x = x + a
-    x = x + L.apply_mlp(p.mlp, L.rmsnorm(x, p.ln2, cfg.norm_eps), cfg)
-    return x, c
+    h = L.rmsnorm(x, p.ln2, cfg.norm_eps)
+    if hasattr(p, "moe"):
+        m, aux = L.apply_moe(p.moe, h, cfg)
+    else:
+        m, aux = L.apply_mlp(p.mlp, h, cfg), None
+    return x + m, c, aux
 
 
 def _apply_mamba_block(p: MambaBlock, x, cfg, *, mode, cache, want_cache):
@@ -120,21 +140,28 @@ class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device=None):
         super().__init__()
         if cfg.family not in _FAMILIES:
-            raise NotImplementedError(f"the {cfg.family!r} family "
-                                      f"({cfg.name}) is not yet ported")
+            raise ValueError(f"unknown family {cfg.family!r} ({cfg.name})")
         dev = (torch.device("meta") if str(device) == "meta"
                else resolve_device(device))
         self.cfg = cfg
         d, V = cfg.d_model, cfg.vocab_size
-        self.embed = L._param((V, d), cfg, dev)
-        if cfg.tie_embeddings:
-            self.register_parameter("lm_head", None)
+        self.register_parameter("lm_head", None)
+        self.register_parameter("heads", None)
+        self.register_parameter("patch_proj", None)
+        if cfg.family == "audio":
+            self.embed = L._param((cfg.n_codebooks, V, d), cfg, dev)
+            self.heads = L._param((cfg.n_codebooks, d, V), cfg, dev)
         else:
-            self.lm_head = L._param((d, V), cfg, dev)
+            self.embed = L._param((V, d), cfg, dev)
+            if not cfg.tie_embeddings:
+                self.lm_head = L._param((d, V), cfg, dev)
+        if cfg.family == "vlm":
+            self.patch_proj = L._param((d, d), cfg, dev)
         self.ln_f = L._param((d,), cfg, dev, 0.0)
-        if cfg.family == "dense":
-            self.layers = nn.ModuleList(DenseBlock(cfg, dev)
-                                        for _ in range(cfg.n_layers))
+        if cfg.family in _ATTENTION_STACKS:
+            self.layers = nn.ModuleList(
+                DenseBlock(cfg, dev, moe=cfg.family == "moe")
+                for _ in range(cfg.n_layers))
         elif cfg.family == "ssm":
             g, m = _ssm_groups(cfg)
             self.mlstm = nn.ModuleList(MLSTMBlock(cfg, dev)
@@ -154,14 +181,17 @@ class Model(nn.Module):
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> "Model":
         """Fill every parameter from `generator` with the reference's
-        initial distributions (embeddings N(0, 0.02^2), dense weights
-        N(0, 1/fan_in), norms 0, Mamba2's A_log / Dskip / dt_bias fixed;
-        the mLSTM gates and sLSTM gate weights N(0, 0.02^2))."""
+        initial distributions (embeddings and heads N(0, 0.02^2), dense
+        weights N(0, 1/fan_in), the MoE router N(0, 0.02^2), norms 0,
+        Mamba2's A_log / Dskip / dt_bias fixed; the mLSTM gates and sLSTM
+        gate weights N(0, 0.02^2))."""
         cfg = self.cfg
-        L.normal_(self.embed, generator, 0.02)
-        if self.lm_head is not None:
-            L.normal_(self.lm_head, generator, 0.02)
-        if cfg.family == "dense":
+        for head in (self.embed, self.lm_head, self.heads):
+            if head is not None:
+                L.normal_(head, generator, 0.02)
+        if self.patch_proj is not None:
+            L.dense_init(self.patch_proj, generator)
+        if cfg.family in _ATTENTION_STACKS:
             blocks = self.layers
         elif cfg.family == "ssm":
             blocks = [*self.mlstm, *self.slstm]
@@ -172,29 +202,49 @@ class Model(nn.Module):
         return self
 
     # ---------------- embedding / head ----------------
-    def _embed(self, tokens):
-        return self.embed[tokens].to(L._dtype(self.cfg))
+    def _embed(self, batch: dict):
+        cfg = self.cfg
+        dt = L._dtype(cfg)
+        tok = batch["tokens"]
+        if cfg.family == "audio":                  # (B, K, S): summed rows
+            x = self.embed[0][tok[:, 0]]
+            for k in range(1, cfg.n_codebooks):
+                x = x + self.embed[k][tok[:, k]]
+            x = x.to(dt)
+        else:
+            x = self.embed[tok].to(dt)
+        if self.patch_proj is not None and "patch_embeds" in batch:
+            pe = batch["patch_embeds"].to(dt) @ self.patch_proj.to(dt)
+            x = torch.cat([pe, x], dim=1)
+        return x
 
     def _head(self, x):
         cfg = self.cfg
         dt = L._dtype(cfg)
         x = L.rmsnorm(x, self.ln_f, cfg.norm_eps)
+        if self.heads is not None:                 # (B, S, K, V)
+            return torch.einsum("bsd,kdv->bskv", x, self.heads.to(dt)).float()
         w = self.embed.T if self.lm_head is None else self.lm_head
         return (x @ w.to(dt)).float()
 
     # ---------------- stack application ----------------
     def _run_stack(self, x, *, positions, mode, caches, want_cache):
+        """Returns (x, caches, aux): aux the summed load-balancing loss of
+        the MoE blocks (a float32 0 for the other families)."""
         cfg = self.cfg
         keep = want_cache or mode == "decode"
-        if cfg.family == "dense":
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if cfg.family in _ATTENTION_STACKS:
             new = []
             for i, blk in enumerate(self.layers):
-                x, c = _apply_dense_block(
+                x, c, a = _apply_dense_block(
                     blk, x, cfg, positions=positions, mode=mode,
                     cache=caches["attn"][i] if caches else None,
                     want_cache=want_cache)
                 new.append(c)
-            return x, ({"attn": new} if keep else None)
+                if a is not None:
+                    aux = aux + a
+            return x, ({"attn": new} if keep else None), aux
         if cfg.family == "ssm":
             _, m = _ssm_groups(cfg)
             mls, sls = [], []
@@ -210,7 +260,7 @@ class Model(nn.Module):
                     cache=caches["slstm"][gi] if caches else None,
                     want_cache=want_cache)
                 sls.append(c)
-            return x, ({"mlstm": mls, "slstm": sls} if keep else None)
+            return x, ({"mlstm": mls, "slstm": sls} if keep else None), aux
         g = cfg.n_layers // cfg.attn_every
         mam, att = [], []
         for i, blk in enumerate(self.mamba):
@@ -221,25 +271,29 @@ class Model(nn.Module):
             mam.append(c)
             gi, last = divmod(i + 1, cfg.attn_every)
             if last == 0 and gi <= g:       # after each full group of blocks
-                x, c = _apply_dense_block(
+                x, c, _ = _apply_dense_block(
                     self.shared, x, cfg, positions=positions, mode=mode,
                     cache=caches["attn"][gi - 1] if caches else None,
                     want_cache=want_cache, window=cfg.sliding_window)
                 att.append(c)
-        return x, ({"mamba": mam, "attn": att} if keep else None)
+        return x, ({"mamba": mam, "attn": att} if keep else None), aux
 
     # ---------------- public API ----------------
-    def forward(self, batch: dict):
-        """batch: {"tokens": (B, S) int}. Returns fp32 logits (B, S, V)."""
-        x = self._embed(batch["tokens"])
+    def forward(self, batch: dict, with_aux: bool = False):
+        """batch: {"tokens": (B, S) int} (audio (B, K, S); vlm optionally
+        "patch_embeds" (B, n_patches, d)). Returns fp32 logits (B, S, V)
+        (audio (B, S, K, V); vlm over the patches and the tokens), and with
+        `with_aux` also the summed load-balancing loss: (logits, aux)."""
+        x = self._embed(batch)
         positions = torch.arange(x.shape[1], device=x.device)
-        x, _ = self._run_stack(x, positions=positions, mode="full",
-                               caches=None, want_cache=False)
-        return self._head(x)
+        x, _, aux = self._run_stack(x, positions=positions, mode="full",
+                                    caches=None, want_cache=False)
+        logits = self._head(x)
+        return (logits, aux) if with_aux else logits
 
     def init_cache(self, batch: int, cache_len: int) -> dict:
         cfg, dev = self.cfg, self.device
-        if cfg.family == "dense":
+        if cfg.family in _ATTENTION_STACKS:
             return {"attn": [L.attention_cache_spec(cfg, batch, cache_len, 0,
                                                     dev)
                              for _ in range(cfg.n_layers)]}
@@ -261,11 +315,12 @@ class Model(nn.Module):
         """Full-sequence pass building the cache; the head is applied ONLY to
         the final position. `cache_len` pads attention caches with empty
         slots (kpos = -1) so subsequent decode steps have room to append
-        (the ssm family's recurrent states need no room)."""
-        x = self._embed(batch["tokens"])
+        (the ssm family's recurrent states need no room). A vlm prefill
+        with patches fills n_patches + S positions."""
+        x = self._embed(batch)
         positions = torch.arange(x.shape[1], device=x.device)
-        x, caches = self._run_stack(x, positions=positions, mode="full",
-                                    caches=None, want_cache=True)
+        x, caches, _ = self._run_stack(x, positions=positions, mode="full",
+                                       caches=None, want_cache=True)
         logits = self._head(x[:, -1:])
         if cache_len is not None:
             caches = _pad_attention_caches(caches, cache_len,
@@ -274,11 +329,12 @@ class Model(nn.Module):
 
     @torch.no_grad()
     def decode_step(self, tokens, cache, pos: int):
-        """tokens: (B, 1); pos: number of tokens already processed. Returns
-        (logits_for_new_token, cache); the cache is updated in place."""
-        x = self._embed(tokens)
-        x, cache = self._run_stack(x, positions=pos, mode="decode",
-                                   caches=cache, want_cache=False)
+        """tokens: (B, 1) (audio (B, K, 1)); pos: number of positions
+        already processed. Returns (logits_for_new_token, cache); the cache
+        is updated in place."""
+        x = self._embed({"tokens": tokens})
+        x, cache, _ = self._run_stack(x, positions=pos, mode="decode",
+                                      caches=cache, want_cache=False)
         return self._head(x), cache
 
 

@@ -8,8 +8,9 @@ one queue per device, Sec. 7.1).
 PyTorch runs eagerly, so there is no compiled prefill/decode: the engine
 calls the model's methods, and on a card the model's attention and SSD
 prefill go through the hand-written kernels (`repro_torch.kernels.ops`).
-Serves the dense, hybrid and ssm families; recurrent states (Mamba2's,
-mLSTM's and sLSTM's) stay float32 in the cache.
+Serves every family: dense, moe, audio (one token per codebook a step),
+vlm (image patches before the prompt), hybrid and ssm; recurrent states
+(Mamba2's, mLSTM's and sLSTM's) stay float32 in the cache.
 """
 from __future__ import annotations
 
@@ -20,7 +21,8 @@ from repro_torch.models.model import Model
 
 class ServeEngine:
     def __init__(self, model: Model, max_len: int = 512):
-        """Serve `model` with caches of `max_len` positions.
+        """Serve `model` with caches of `max_len` positions (vlm's image
+        patches count among them).
 
         The serving copy of the weights is bf16, as in the reference: every
         floating parameter (norm weights, A_log, dt_bias and Dskip
@@ -39,16 +41,27 @@ class ServeEngine:
     def prefill(self, batch: dict):
         return self.model.prefill(batch, cache_len=self.max_len)
 
+    def prompt_len(self, batch: dict) -> int:
+        """Positions a prefill of `batch` fills: the prompt's length (the
+        last axis of audio's (B, K, S) tokens), plus vlm's image patches."""
+        n = batch["tokens"].shape[-1]
+        if self.cfg.family == "vlm" and "patch_embeds" in batch:
+            n += batch["patch_embeds"].shape[1]
+        return n
+
     def _greedy_next(self, logits):
         """Greedy token from last-position logits: (emitted, feed) where
-        `emitted` is (B,) and `feed` has the trailing length-1 axis
-        `decode_step` expects."""
+        `emitted` is (B,) — or (B, K) for audio codebooks — and `feed` has
+        the trailing length-1 axis `decode_step` expects."""
         nxt = torch.argmax(logits[:, -1], dim=-1)
+        if self.cfg.family == "audio":
+            return nxt, nxt[:, :, None]
         return nxt, nxt[:, None]
 
     def decode_run(self, first_token, cache, start_pos: int, steps: int):
-        """Greedy-decode `steps` tokens. Returns (tokens (B, steps), cache);
-        the tokens stay on the device (no host sync per step)."""
+        """Greedy-decode `steps` tokens. Returns (tokens (B, steps) — audio
+        (B, steps, K) — and cache); the tokens stay on the device (no host
+        sync per step)."""
         tok = first_token
         out = []
         pos = start_pos
@@ -58,14 +71,16 @@ class ServeEngine:
             out.append(nxt)
             pos += 1
         if not out:
-            return first_token[:, :0], cache
+            shape = (first_token.shape[0], 0, *first_token.shape[1:-1])
+            return first_token.new_empty(shape), cache
         return torch.stack(out, dim=1), cache
 
     def generate(self, batch: dict, steps: int):
-        """prefill + greedy decode; returns generated token ids (B, steps)."""
+        """prefill + greedy decode; returns generated token ids (B, steps)
+        (audio (B, steps, K))."""
         logits, cache = self.prefill(batch)
         first, feed = self._greedy_next(logits)
-        start = batch["tokens"].shape[1]
+        start = self.prompt_len(batch)
         toks, cache = self.decode_run(feed, cache, start, steps - 1)
         return torch.cat([first[:, None], toks], dim=1)
 
@@ -82,15 +97,24 @@ def request_service_fns(engine: ServeEngine, batch: dict, toks,
     `service_fns` for `repro_torch.sched.virtual.VirtualTimeCluster`. Each
     task ends in a device synchronize, so a wall-clock service time covers
     the device's work, not its enqueue.
+
+    The decode request prefills the first 4 positions of the prompt (along
+    the last axis of audio's (B, K, S) tokens; vlm's patches kept) and
+    decodes from there, at 4, or 4 + n_patches for vlm with patches. (The
+    reference decodes every family from position 4, whatever its prefix
+    filled, and prefills audio's whole prompt.)
     """
+    short = {k: (v[..., :4] if k == "tokens" else v)
+             for k, v in batch.items()}
+    start = engine.prompt_len(short)
+
     def prefill_task(size):
         engine.prefill(batch)
         engine.synchronize()
 
     def decode_task(size):
-        _, cache = engine.prefill({k: (v[:, :4] if k == "tokens" else v)
-                                   for k, v in batch.items()})
-        engine.decode_run(toks[:, :1], cache, 4, 4)
+        _, cache = engine.prefill(short)
+        engine.decode_run(toks[..., :1], cache, start, 4)
         engine.synchronize()
 
     def slow(fn, n):

@@ -351,6 +351,98 @@ def test_flash_attention_kernel_reads_strided_views(cuda):
         ops.flash_attention(q.float(), k.float(), v.float())
 
 
+@pytest.mark.parametrize("b,s,h,kv,dh", [
+    (2, 1000, 24, 8, 64),        # granite-moe-3b-a800m: GQA 24 / 8, dh 64
+    (1, 1500, 24, 24, 64),       # musicgen-medium: 1500 frames
+    (1, 1100, 32, 32, 96)])      # phi-3-vision-4.2b: dh 96
+def test_flash_attention_kernel_at_the_moe_audio_vlm_shapes(cuda, b, s, h,
+                                                            kv, dh):
+    """Causal, at the head layouts of the moe, audio and vlm families, S
+    not a multiple of the 128-row tiles; k and v strided out of one
+    projection, as the model passes them."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(s + h)
+    qkv = _rand(rng, (b, s, (h + 2 * kv) * dh), torch.bfloat16, cuda)
+    q, k, v = (t.reshape(b, s, -1, dh) for t in torch.split(
+        qkv, [h * dh, kv * dh, kv * dh], dim=-1))
+    before = FA.launches["flash_attention"]
+    out = ops.flash_attention(q, k, v, causal=True)
+    assert FA.launches["flash_attention"] == before + 1
+    plain = FA.flash_attention_plain(q, k, v, causal=True, chunk_q=64,
+                                     chunk_k=64)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), plain.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+def _moe_layer(dev, **kw):
+    """One MoE layer at granite-moe-3b-a800m's widths (d 1536, 40 experts,
+    top 8, expert width 512), bf16, random weights from a seed."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import layers as L
+    cfg = get_arch("granite-moe-3b-a800m").with_(**kw)
+    p = L.init_moe(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    return cfg, p.to(torch.bfloat16)
+
+
+def test_apply_moe_on_the_card_matches_the_cpu(cuda):
+    """`apply_moe` on the card against the same layer on the CPU, at
+    dropless capacity (every token's choices kept, so a routing difference
+    stays with its token). The router's bf16 products round differently
+    on the two devices, so a token may choose another expert where its
+    k-th and (k+1)-th probabilities lie within bf16 resolution (2^-8 of
+    the k-th): such tokens are counted and left out of y's comparison;
+    every other token's y agrees at the bf16 tolerance (2e-2)."""
+    from repro_torch.models import layers as L
+    cfg, p = _moe_layer(cuda, capacity_factor=40 / 8)
+    rng = np.random.default_rng(1)
+    x = _rand(rng, (2, 512, cfg.d_model), torch.bfloat16, cuda)
+    pc = _moe_layer(torch.device("cpu"), capacity_factor=40 / 8)[1]
+    pc.load_state_dict({k: v.cpu() for k, v in p.state_dict().items()})
+    rc, rg = L.moe_route(p, x, cfg), L.moe_route(pc, x.cpu(), cfg)
+    yc, auxc = L.apply_moe(p, x, cfg)
+    yg, auxg = L.apply_moe(pc, x.cpu(), cfg)
+    assert int(rc["dropped"]) == 0 == int(rg["dropped"])
+    same = (rc["gate_idx"].sort(-1).values.cpu()
+            == rg["gate_idx"].sort(-1).values).all(-1)
+    probs = rg["probs"].sort(-1, descending=True).values
+    edge = (probs[:, 7] - probs[:, 8]) / probs[:, 7]
+    assert bool((edge[~same] < 2.0 ** -8).all()), edge[~same]
+    assert int(same.sum()) >= 0.9 * same.numel()
+    torch.testing.assert_close(yc.cpu().reshape(-1, cfg.d_model)[same].float(),
+                               yg.reshape(-1, cfg.d_model)[same].float(),
+                               atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(auxc.cpu(), auxg, atol=1e-3, rtol=1e-2)
+
+
+def test_moe_prefill_and_generate_are_bit_equal_run_to_run(cuda):
+    """The MoE combine sums each token's expert rows in a fixed order
+    (no atomics), so two prefills on the card give bit-equal logits and
+    caches, and two greedy runs the same tokens, at a capacity that drops
+    tokens (1.0: each expert takes its mean load)."""
+    from repro_torch.configs import get_arch, smoke_config
+    from repro_torch.models.model import Model
+    from repro_torch.serve.engine import ServeEngine
+    cfg = smoke_config(get_arch("granite-moe-3b-a800m")).with_(
+        capacity_factor=1.0)
+    engine = ServeEngine(Model(cfg, device=cuda).init(
+        torch.Generator(device=cuda).manual_seed(0)), max_len=1100)
+    toks = torch.randint(0, cfg.vocab_size, (4, 1024), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(1))
+    (l1, c1), (l2, c2) = (engine.prefill({"tokens": toks}) for _ in range(2))
+    assert torch.equal(l1, l2)
+    for a, b in zip(c1["attn"], c2["attn"]):
+        assert torch.equal(a["k"], b["k"]) and torch.equal(a["v"], b["v"])
+    from repro_torch.models import layers as L
+    x = torch.randn((4, 1024, cfg.d_model), device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(2))
+    assert int(L.moe_route(engine.model.layers[0].moe, x.to(torch.bfloat16),
+                           cfg)["dropped"]) > 0
+    g1, g2 = (engine.generate({"tokens": toks}, steps=16) for _ in range(2))
+    assert torch.equal(g1, g2)
+
+
 @pytest.mark.parametrize("b,s,h,dk,dv,chunk", [
     (2, 130, 3, 16, 32, 32), (1, 64, 2, 64, 64, 16), (2, 96, 4, 8, 128, 32),
     (1, 700, 3, 64, 64, 256)])

@@ -4,9 +4,11 @@ the CPU at float32.
 Per module — rope, attention (prefill and a decode step into a full
 sliding-window ring buffer), the MLP, Mamba2, mLSTM and sLSTM (prefill and
 a decode step each) — then the whole `Model` on `smoke_config` of zamba2-7b
-(hybrid), yi-6b (dense) and xlstm-1.3b (ssm), plus the dense variants the
-registry carries (qkv bias with tied embeddings: qwen2.5-3b; the GeLU MLP:
-granite-34b). The reference's
+(hybrid), yi-6b (dense), xlstm-1.3b (ssm), granite-moe-1b-a400m (moe),
+musicgen-medium (audio) and phi-3-vision-4.2b (vlm), plus the dense
+variants the registry carries (qkv bias with tied embeddings: qwen2.5-3b;
+the GeLU MLP: granite-34b). The MoE layer alone is in
+tests/test_torch_moe.py. The reference's
 parameters cross as NumPy arrays through `convert.model_params_from_
 reference`; token ids and activations are drawn with numpy from a seed.
 The prompt (100 tokens) is longer than the smoke window (64) and not a
@@ -239,34 +241,68 @@ def _models(arch, seed=0):
     rm = build_model(rc)
     params = rm.init(jax.random.PRNGKey(seed))
     pm = model_params_from_reference(pc, _tree(params), device="cpu")
-    toks = np.random.default_rng(seed).integers(0, rc.vocab_size,
-                                                size=(B, S))
+    rng = np.random.default_rng(seed)
+    shape = (B, rc.n_codebooks, S) if rc.family == "audio" else (B, S)
+    toks = {"tokens": rng.integers(0, rc.vocab_size, size=shape)}
+    if rc.family == "vlm":
+        toks["patch_embeds"] = rng.standard_normal(
+            (B, rc.n_patches, rc.d_model)).astype(np.float32)
     return rm, params, pm, toks
 
 
+def _jnp(batch):
+    return {k: jnp.asarray(v) for k, v in batch.items()}
+
+
+def _torch(batch):
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
 @pytest.mark.parametrize("arch", ["zamba2-7b", "yi-6b", "qwen2.5-3b",
-                                  "granite-34b", "xlstm-1.3b"])
+                                  "granite-34b", "xlstm-1.3b",
+                                  "granite-moe-1b-a400m", "musicgen-medium",
+                                  "phi-3-vision-4.2b"])
 def test_model_prefill_matches_reference_and_decodes_like_forward(arch):
+    """Prefill and `forward(batch, with_aux=True)` against the reference
+    (the moe family at its registry capacity, which drops tokens in these
+    prompts; audio's (B, K, S) prompts and (B, S, K, V) logits; vlm's
+    patches before the prompt), then the port's own decode-vs-forward
+    check, the reference's at float32 (the moe family at dropless
+    capacity, as the reference's test runs it)."""
     rm, params, pm, toks = _models(arch)
-    rl, _ = rm.prefill(params, {"tokens": jnp.asarray(toks)},
-                       cache_len=S + 4)
-    pl, cache = pm.prefill({"tokens": torch.from_numpy(toks)},
-                           cache_len=S + 4)
-    assert pl.shape == (B, 1, pm.cfg.vocab_size) and pl.dtype == torch.float32
+    cfg = pm.cfg
+    n_pre = S + (cfg.n_patches if cfg.family == "vlm" else 0)
+    rl, _ = rm.prefill(params, _jnp(toks), cache_len=n_pre + 4)
+    pl, cache = pm.prefill(_torch(toks), cache_len=n_pre + 4)
+    out = ((B, 1, cfg.n_codebooks, cfg.vocab_size) if cfg.family == "audio"
+           else (B, 1, cfg.vocab_size))
+    assert pl.shape == out and pl.dtype == torch.float32
     _close(pl, rl)
+    rf, raux = rm.forward(params, _jnp(toks))
+    with torch.no_grad():
+        pf, paux = pm.forward(_torch(toks), with_aux=True)
+    assert pf.shape == (B, n_pre) + out[2:]
+    _close(pf, rf)
+    np.testing.assert_allclose(float(paux), float(raux), rtol=1e-5,
+                               atol=1e-7)
+    assert (float(paux) > 0) == (cfg.family == "moe")
+    if cfg.family == "moe":
+        pm.cfg = cfg.with_(capacity_factor=cfg.n_experts / cfg.top_k)
     # the port's own decode-vs-forward check (the reference's, at float32)
     with torch.no_grad():
-        full = pm.forward({"tokens": torch.from_numpy(toks)})
-    _, cache = pm.prefill({"tokens": torch.from_numpy(toks[:, :-1])},
-                          cache_len=S + 3)
-    dl, _ = pm.decode_step(torch.from_numpy(toks[:, -1:]), cache, S - 1)
+        full = pm.forward(_torch(toks))
+    head = dict(toks, tokens=toks["tokens"][..., :-1])
+    _, cache = pm.prefill(_torch(head), cache_len=n_pre + 3)
+    dl, _ = pm.decode_step(torch.from_numpy(toks["tokens"][..., -1:]), cache,
+                           n_pre - 1)
     np.testing.assert_allclose(dl[:, -1].numpy(), full[:, -1].numpy(), **TOL)
 
 
 def test_model_structure_and_param_counts():
     """81 Mamba2 blocks and one shared block for zamba2-7b, 42 mLSTM and 6
-    sLSTM blocks for xlstm-1.3b; parameter counts equal the reference's at
-    full width (no allocation)."""
+    sLSTM blocks for xlstm-1.3b, 32 MoE blocks of 40 experts for
+    granite-moe-3b-a800m, musicgen-medium's 4 codebook heads; parameter
+    counts equal the reference's at full width (no allocation)."""
     from repro.models.model import count_params as rcount
     for arch in ("zamba2-7b", "yi-6b", "xlstm-1.3b"):
         assert count_params(get_arch(arch)) == rcount(rget_arch(arch))
@@ -277,10 +313,20 @@ def test_model_structure_and_param_counts():
     assert len(x.mlstm) == 42 and len(x.slstm) == 6
     assert x.mlstm[0].mlstm.wqkv.shape == (2048, 6144)
     assert x.slstm[0].slstm.w_gates.shape == (2048, 8192)
-    for arch in ("granite-moe-1b-a400m", "musicgen-medium",
-                 "phi-3-vision-4.2b"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            Model(get_arch(arch), device="cpu")
+    for arch, n in (("granite-moe-1b-a400m", 1_334_628_352),
+                    ("granite-moe-3b-a800m", 3_298_793_472),
+                    ("musicgen-medium", 1_837_254_144),
+                    ("phi-3-vision-4.2b", 3_830_516_736)):
+        assert count_params(get_arch(arch)) == n == rcount(rget_arch(arch))
+    g = Model(get_arch("granite-moe-3b-a800m"), device="meta")
+    assert len(g.layers) == 32 and all(hasattr(b, "moe") for b in g.layers)
+    assert g.layers[0].moe.w_in.shape == (40, 1536, 1024)
+    assert g.lm_head is None                       # tied embeddings
+    a = Model(get_arch("musicgen-medium"), device="meta")
+    assert len(a.layers) == 48 and a.heads.shape == (4, 1536, 2048)
+    assert a.embed.shape == (4, 2048, 1536)
+    v = Model(get_arch("phi-3-vision-4.2b"), device="meta")
+    assert v.patch_proj.shape == (3072, 3072)
 
 
 def test_model_init_from_a_generator():
