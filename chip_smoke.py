@@ -54,6 +54,16 @@ launch counts set to 0 just before it and read just after:
     flash kernel once per attention layer per prefill), each with a
     decode-vs-forward check against a negative control;
   * `ops.rmsnorm`, the RMSNorm kernel's only entry point;
+  * training — qwen2.5-3b at full width and depth (36 blocks, d_model
+    2048, 3.09 B parameters; random initialisation from a seed) through
+    `launch.train.train`: 6 AdamW steps of 4 x 4096 tokens in 4
+    microbatches, flash attention forward (with the rows' log-sum-exp) and
+    its hand-written backward kernel in every layer, every block
+    recomputed in the backward; a gradient check against the plain
+    attention, recovery from an injected failure at `smoke_config`
+    (bit-equal), and the hybrid and ssm families raising under grad (their
+    scans have no backward kernel yet). The model-kernels phase holds the
+    backward kernel against its plain version at four shapes;
 
 and checks each result by the repository's own means. It prints the card's
 name and power limit, one JSON line describing every kernel (launches on
@@ -130,11 +140,14 @@ def fused_kernel_ms(mus, mixes, dev, iters: int = 5) -> float:
 
 def device_busy(fn, cpu: bool = True) -> dict:
     """Run fn() once under torch.profiler: wall seconds, summed device
-    kernel seconds, the busy share, and the top kernels by device time.
-    The profiler's own host overhead inflates the wall time, so the share
-    is a lower bound. Device fields are None if the trace shows none.
-    `cpu=False` traces device activity only (fewer events to sort)."""
+    kernel seconds, the busy share, and the top kernels by device time,
+    read from the profiler's raw device events (building its Python event
+    tree takes seconds for the ~20,000 launches of a training step). The
+    profiler's own host overhead inflates the wall time, so the share is a
+    lower bound. Device fields are None if the trace shows none.
+    `cpu=False` traces device activity only (fewer events to record)."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA] + (
@@ -143,19 +156,17 @@ def device_busy(fn, cpu: bool = True) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-    from torch.autograd import DeviceType
-    events = [(e.key, dev_us(e), e.count) for e in prof.key_averages()
-              if getattr(e, "device_type", None) == DeviceType.CUDA]
-    total = sum(us for _, us, _ in events) / 1e6
-    top = sorted(events, key=lambda e: -e[1])[:6]
+    by_name: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            us, n = by_name.get(e.name(), (0.0, 0))
+            by_name[e.name()] = (us + e.duration_ns() / 1e3, n + 1)
+    total = sum(us for us, _ in by_name.values()) / 1e6
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
     return {"wall_s": wall, "device_s": total or None,
             "busy_share": (total / wall) if total else None,
             "top": [{"kernel": k[:80], "device_s": us / 1e6, "calls": n}
-                    for k, us, n in top if us > 0]}
+                    for k, (us, n) in top if us > 0]}
 
 
 def host_run(job):
@@ -2501,6 +2512,43 @@ SSD_PREVIOUS_MS_QUOTED = 6.09
 # times as such and not a reading of this run.
 FLASH_PREVIOUS_MS_QUOTED = (12.28, 3.33, 4.76, 5.07)
 RMS_TOL = 2e-2          # bf16 RMSNorm (the reference sweep's)
+# flash attention's backward kernel against its plain version (float32 on
+# the same bf16 inputs): for each of dq, dk and dv, max |d| / (rms of the
+# plain tensor + |plain|) <= BWD_TOL. The kernel rounds P and dS to bf16
+# as the operands of its products (as FA2 does), and at the first few
+# positions, where a query attends a few keys and P is large, that
+# rounding leaves entries a few per cent off: on an NVIDIA H100 80GB HBM3
+# at 700 W the sound readings at BWD_SHAPES were 0.032-0.080, and the
+# plain version with P and dS rounded to bf16 reads the same against the
+# float32 one (tools/flash_bwd_rounding.py; PERF.md section 6). The
+# planted control (the middle 128-key tile's causal-diagonal block
+# dropped from the gradients, as a dK / dV launch that skipped it would
+# give) read 0.44-1.72. The limit lies between the two.
+BWD_TOL = 0.15
+LSE_TOL = 1e-3          # the forward's log-sum-exp against the plain one's
+# (B, S, H, KV, dh, window): qwen2.5-3b's training microbatch, zamba2's
+# windowed shape, a ragged S = 1500 (musicgen's frames) and GQA with three
+# query heads a kv head
+BWD_SHAPES = ((1, 4096, 16, 2, 128, 0), (1, 8192, 32, 32, 112, 4096),
+              (4, 1500, 24, 24, 64, 0), (2, 2048, 24, 8, 64, 0))
+# the train phase: qwen2.5-3b at full width and depth, global batch
+# TRAIN_B x TRAIN_S in TRAIN_MICRO microbatches, TRAIN_STEPS steps of
+# AdamW at TRAIN_LR (warmup TRAIN_WARMUP steps, cosine decay over the run)
+TRAIN_ARCH = "qwen2.5-3b"
+TRAIN_B, TRAIN_S, TRAIN_MICRO, TRAIN_STEPS = 4, 4096, 4, 6
+TRAIN_LR, TRAIN_WARMUP = 2e-6, 1
+# the first loss: ln V plus half the variance of the initial logits (rms-
+# normed hidden state against N(0, 0.02^2) tied embeddings: d * 0.02^2),
+# within TRAIN_LOSS0_TOL
+TRAIN_LOSS0_TOL = 0.3
+# one microbatch's gradients through the kernels against the plain
+# attention's, per leaf group (a layer's attention, MLP or norms; the
+# embedding; the final norm): ||kernel - plain|| / ||plain|| <= GRAD_REL_TOL;
+# the control drops one layer's attention gradient (dq, dk, dv = 0)
+GRAD_REL_TOL = 2e-2
+# recovery at smoke_config on the card: RECOVERY_STEPS steps of 4 x 256 in
+# 2 microbatches, a checkpoint every 3, a failure injected at call 5
+RECOVERY_STEPS, RECOVERY_FAIL_AT = 8, 5
 SERVE_ARCH = "zamba2-7b"
 SERVE_B, SERVE_S, SERVE_STEPS = 4, 8192, 64
 # the serve-traffic phase replays the bundled trace's first 120 of its 240
@@ -2631,6 +2679,153 @@ def flash_kernel_stats(dh: int) -> dict:
         if "flash_fwd" in name and f"ILi{dh}E" in name:
             return st
     return {}
+
+
+def attention_bwd_bound(b, s, h, kv, dh, window):
+    """The backward: 2.5x the forward's operations (five products of its
+    size against two) at the bf16 tensor-core rate; bytes q, k, v, o, do
+    read and dq, dk, dv written once (bf16), the LSE read (float32)."""
+    nbytes = 2 * 4 * b * s * (h + kv) * dh + 4 * b * h * s
+    return _bound(nbytes, 2.5 * 4 * dh * b * h * attention_pairs(s, window),
+                  BF16_OPS_PER_S)
+
+
+def flash_bwd_kernel_stats(dh: int) -> dict:
+    """ptxas's registers and spills for the backward's dK/dV and dQ
+    kernels at head dim dh."""
+    from repro_torch.kernels import build
+    log = build.build_log.get("flash_attention_bwd", {}).get("ptxas", "")
+    return {kind: st for name, st in ptxas_kernel_stats(log).items()
+            for kind in ("dkdv", "dq")
+            if f"bwd_{kind}I" in name and f"ILi{dh}E" in name}
+
+
+def grad_err(a, b) -> float:
+    """max |a - b| / (rms(b) + |b|) over the entries, in float32."""
+    b = b.float()
+    return float(((a.float() - b).abs() / (b.square().mean().sqrt()
+                                            + b.abs())).max())
+
+
+def measure_flash_bwd(dev, seed, b, s, h, kv, dh, win):
+    """The backward kernel at one shape: the forward with its LSE against
+    the serving forward (bit-equal o) and the plain LSE; dq, dk, dv against
+    `flash_attention_bwd_plain` (float32, same inputs) and against a
+    planted fault (the middle 128-key tile's causal-diagonal block dropped
+    from the plain gradients); two runs bit-equal; kernel, per-launch,
+    plain and SDPA-backward ms, the bound, ptxas. Returns the row."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    q, k, v = _attn_inputs(dev, seed, b, s, h, kv, dh)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    do = torch.randn((b, s, h, dh), dtype=torch.bfloat16, device=dev,
+                     generator=g)
+    o_serve = FA.flash_attention_cuda(q, k, v, window=win)
+    o, lse = FA.flash_attention_cuda(q, k, v, window=win, return_lse=True)
+    _, lse_plain = FA.flash_attention_plain(q, k, v, window=win,
+                                            return_lse=True)
+    lse_err = float((lse - lse_plain).abs().max())
+    o_equal = bool(torch.equal(o, o_serve))
+    del o_serve, lse_plain
+    got = FA.flash_attention_bwd_cuda(q, k, v, o, lse, do, window=win)
+    again = FA.flash_attention_bwd_cuda(q, k, v, o, lse, do, window=win)
+    deterministic = all(bool(torch.equal(x, y)) for x, y in zip(got, again))
+    del again
+    f32 = [t.float() for t in (q, k, v, o)] + [lse, do.float()]
+    plain = FA.flash_attention_bwd_plain(*f32, window=win)
+    errs = {n: grad_err(x, z) for n, x, z in zip(("dq", "dk", "dv"), got,
+                                                 plain)}
+    abs_err = max(float((x.float() - z).abs().max())
+                  for x, z in zip(got, plain))
+    bk = FA.bwd_kernel_tiles()["dkdv_block_k"]
+    k0 = (-(-s // bk) // 2) * bk
+    sl = slice(k0, min(k0 + bk, s))
+    part = FA.flash_attention_bwd_plain(*(t[:, sl] for t in f32[:4]),
+                                        lse[..., sl], f32[5][:, sl],
+                                        window=win)
+    fault = {}
+    for n, z, c in zip(("dq", "dk", "dv"), plain, part):
+        bad = z.clone()
+        bad[:, sl] -= c
+        fault[n] = grad_err(bad, z)     # what the check reads for it
+        del bad
+    del part, f32
+    args = (q, k, v, o, lse, do)
+    ms = cuda_ms(lambda: FA.flash_attention_bwd_cuda(*args, window=win),
+                 iters=10, warmup=2)
+    top = device_busy(lambda: FA.flash_attention_bwd_cuda(*args, window=win),
+                      cpu=False)["top"]
+    launch_ms = {name: sum(t["device_s"] * 1e3 for t in top
+                           if f"bwd_{name}" in t["kernel"])
+                 for name in ("delta", "dkdv", "dq")}
+    plain_ms = cuda_ms(lambda: FA.flash_attention_bwd_plain(
+        *args, window=win), iters=2, warmup=1)
+    fwd_ms = cuda_ms(lambda: FA.flash_attention_cuda(q, k, v, window=win),
+                     iters=10, warmup=2)
+    fwd_lse_ms = cuda_ms(lambda: FA.flash_attention_cuda(
+        q, k, v, window=win, return_lse=True), iters=10, warmup=2)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    mask = None
+    if win:
+        ones = torch.ones((s, s), dtype=torch.bool, device=dev)
+        mask = torch.tril(ones) & ~torch.tril(ones, diagonal=-win)
+        del ones
+    lib_out = F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, is_causal=mask is None,
+        enable_gqa=h != kv)
+    dot = do.transpose(1, 2)
+    lib_ms = cuda_ms(lambda: torch.autograd.grad(
+        lib_out, (qt, kt, vt), dot, retain_graph=True), iters=5, warmup=1)
+    del lib_out, qt, kt, vt, mask, got, plain, args
+    torch.cuda.empty_cache()
+    bound, by, nbytes, ops = attention_bwd_bound(b, s, h, kv, dh, win)
+    return {"B": b, "S": s, "H": h, "KV": kv, "dh": dh, "window": win,
+            "max_abs_err": abs_err, "errs": errs,
+            "fault_errs": fault, "fault_tile": [sl.start, sl.stop],
+            "deterministic": deterministic, "o_bit_equal": o_equal,
+            "lse_err": lse_err, "ms": ms, "launch_ms": launch_ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms,
+            "fwd_ms": fwd_ms, "fwd_lse_ms": fwd_lse_ms,
+            "bound_ms": bound, "bound_by": by, "bytes": nbytes, "ops": ops,
+            "tflops": ops / ms / 1e9, "bound_share": bound / ms,
+            **{f"ptxas_{k}": st for k, st in
+               flash_bwd_kernel_stats(dh).items()}}
+
+
+def print_flash_bwd(row) -> None:
+    e, f = row["errs"], row["fault_errs"]
+    print(f"  flash bwd B={row['B']} S={row['S']} H={row['H']} "
+          f"KV={row['KV']} dh={row['dh']} window={row['window']}: err "
+          f"(limit {BWD_TOL}) dq {e['dq']:.2e} dk {e['dk']:.2e} dv "
+          f"{e['dv']:.2e}; diagonal tile {row['fault_tile']} dropped: dq "
+          f"{f['dq']:.2e} dk {f['dk']:.2e} dv {f['dv']:.2e}; two runs "
+          f"{'bit-equal' if row['deterministic'] else 'DIFFER'}; forward "
+          f"with LSE: o {'bit-equal' if row['o_bit_equal'] else 'CHANGED'},"
+          f" lse err {row['lse_err']:.1e}, ms {row['fwd_lse_ms']:.3f} "
+          f"(without {row['fwd_ms']:.3f}); bwd ms {row['ms']:.3f} "
+          f"{ {k: round(v, 3) for k, v in row['launch_ms'].items()} } plain "
+          f"{row['plain_ms']:.1f} sdpa bwd {row['library_ms']:.3f} bound "
+          f"{row['bound_ms']:.3f} ({row['bound_by']}) = "
+          f"{row['bound_share']:.2f} of it; ptxas "
+          f"{ {k: v for k, v in row.items() if k.startswith('ptxas')} }")
+
+
+def flash_bwd_faults(row) -> list[str]:
+    """What a backward row fails: its errors over BWD_TOL, a control
+    within it, run-to-run differences, the forward's o or LSE off."""
+    out = [f"{n} off by {e:.3g} > {BWD_TOL}" for n, e in row["errs"].items()
+           if not e <= BWD_TOL]
+    out += [f"the check passes the planted fault in {n} ({e:.3g})"
+            for n, e in row["fault_errs"].items() if e <= BWD_TOL]
+    if not row["deterministic"]:
+        out.append("two runs differ")
+    if not row["o_bit_equal"]:
+        out.append("the forward with its LSE changes o")
+    if not row["lse_err"] <= LSE_TOL:
+        out.append(f"LSE off by {row['lse_err']:.3g} > {LSE_TOL}")
+    return out
 
 
 def ssd_bound(b, s, h, dk, dv, chunk, shared_qk):
@@ -2888,8 +3083,8 @@ def phase_model_kernels(dev, detail):
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import rmsnorm as RN
     from repro_torch.kernels import ssd_scan as SSD
-    rows = {"flash_attention": [], "ssd_scan": [], "ssd_scan_wide": [],
-            "mlstm_scan": [], "rmsnorm": []}
+    rows = {"flash_attention": [], "flash_attention_bwd": [], "ssd_scan": [],
+            "ssd_scan_wide": [], "mlstm_scan": [], "rmsnorm": []}
 
     # (B, S, H, KV, dh, window): the zamba2 prefill's call first; the last
     # three are granite-moe-3b's prefill call (GQA 24 / 8, dh 64),
@@ -2974,6 +3169,16 @@ def phase_model_kernels(dev, detail):
               f"{tiles['block_k']}, {tiles['stages']} stages; ptxas {st}")
         del q, k, v, out, plain, qt, kt, vt
         mask = None
+
+    # the backward kernel at the train phase's shape and three others
+    for i, shape in enumerate(BWD_SHAPES):
+        row = measure_flash_bwd(dev, 500 + i, *shape)
+        print_flash_bwd(row)
+        faults = flash_bwd_faults(row)
+        if faults:
+            raise AssertionError(f"flash backward {shape}: "
+                                 + "; ".join(faults))
+        rows["flash_attention_bwd"].append(row)
 
     b, s, h, d, chunk = SERVE_B, SERVE_S, 112, 64, 256
     q, k, v, la, beta = ssd_inputs(dev, 200, b, s, h, d)
@@ -3070,6 +3275,19 @@ def phase_model_kernels(dev, detail):
                               (6, "audio_dh64"))
                for key in ("ms", "bound_ms", "library_ms", "plain_ms")},
             bound_share=rows["flash_attention"][0]["bound_share"]),
+        "flash_attention_bwd": dict(entry(
+            "flash_attention_bwd", "flash_attention_bwd.cu",
+            "src/repro/kernels/flash_attention.py:105",
+            "B={},S={},H={},KV={},dh={},causal,bf16 (one microbatch of the "
+            "train phase)".format(*BWD_SHAPES[0][:5])),
+            replaces_note="the gradient of that kernel; the reference has "
+                          "no backward kernel (jax.grad of its jnp route)",
+            launch_ms=rows["flash_attention_bwd"][0]["launch_ms"],
+            shapes=[{k: r[k] for k in ("B", "S", "H", "KV", "dh", "window",
+                                       "errs", "fault_errs", "ms",
+                                       "launch_ms", "plain_ms",
+                                       "library_ms", "bound_ms")}
+                    for r in rows["flash_attention_bwd"]]),
         "ssd_scan": entry(
             "ssd_scan", "ssd_scan.cu", "src/repro/kernels/ssd_scan.py:85",
             f"B={SERVE_B},S={SERVE_S},H=112,dk=dv=64,chunk=256,bf16,"
@@ -4038,10 +4256,304 @@ def phase_ops_rmsnorm(dev, detail):
     return n
 
 
+@contextlib.contextmanager
+def dropped_attention_grad(call: int, record: dict):
+    """The negative control of the train phase's gradient check: the
+    `call`-th backward of the flash kernel's autograd Function (the
+    backward runs the layers last to first) returns zero dq, dk, dv."""
+    from repro_torch.kernels import ops
+    real = ops._FlashAttention.backward
+    seen = {"n": 0}
+
+    def backward(ctx, do):
+        out = real(ctx, do)
+        seen["n"] += 1
+        if seen["n"] == call:
+            record["dropped"] = True
+            return (*(g.zero_() for g in out[:3]), *out[3:])
+        return out
+    ops._FlashAttention.backward = staticmethod(backward)
+    try:
+        yield
+    finally:
+        ops._FlashAttention.backward = staticmethod(real)
+
+
+def leaf_groups(names) -> dict:
+    """Leaf groups of a dense model's parameters: each layer's attention,
+    MLP and norms, the embedding, the final norm."""
+    groups = {}
+    for n in names:
+        parts = n.split(".")
+        if parts[0] == "layers":
+            kind = "ln" if parts[2].startswith("ln") else parts[2]
+            key = f"layers.{parts[1]}.{kind}"
+        else:
+            key = parts[0]
+        groups.setdefault(key, []).append(n)
+    return groups
+
+
+def group_rel_errs(got: dict, want: dict) -> dict:
+    """||got - want|| / ||want|| per leaf group, float32."""
+    out = {}
+    for key, names in leaf_groups(want).items():
+        num = sum(float((got[n].float() - want[n].float()).square().sum())
+                  for n in names)
+        den = sum(float(want[n].float().square().sum()) for n in names)
+        out[key] = (num / den) ** 0.5 if den > 0 else float(num > 0)
+    return out
+
+
+def phase_train(dev, detail, smoke=False):
+    """qwen2.5-3b trained at full width and depth (36 blocks, d_model 2048,
+    3.09 B parameters, tied embeddings; random initialisation from a seeded
+    generator) through `launch.train.train`: TRAIN_STEPS steps of TRAIN_B x
+    TRAIN_S tokens in TRAIN_MICRO microbatches, every block and loss chunk
+    recomputed in the backward. Per step: seconds and tokens/s (the last
+    step under the profiler, for the device time and busy share; the others
+    without it), peak GB, flash forward and backward launches (2 x 36 x 4
+    and 36 x 4 expected) and no plain attention call.
+    Then one microbatch's gradients through the kernels against the plain
+    attention's, per leaf group, with one layer's attention gradient
+    dropped as the control; recovery at `smoke_config` (an injected
+    failure, restore and replay, bit-equal to an uninterrupted run); and
+    the hybrid and ssm families raising under grad on the card. `smoke`
+    trains the reduced config instead (a rehearsal on a CPU)."""
+    import math
+    import statistics
+    import tempfile
+
+    import torch
+    from repro_torch.configs import get_arch, smoke_config
+    from repro_torch.launch import train as T
+    from repro_torch.models.model import Model
+    from repro_torch.train.data import DataConfig, batch_for_step
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.train_step import compute_copy, loss_and_grads
+    cfg = get_arch(TRAIN_ARCH)
+    if smoke:
+        cfg = smoke_config(cfg)
+    opt = OptimizerConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                          decay_steps=TRAIN_STEPS)
+    records = []
+
+    def measure(step_fn):
+        def run(state, batch):
+            reset_all_launches()
+            torch.cuda.reset_peak_memory_stats()
+            # the last step runs under the profiler, the others without it
+            profiled = state.step + 1 == TRAIN_STEPS
+            busy = {}
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if profiled:
+                out = {}
+                busy = device_busy(lambda: out.update(r=step_fn(state,
+                                                                batch)),
+                                   cpu=False)
+                r, s = out["r"], busy["wall_s"]
+            else:
+                r = step_fn(state, batch)     # its float metrics synchronise
+                torch.cuda.synchronize()
+                s = time.perf_counter() - t
+            n = all_launches()
+            m = r[1]
+            rec = {"step": r[0].step,
+                   "since_start_s": time.perf_counter() - t0,
+                   "loss": m["loss"],
+                   "grad_norm": m["grad_norm"], "lr": m["lr"],
+                   "profiled": profiled, "s": s,
+                   "tokens_per_s": TRAIN_B * TRAIN_S / s,
+                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                   "device_s": busy.get("device_s"),
+                   "busy_share": busy.get("busy_share"),
+                   "flash_fwd": n["flash_attention"],
+                   "flash_bwd": n["flash_attention_bwd"],
+                   "other_launches": {k: c for k, c in n.items() if c and k
+                                      not in ("flash_attention",
+                                              "flash_attention_bwd")},
+                   "top": busy.get("top")}
+            records.append(rec)
+            print(f"  step {rec['step']}: loss {rec['loss']:.5f} grad norm "
+                  f"{rec['grad_norm']:.3f} lr {rec['lr']:.2e}; "
+                  f"{rec['s']:.3f} s ({rec['tokens_per_s']:.0f} tok/s"
+                  + (f"; under the profiler, device "
+                     f"{rec['device_s'] or 0:.3f} s, busy "
+                     f"{rec['busy_share'] or 0:.3f}" if profiled else "")
+                  + f"), peak {rec['peak_gb']:.2f} GB; flash launches fwd "
+                  f"{rec['flash_fwd']} bwd {rec['flash_bwd']}", flush=True)
+            return r
+        return run
+
+    plain = {"ssd": 0, "attention": 0}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d, counting_plain_routes(plain):
+        res = T.train(TRAIN_ARCH, steps=TRAIN_STEPS, batch=TRAIN_B,
+                      seq=TRAIN_S, microbatches=TRAIN_MICRO, smoke=smoke,
+                      ckpt_dir=d, ckpt_every=TRAIN_STEPS + 1, device=dev,
+                      opt=opt, step_wrapper=measure)
+    train_s = time.perf_counter() - t0
+    model, state = res["model"], res["state"]
+    print(f"  set-up before the first step (model, init, optimizer state, "
+          f"data): {records[0]['since_start_s'] - records[0]['s']:.1f} s"
+          if records else "  no step ran")
+    n_params = sum(p.numel() for p in state.params.values())
+    losses = [r["loss"] for r in records]
+    loss0 = math.log(cfg.vocab_size) + cfg.d_model * 0.02 ** 2 / 2
+    want_fwd = 2 * cfg.n_layers * TRAIN_MICRO
+    want_bwd = cfg.n_layers * TRAIN_MICRO
+    # the steps after the first (which warms the allocator and the
+    # libraries) and before the profiled last one
+    timed = [r["s"] for r in records[1:] if not r["profiled"]]
+    step_s = statistics.median(timed) if timed else None
+    prof_rec = next((r for r in records if r["profiled"]), None)
+    busy_est = (prof_rec["device_s"] / step_s
+                if prof_rec and prof_rec["device_s"] and step_s else None)
+    print(f"  {cfg.name}: {n_params:,} parameters; {len(records)} steps of "
+          f"{TRAIN_B} x {TRAIN_S} in {TRAIN_MICRO} microbatches in "
+          f"{train_s:.1f} s (init included); losses "
+          f"{[round(x, 4) for x in losses]} (first expected {loss0:.3f} +- "
+          f"{TRAIN_LOSS0_TOL}); plain calls {plain}")
+    if step_s:
+        print(f"  steps 2-{TRAIN_STEPS - 1} without the profiler: median "
+              f"{step_s:.4f} s ({TRAIN_B * TRAIN_S / step_s:.0f} tok/s); "
+              f"the profiled step's device time over it "
+              f"{busy_est or 0:.3f}")
+
+    # one microbatch's gradients: kernels, plain attention, and the control
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_S,
+                    global_batch=TRAIN_B)
+    mb = {k: torch.from_numpy(v[:TRAIN_B // TRAIN_MICRO]).to(dev)
+          for k, v in batch_for_step(dc, 0).items()}
+    pc = compute_copy(state.params, getattr(torch, cfg.dtype))
+    t1 = time.perf_counter()
+    loss_k, _, g_k = loss_and_grads(model, pc, mb)
+    with plain_attention():
+        loss_p, _, g_p = loss_and_grads(model, pc, mb)
+    rel = group_rel_errs(g_k, g_p)
+    del g_k
+    drop_call = cfg.n_layers // 2
+    drop_layer = cfg.n_layers - drop_call      # backward runs last to first
+    dropped = {}
+    with dropped_attention_grad(drop_call, dropped):
+        _, _, g_f = loss_and_grads(model, pc, mb)
+    rel_f = group_rel_errs(g_f, g_p)
+    del g_f, g_p, pc
+    torch.cuda.empty_cache()
+    worst = max(rel, key=rel.get)
+    worst_f = max(rel_f, key=rel_f.get)
+    grad_s = time.perf_counter() - t1
+    print(f"  gradients of one {TRAIN_B // TRAIN_MICRO} x {TRAIN_S} "
+          f"microbatch, kernels vs plain attention: loss {float(loss_k):.5f}"
+          f" vs {float(loss_p):.5f}; worst group ||d|| / ||plain|| "
+          f"{rel[worst]:.2e} ({worst}; limit {GRAD_REL_TOL}); layer "
+          f"{drop_layer}'s attention gradient dropped: {rel_f[worst_f]:.2e} "
+          f"({worst_f}); {grad_s:.1f} s")
+
+    # recovery at smoke_config: an uninterrupted run and one with a failure
+    kw = dict(steps=RECOVERY_STEPS, batch=4, seq=256, microbatches=2,
+              smoke=True, ckpt_every=3, device=dev,
+              opt=OptimizerConfig(warmup_steps=2,
+                                  decay_steps=RECOVERY_STEPS))
+    calls = {"n": 0}
+
+    def flaky(step_fn):
+        def run(state_, batch):
+            calls["n"] += 1
+            if calls["n"] == RECOVERY_FAIL_AT:
+                raise RuntimeError("injected node failure")
+            return step_fn(state_, batch)
+        return run
+    del model, state, res
+    torch.cuda.empty_cache()
+    reset_all_launches()
+    t2 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d1, \
+            tempfile.TemporaryDirectory() as d2:
+        clean = T.train(TRAIN_ARCH, ckpt_dir=d1, log=lambda *a: None, **kw)
+        healed = T.train(TRAIN_ARCH, ckpt_dir=d2, step_wrapper=flaky,
+                         log=lambda *a: None, **kw)
+    rec_launches = all_launches()
+    same = all(bool(torch.equal(p, clean["state"].params[n]))
+               for n, p in healed["state"].params.items())
+    rec_s = time.perf_counter() - t2
+    print(f"  recovery at smoke_config ({RECOVERY_STEPS} steps, failure at "
+          f"call {RECOVERY_FAIL_AT}, checkpoints every 3): restarts "
+          f"{healed['restarts']}, steps {healed['steps']}, parameters "
+          f"{'bit-equal to' if same else 'DIFFERENT from'} the "
+          f"uninterrupted run's; launches {rec_launches}; {rec_s:.1f} s")
+
+    # the families whose kernels have no backward yet raise on the card
+    raised = {}
+    for arch in ("zamba2-7b", "xlstm-1.3b"):
+        scfg = smoke_config(get_arch(arch))
+        m = Model(scfg, device=dev).init(
+            torch.Generator(device=dev).manual_seed(0))
+        toks = torch.randint(0, scfg.vocab_size, (2, 64), device=dev)
+        try:
+            loss_and_grads(m, compute_copy(dict(m.named_parameters()),
+                                           getattr(torch, scfg.dtype)),
+                           {"tokens": toks, "targets": toks})
+            raised[arch] = None
+        except NotImplementedError as e:
+            raised[arch] = str(e)[:80]
+        del m
+    print(f"  under grad on the card: {raised}")
+
+    per_step = [{k: v for k, v in r.items() if k != "top"} for r in records]
+    detail["train"] = {
+        "arch": cfg.name, "params": n_params, "B": TRAIN_B, "S": TRAIN_S,
+        "microbatches": TRAIN_MICRO, "steps": per_step,
+        "median_step_s": step_s, "busy_share_est": busy_est,
+        "top_profiled_step": prof_rec["top"] if prof_rec else None,
+        "train_s": train_s, "loss0_expected": loss0,
+        "plain_calls": plain, "grad_check": {
+            "loss_kernel": float(loss_k), "loss_plain": float(loss_p),
+            "rel": rel, "dropped_layer": drop_layer, "rel_dropped": rel_f,
+            "seconds": grad_s},
+        "recovery": {"restarts": healed["restarts"],
+                     "steps": healed["steps"], "bit_equal": same,
+                     "launches": rec_launches, "seconds": rec_s},
+        "raises_under_grad": raised}
+    faults = []
+    if len(records) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
+        faults.append(f"losses {losses}")
+    elif not abs(losses[0] - loss0) <= TRAIN_LOSS0_TOL:
+        faults.append(f"first loss {losses[0]:.4f}, expected {loss0:.4f}")
+    elif not losses[-1] < losses[0]:
+        faults.append(f"last loss {losses[-1]:.4f} not below the first")
+    for r in records:
+        if (r["flash_fwd"], r["flash_bwd"]) != (want_fwd, want_bwd) \
+                or r["other_launches"]:
+            faults.append(f"step {r['step']}: launches fwd {r['flash_fwd']} "
+                          f"bwd {r['flash_bwd']} other "
+                          f"{r['other_launches']}, expected {want_fwd} and "
+                          f"{want_bwd}")
+    if plain["attention"] or plain["ssd"]:
+        faults.append(f"plain calls on the main path: {plain}")
+    if not rel[worst] <= GRAD_REL_TOL:
+        faults.append(f"gradients off in {worst}: {rel[worst]:.3g}")
+    if not dropped.get("dropped") or rel_f[worst_f] <= GRAD_REL_TOL:
+        faults.append("the gradient check passes a dropped attention "
+                      "gradient")
+    if healed["restarts"] != 1 or healed["steps"] != RECOVERY_STEPS \
+            or not same or rec_launches["flash_attention_bwd"] <= 0:
+        faults.append("recovery not bit-equal or not through the kernels")
+    if any(v is None for v in raised.values()):
+        faults.append(f"no error under grad: {raised}")
+    if faults:
+        raise AssertionError("; ".join(faults))
+    per_step = sorted({r["flash_bwd"] for r in records})
+    return {"flash_attention": sum(r["flash_fwd"] for r in records),
+            "flash_attention_bwd": sum(r["flash_bwd"] for r in records),
+            "per_step": per_step[0] if len(per_step) == 1 else per_step}
+
+
 # ------------------------------------------------------------------- main
 
 def build_kernels() -> float:
-    """Build the five CUDA libraries (one nvcc per source, all started
+    """Build the six CUDA libraries (one nvcc per source, all started
     together), load them, and print the build's seconds and ptxas's
     register counts; returns the seconds."""
     from repro_torch.kernels import (build, flash_attention, grin_moves,
@@ -4052,6 +4564,8 @@ def build_kernels() -> float:
                            grin_moves._kernel_lib),
             "flash_attention": (flash_attention.SOURCES, model_flags,
                                 flash_attention._kernel_lib),
+            "flash_attention_bwd": (flash_attention.BWD_SOURCES, model_flags,
+                                    flash_attention._bwd_kernel_lib),
             "ssd_scan": (ssd_scan.SOURCES, model_flags, ssd_scan._kernel_lib),
             "ssd_scan_wide": (ssd_scan_wide.SOURCES, model_flags,
                               ssd_scan_wide._kernel_lib),
@@ -4180,6 +4694,8 @@ def main() -> int:
         family_launches[name] = run(name, fn, dev, detail)
         torch.cuda.empty_cache()        # each engine is freed before the next
     rms_launches = run("ops-rmsnorm", phase_ops_rmsnorm, dev, detail)
+    torch.cuda.empty_cache()
+    train_launches = run("train", phase_train, dev, detail)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_detail.json").write_text(
@@ -4187,15 +4703,20 @@ def main() -> int:
     if failed or entry is None or model_entries is None \
             or solve_entry is None or serve_launches is None \
             or xlstm_launches is None or rms_launches is None \
-            or None in family_launches.values():
+            or train_launches is None or None in family_launches.values():
         _fail(f"phases failed: {failed}")
     entry["launches"] = launches["block_move_gains"]
     solve_entry["launches"] = launches["grin_solve"]
     flash_by_phase = {"serve": serve_launches["flash_attention"], **{
-        name: n["flash_attention"] for name, n in family_launches.items()}}
+        name: n["flash_attention"] for name, n in family_launches.items()},
+        "train": train_launches["flash_attention"]}
     model_entries["flash_attention"]["launches"] = sum(
         flash_by_phase.values())
     model_entries["flash_attention"]["launches_by_phase"] = flash_by_phase
+    model_entries["flash_attention_bwd"]["launches"] = \
+        train_launches["flash_attention_bwd"]
+    model_entries["flash_attention_bwd"]["launches_per_train_step"] = \
+        train_launches["per_step"]
     model_entries["ssd_scan"]["launches"] = serve_launches["ssd_scan"]
     model_entries["ssd_scan_wide"]["launches"] = \
         xlstm_launches["ssd_scan_wide"]

@@ -9,6 +9,9 @@ path: model configs (`configs`), the dense, hybrid and ssm (xLSTM) model
 stack (`models`) whose prefill runs hand-written flash-attention and SSD-scan
 kernels (`kernels.ops`), the `ServeEngine` (`serve.engine`), the
 virtual-time pools (`sched.virtual`) and the serve CLI (`launch.serve`).
+The training path: `Model.loss`, the optimizer, train step, data,
+checkpoints and recovery (`train`) and the train CLI (`launch.train`),
+with flash attention's backward kernel on the card.
 Imports torch, numpy and scipy only.
 
 Every entry point takes `device=` and runs on the GPU unless the caller asks

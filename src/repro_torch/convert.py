@@ -15,7 +15,9 @@ values, so neither package imports the other:
     rebuilds a port core from them that routes identically from there on;
   * `model_params_from_reference(cfg, tree)` builds a port `Model` from the
     reference's parameter pytree given as nested dicts of NumPy arrays,
-    unstacking its scanned layer stacks into the port's module lists.
+    unstacking its scanned layer stacks into the port's module lists, and
+    `train_state_from_reference(state, model)` carries a reference
+    `TrainState` (params, AdamW moments, step counts) across the same way.
 """
 from __future__ import annotations
 
@@ -184,14 +186,15 @@ def scheduler_core_from_state(arrays: dict, policy, device=None,
     return core
 
 
-@torch.no_grad()
-def _load(module: torch.nn.Module, tree: dict, index=(), prefix="") -> int:
-    """Copy `tree`'s leaves (indexed by `index` along their leading stacked
-    axes) into the same-named parameters of `module`; returns how many."""
-    n = 0
+def _collect(module: torch.nn.Module, tree: dict, index=(), prefix="",
+             out=None) -> dict:
+    """{port parameter name: array} for `tree`'s leaves (indexed by `index`
+    along their leading stacked axes) against the same-named parameters
+    of `module`, whose names begin with `prefix`."""
+    out = {} if out is None else out
     for key, val in tree.items():
         if isinstance(val, dict):
-            n += _load(getattr(module, key), val, index, f"{prefix}{key}.")
+            _collect(getattr(module, key), val, index, f"{prefix}{key}.", out)
             continue
         p = getattr(module, key, None)
         if not isinstance(p, torch.Tensor):
@@ -200,50 +203,105 @@ def _load(module: torch.nn.Module, tree: dict, index=(), prefix="") -> int:
         if tuple(arr.shape) != tuple(p.shape):
             raise ValueError(f"{prefix}{key}: reference {arr.shape} vs port "
                              f"{tuple(p.shape)}")
-        p.copy_(torch.from_numpy(np.array(arr, order="C")))
-        n += 1
-    return n
+        out[prefix + key] = arr
+    return out
 
 
-def model_params_from_reference(cfg, tree: dict, device=None):
-    """A port `Model` for `cfg` holding the reference's parameters `tree`
-    (nested dicts of NumPy arrays, e.g. `jax.tree.map(np.asarray,
-    params)`). The top-level `embed`, `lm_head`, `ln_f`, audio's codebook
-    `embed` (K, V, d) and `heads` (K, d, V) and vlm's `patch_proj` cross as
-    they are. The scanned stacks unstack along their leading axes:
-    `stack` (n_layers, ...) into the blocks of the dense, audio and vlm
-    families, and of the moe family, whose blocks carry a `moe` subtree
-    (`router`, `w_in`, `w_out`) in place of `mlp`; `stack_groups` (groups,
-    attn_every, ...) and `stack_tail` (rest, ...) into the hybrid's Mamba2
-    blocks in order, `shared` into its shared block; the ssm family's
+@torch.no_grad()
+def _load(module: torch.nn.Module, tree: dict, index=()) -> int:
+    """Copy `tree`'s leaves (indexed by `index` along their leading stacked
+    axes) into the same-named parameters of `module`; returns how many."""
+    arrays = _collect(module, tree, index)
+    for name, arr in arrays.items():
+        module.get_parameter(name).copy_(
+            torch.from_numpy(np.array(arr, order="C")))
+    return len(arrays)
+
+
+def reference_arrays(model, tree: dict) -> dict:
+    """The reference's parameter pytree `tree` (nested dicts of NumPy
+    arrays) as {port parameter name: array}, for `model`'s family: the
+    top-level `embed`, `lm_head`, `ln_f`, audio's codebook `embed` (K, V,
+    d) and `heads` (K, d, V) and vlm's `patch_proj` cross as they are. The
+    scanned stacks unstack along their leading axes: `stack` (n_layers,
+    ...) into the blocks of the dense, audio and vlm families, and of the
+    moe family, whose blocks carry a `moe` subtree (`router`, `w_in`,
+    `w_out`) in place of `mlp`; `stack_groups` (groups, attn_every, ...)
+    and `stack_tail` (rest, ...) into the hybrid's Mamba2 blocks in order,
+    `shared` into its shared block; the ssm family's
     `stack_groups["mlstm"]` (groups, slstm_every - 1, ...) and
     `stack_groups["slstm"]` (groups, ...) into its mLSTM and sLSTM blocks
-    in order. Every port parameter must be filled."""
-    from repro_torch.models.model import Model
-    model = Model(cfg, device=device)
-    n = _load(model, {k: tree[k] for k in ("embed", "lm_head", "ln_f",
-                                           "heads", "patch_proj")
-                      if k in tree})
+    in order. Every port parameter must be named."""
+    cfg = model.cfg
+    out = _collect(model, {k: tree[k] for k in ("embed", "lm_head", "ln_f",
+                                                "heads", "patch_proj")
+                           if k in tree})
     if cfg.family in ("dense", "moe", "audio", "vlm"):
         for i, blk in enumerate(model.layers):
-            n += _load(blk, tree["stack"], (i,))
+            _collect(blk, tree["stack"], (i,), f"layers.{i}.", out)
     elif cfg.family == "ssm":
         groups = tree["stack_groups"]
         m = cfg.slstm_every - 1
         for i, blk in enumerate(model.mlstm):
-            n += _load(blk, groups["mlstm"], divmod(i, m))
+            _collect(blk, groups["mlstm"], divmod(i, m), f"mlstm.{i}.", out)
         for gi, blk in enumerate(model.slstm):
-            n += _load(blk, groups["slstm"], (gi,))
+            _collect(blk, groups["slstm"], (gi,), f"slstm.{gi}.", out)
     else:
         ae = cfg.attn_every
         g = cfg.n_layers // ae
         for i, blk in enumerate(model.mamba):
             if i < g * ae:
-                n += _load(blk, tree["stack_groups"], divmod(i, ae))
+                _collect(blk, tree["stack_groups"], divmod(i, ae),
+                         f"mamba.{i}.", out)
             else:
-                n += _load(blk, tree["stack_tail"], (i - g * ae,))
-        n += _load(model.shared, tree["shared"])
-    expected = sum(1 for _ in model.parameters())
-    if n != expected:
-        raise ValueError(f"filled {n} of the port's {expected} parameters")
+                _collect(blk, tree["stack_tail"], (i - g * ae,),
+                         f"mamba.{i}.", out)
+        _collect(model.shared, tree["shared"], (), "shared.", out)
+    names = [n for n, _ in model.named_parameters()]
+    if sorted(out) != sorted(names):
+        raise ValueError(f"filled {len(out)} of the port's {len(names)} "
+                         f"parameters")
+    return out
+
+
+def model_params_from_reference(cfg, tree: dict, device=None):
+    """A port `Model` for `cfg` holding the reference's parameters `tree`
+    (nested dicts of NumPy arrays, e.g. `jax.tree.map(np.asarray,
+    params)`), unstacked as `reference_arrays` says."""
+    from repro_torch.models.model import Model
+    model = Model(cfg, device=device)
+    with torch.no_grad():
+        for name, arr in reference_arrays(model, tree).items():
+            model.get_parameter(name).copy_(
+                torch.from_numpy(np.array(arr, order="C")))
     return model
+
+
+def _field(obj, name):
+    return obj[name] if isinstance(obj, dict) else getattr(obj, name)
+
+
+def train_state_from_reference(ref_state, model):
+    """A port `TrainState` from the reference's: `ref_state` carries
+    `params`, `opt` ({"m", "v"[, "err"]: parameter pytrees, "step"}) and
+    `step` as attributes or keys, with NumPy leaves (e.g. `jax.tree.map(
+    np.asarray, state)`). The params are copied into `model`'s parameters
+    (the masters), the moments and residual into float32 tensors on the
+    model's device keyed by the same names, and the step counts cross as
+    ints."""
+    from repro_torch.train.train_step import TrainState
+    dev = model.device
+    ref_opt = _field(ref_state, "opt")
+
+    def tensors(tree):
+        return {n: torch.from_numpy(np.array(a, dtype=np.float32,
+                                             order="C")).to(dev)
+                for n, a in reference_arrays(model, tree).items()}
+    with torch.no_grad():
+        for name, t in tensors(_field(ref_state, "params")).items():
+            model.get_parameter(name).copy_(t)
+    opt = {key: tensors(ref_opt[key]) for key in ("m", "v", "err")
+           if key in ref_opt}
+    opt["step"] = int(np.asarray(ref_opt["step"]))
+    return TrainState(params=dict(model.named_parameters()), opt=opt,
+                      step=int(np.asarray(_field(ref_state, "step"))))

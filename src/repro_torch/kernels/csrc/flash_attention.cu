@@ -85,6 +85,7 @@ constexpr int kProducerRegs = 24;
 
 struct FwdArgs {
   void* o;
+  float* lse;                       // (B, H, Sq) or null (serving)
   long long o_sb, o_ss, o_sh;
   int B, Sq, Sk, H, KV;
   int causal, window;
@@ -389,6 +390,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
     const float inv0 = 1.f / fmaxf(l0, 1e-30f);
     const float inv1 = 1.f / fmaxf(l1, 1e-30f);
+    if (a.lse != nullptr && t == 0) {
+      // natural log-sum-exp of the row's scaled scores: m * scale + ln(l)
+      float* L = a.lse + (static_cast<long long>(b) * a.H + h) * a.Sq;
+      if (row0 < a.Sq)
+        L[row0] = (r.m0 * sl2 + log2f(fmaxf(l0, 1e-30f))) * (1.f / kLog2e);
+      if (row1 < a.Sq)
+        L[row1] = (r.m1 * sl2 + log2f(fmaxf(l1, 1e-30f))) * (1.f / kLog2e);
+    }
     __nv_bfloat16* O = static_cast<__nv_bfloat16*>(a.o) + b * a.o_sb +
                        h * a.o_sh;
 #pragma unroll
@@ -456,10 +465,12 @@ enum { kErrNoEncoder = -1, kErrEncodeQ = -2, kErrEncodeK = -3,
 // q, k, v, out bfloat16 as described above. `maps` holds 11 values for each
 // of q, k and v in turn: dims (dh, heads, S, B) in elements, strides of
 // heads, S and B in bytes, and the box (64, 1, rows, 1). out is written
-// through element strides. Returns 0 on a clean launch, a cudaError_t, or
-// one of the codes above.
+// through element strides. `lse`, if not null, receives each row's
+// log-sum-exp, (B, H, Sq) float32 (what the backward recomputes P from);
+// the output is the same either way. Returns 0 on a clean launch, a
+// cudaError_t, or one of the codes above.
 extern "C" int flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o,
+    const void* q, const void* k, const void* v, void* o, void* lse,
     const unsigned long long* maps, int B, int Sq, int Sk, int H, int KV,
     int dh, long long o_sb, long long o_ss, long long o_sh, int causal,
     int window, float scale, void* stream) {
@@ -493,9 +504,9 @@ extern "C" int flash_attention_fwd(
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
       return kErrEncodeQ - i;
   }
-  FwdArgs a{o,  o_sb,   o_ss,   o_sh,          B,
-            Sq, Sk,     H,      KV,            causal,
-            window, (int)n_qtiles, scale * kLog2e};
+  FwdArgs a{o,      static_cast<float*>(lse), o_sb,   o_ss,
+            o_sh,   B,  Sq, Sk, H, KV, causal, window, (int)n_qtiles,
+            scale * kLog2e};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dh) {
     case 32: return (int)launch<32>(tm, a, (int)blocks, s);

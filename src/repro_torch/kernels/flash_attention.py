@@ -19,6 +19,17 @@ of each TMA map), `padded_head_dim` and `check_inputs` (what the kernel
 refuses). What the kernel decides itself, its ring depth and which (batch,
 head, q tile) each block takes, is read from the built library
 (`kernel_tiles`, `block_tile`).
+
+The gradient. `flash_attention_cuda(..., return_lse=True)` also stores each
+row's log-sum-exp (B, H, Sq) float32; serving passes a null pointer there,
+so its output and its code path are the same as without it.
+`flash_attention_bwd_cuda` launches `csrc/flash_attention_bwd.cu`, which
+computes dq, dk and dv from q, k, v, o, the LSE and do with the FA2
+formulas (P recomputed from the LSE), deterministically: no atomics, every
+gradient element summed by one thread in a fixed order. The TPU package
+has no backward kernel (its tests differentiate the jnp chunked route), so
+this one replaces none; its plain version is `flash_attention_bwd_plain`,
+the same formulas in float32 over chunks.
 """
 from __future__ import annotations
 
@@ -31,6 +42,7 @@ from repro_torch.kernels.build import MODEL_NVCC_FLAGS, load_library
 from repro_torch.models.attention import chunked_attention
 
 SOURCES = ("flash_attention.cu",)
+BWD_SOURCES = ("flash_attention_bwd.cu",)
 # Instantiated in the CUDA source: the registry's head dims (112 for
 # zamba2-7b, 128 for yi / qwen / granite), the reference sweep's 64 and 96,
 # and 32, the reduced `smoke_config` models' (the serve CLI on a card).
@@ -46,8 +58,9 @@ _ERRORS = {-1: "the driver has no cuTensorMapEncodeTiled",
            -3: "encoding the tensor map of k failed",
            -4: "encoding the tensor map of v failed"}
 
-# Launches of the CUDA kernel; the plain version never counts.
-launches = {"flash_attention": 0}
+# Launches of the CUDA kernels (the backward's three launches count once, as
+# one call of its entry point); the plain versions never count.
+launches = {"flash_attention": 0, "flash_attention_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -65,8 +78,21 @@ def _library():
 def _kernel_lib():
     fn = _library().flash_attention_fwd
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [P, P, P, P, ctypes.POINTER(ctypes.c_ulonglong)] + [
+    fn.argtypes = [P, P, P, P, P, ctypes.POINTER(ctypes.c_ulonglong)] + [
         I] * 6 + [L] * 3 + [I, I, ctypes.c_float, P]
+    fn.restype = I
+    return fn
+
+
+def _bwd_library():
+    return load_library("flash_attention_bwd", BWD_SOURCES, MODEL_NVCC_FLAGS)
+
+
+def _bwd_kernel_lib():
+    fn = _bwd_library().flash_attention_bwd
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [P] * 10 + [I] * 6 + [ctypes.POINTER(ctypes.c_longlong),
+                                        I, I, ctypes.c_float, P]
     fn.restype = I
     return fn
 
@@ -160,23 +186,27 @@ def check_inputs(q, k, v) -> None:
                          "kernel does not take (see kernel_takes_strides)")
 
 
-def flash_attention_cuda(q, k, v, *, causal=True, window=0):
+def flash_attention_cuda(q, k, v, *, causal=True, window=0,
+                         return_lse=False):
     """q: (B, Sq, H, dh); k, v: (B, Sk, KV, dh); CUDA bfloat16 that
-    `check_inputs` accepts. Scale 1/sqrt(dh). Returns (B, Sq, H, dh)."""
-    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
-        raise ValueError("flash_attention_cuda takes CUDA tensors on one "
-                         "device")
+    `check_inputs` accepts. Scale 1/sqrt(dh). Returns (B, Sq, H, dh), and
+    with `return_lse` also the rows' log-sum-exp (B, H, Sq) float32 (the
+    same output; without it the kernel's LSE pointer is null)."""
+    _on_one_card(q, k, v)
     check_inputs(q, k, v)
     b, sq, h, dh = q.shape
     _, sk, kv, _ = k.shape
     out = torch.empty((b, sq, h, dh), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if out.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     maps = (ctypes.c_ulonglong * 33)(*tensor_maps(q, k, v))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _kernel_lib()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), maps,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), maps,
             b, sq, sk, h, kv, dh,
             out.stride(0), out.stride(1), out.stride(2),
             int(bool(causal)), int(window), 1.0 / math.sqrt(dh), stream)
@@ -184,4 +214,129 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=0):
         raise RuntimeError(f"flash_attention_fwd launch failed: "
                            f"{_ERRORS.get(rc, f'CUDA error {rc}')}")
     launches["flash_attention"] += 1
-    return out
+    return (out, lse) if return_lse else out
+
+
+def _on_one_card(*tensors) -> None:
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError("the flash attention kernels take CUDA tensors on "
+                         "one device")
+
+
+def check_bwd_inputs(q, k, v, o, lse, do) -> None:
+    """Raise ValueError on what the backward kernel does not take: q, k, v
+    as `check_inputs` says, o and do bfloat16 of q's shape, lse float32
+    (B, H, Sq) contiguous, and o and do with strides the kernel reads
+    (`kernel_takes_strides`)."""
+    check_inputs(q, k, v)
+    b, sq, h, _ = q.shape
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != torch.bfloat16:
+            raise ValueError(f"flash_attention_bwd_cuda: {name} must be "
+                             f"bfloat16 {tuple(q.shape)}; got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    if not kernel_takes_strides(o, do):
+        raise ValueError("flash_attention_bwd_cuda: strides or alignment "
+                         "of o / do the kernel does not take")
+    if (lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, sq)
+            or not lse.is_contiguous()):
+        raise ValueError(f"flash_attention_bwd_cuda: lse must be float32 "
+                         f"({b}, {h}, {sq}) contiguous; got {lse.dtype} "
+                         f"{tuple(lse.shape)}")
+
+
+def bwd_kernel_tiles() -> dict:
+    """The built backward's tiles (needs nvcc): keys per block of its dK/dV
+    launch and queries per step of its loop; query rows per block of its dQ
+    launch and keys per step of its loop."""
+    out = (ctypes.c_int * 4)()
+    _bwd_library().flash_attention_bwd_tiles(out)
+    return {"dkdv_block_k": out[0], "dkdv_step_q": out[1],
+            "dq_block_q": out[2], "dq_step_k": out[3]}
+
+
+def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal=True, window=0):
+    """The gradient of `flash_attention_cuda` (scale 1/sqrt(dh)) at output
+    gradient do: q (B, Sq, H, dh), k, v (B, Sk, KV, dh), o and do (B, Sq,
+    H, dh), all CUDA bfloat16, and the forward's lse (B, H, Sq) float32.
+    Returns (dq, dk, dv) bfloat16, contiguous, of q's, k's and v's shapes.
+    Three launches in one call of the C entry point: D = rowsum(do * o),
+    then dk and dv (one block per 128-key tile of a (batch, kv head),
+    looping over the group's query heads and their query tiles), then dq
+    (one block per 128-row query tile, looping over key tiles)."""
+    _on_one_card(q, k, v, o, lse, do)
+    check_bwd_inputs(q, k, v, o, lse, do)
+    b, sq, h, dh = q.shape
+    _, sk, kv, _ = k.shape
+    dq = torch.empty((b, sq, h, dh), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, sk, kv, dh), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    if dq.numel() == 0 or dk.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 15)(*(
+        st for t in (q, k, v, o, do) for st in t.stride()[:3]))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _bwd_kernel_lib()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), delta.data_ptr(), b, sq, sk, h, kv, dh, strides,
+            int(bool(causal)), int(window), 1.0 / math.sqrt(dh), stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error "
+                           f"{rc}")
+    launches["flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal=True, window=0,
+                              chunk_q=1024, chunk_k=1024):
+    """The kernel's backward in plain float32 torch, over (chunk_q,
+    chunk_k) blocks (the pairs every row of a block has masked are
+    skipped): with S = q k^T / sqrt(dh) masked as the forward masks it,
+    P = exp(S - lse) (0 where masked), D = rowsum(do * o),
+    dv = P^T do, dP = do v^T, dS = P * (dP - D), dq = dS k / sqrt(dh),
+    dk = dS^T q / sqrt(dh), with dk and dv summed over the query heads of
+    each kv head. Returns (dq, dk, dv) in q's, k's and v's dtypes."""
+    b, sq, h, dh = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    scale = 1.0 / math.sqrt(dh)
+    dev = q.device
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    delta = (dof * o.float()).sum(-1)                       # (B, Sq, H)
+    lsef = lse.float().transpose(1, 2)                      # (B, Sq, H)
+    dq = torch.zeros((b, sq, h, dh), dtype=torch.float32, device=dev)
+    dk = torch.zeros((b, sk, kv, dh), dtype=torch.float32, device=dev)
+    dv = torch.zeros_like(dk)
+    for i0 in range(0, sq, chunk_q):
+        r = min(chunk_q, sq - i0)
+        qc = qf[:, i0:i0 + r].reshape(b, r, kv, g, dh)
+        doc = dof[:, i0:i0 + r].reshape(b, r, kv, g, dh)
+        dc = delta[:, i0:i0 + r].reshape(b, r, kv, g, 1)
+        lc = lsef[:, i0:i0 + r].reshape(b, r, kv, g, 1)
+        qpos = torch.arange(i0, i0 + r, device=dev)
+        for j0 in range(0, sk, chunk_k):
+            t = min(chunk_k, sk - j0)
+            kpos = torch.arange(j0, j0 + t, device=dev)
+            mask = torch.ones((r, t), dtype=torch.bool, device=dev)
+            if causal:
+                mask &= kpos[None, :] <= qpos[:, None]
+            if window:
+                mask &= kpos[None, :] > qpos[:, None] - window
+            if not bool(mask.any()):
+                continue
+            kc, vc = kf[:, j0:j0 + t], vf[:, j0:j0 + t]
+            s = torch.einsum("bcngd,btnd->bcngt", qc, kc) * scale
+            p = torch.where(mask[None, :, None, None, :], torch.exp(s - lc),
+                            0.0)
+            dv[:, j0:j0 + t] += torch.einsum("bcngt,bcngd->btnd", p, doc)
+            dp = torch.einsum("bcngd,btnd->bcngt", doc, vc)
+            ds = p * (dp - dc)
+            dq[:, i0:i0 + r] += torch.einsum(
+                "bcngt,btnd->bcngd", ds, kc).reshape(b, r, h, dh)
+            dk[:, j0:j0 + t] += torch.einsum("bcngt,bcngd->btnd", ds, qc)
+    return ((dq * scale).to(q.dtype), (dk * scale).to(k.dtype),
+            dv.to(v.dtype))

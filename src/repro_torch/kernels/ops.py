@@ -14,6 +14,15 @@ The wrappers keep the model layout at their interface ((B, S, heads, dh),
 (..., D)); the kernels read it in place through strides, so nothing is
 folded to (B*H, S, dh) and nothing is padded in memory. Where a view's
 strides do not suit a kernel the wrapper makes it contiguous first.
+
+Gradients. On a CPU tensor autograd differentiates the plain routes. On a
+CUDA tensor, `flash_attention` under grad (grad mode on and an input that
+requires grad) is a `torch.autograd.Function`: its forward is the kernel
+with the rows' log-sum-exp, its backward `flash_attention_bwd_cuda`.
+`ssd_scan`, `mlstm_scan` and `rmsnorm` have no backward kernel yet, so on a
+CUDA tensor under grad they raise: a ctypes kernel returns a tensor without
+a `grad_fn`, and a backward through it would leave every gradient upstream
+of it silently zero.
 """
 from __future__ import annotations
 
@@ -36,6 +45,44 @@ def _on_card(x: torch.Tensor) -> bool:
     raise ValueError(f"unsupported device {x.device}: cuda | cpu")
 
 
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _no_backward(name: str, *tensors) -> None:
+    """Raise when a CUDA kernel without a backward would be differentiated
+    (Trap: its output has no grad_fn, so the gradients would be cut)."""
+    if _needs_grad(*tensors):
+        raise NotImplementedError(
+            f"ops.{name} on the card has no backward kernel yet (ROADMAP A3's "
+            f"next item: the SSD and wide-pair backward kernels, with hybrid "
+            f"and ssm training); run it under torch.no_grad(), or on the CPU "
+            f"where autograd differentiates the plain route")
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The flash kernel with its backward kernel: the forward stores the
+    rows' log-sum-exp beside o and saves both; the backward recomputes P
+    from them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        o, lse = _fa.flash_attention_cuda(q, k, v, causal=causal,
+                                          window=window, return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        if not _fa.kernel_takes_strides(do):
+            do = do.contiguous()
+        dq, dk, dv = _fa.flash_attention_bwd_cuda(
+            q, k, v, o, lse, do, causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q, k, v, *, causal=True, window=0,
                     block_q=128, block_k=128):
     """Model-layout flash attention. q: (B, S, H, dh); k, v: (B, S, KV, dh).
@@ -45,12 +92,15 @@ def flash_attention(q, k, v, *, causal=True, window=0,
     The CPU route uses them as its chunk sizes; the CUDA kernel ignores
     them and tiles by its own 128 query rows x 128 keys. On the card it
     takes bfloat16 only (the serving engine's dtype) and raises on
-    float32."""
+    float32; under grad it is `_FlashAttention` (kernel forward with LSE,
+    kernel backward), else the forward kernel alone."""
     if not _on_card(q):
         return chunked_attention(q, k, v, causal=causal, window=window,
                                  chunk_q=block_q, chunk_k=block_k)
     q, k, v = (t if _fa.kernel_takes_strides(t) else t.contiguous()
                for t in (q, k, v))
+    if _needs_grad(q, k, v):
+        return _FlashAttention.apply(q, k, v, causal, window)
     return _fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
 
 
@@ -75,6 +125,7 @@ def ssd_scan(q, k, v, log_a, beta, *, chunk=256):
     both."""
     if not _on_card(q):
         return linear_scan_chunked(q, k, v, log_a, beta, chunk=chunk)
+    _no_backward("ssd_scan", q, k, v, log_a, beta)
     kernel = {"ssd_scan": _ssd.ssd_scan_cuda,
               "ssd_scan_wide": _ssdw.ssd_scan_wide_cuda}[
         ssd_kernel_for(q.shape[-1], v.shape[-1])]
@@ -93,6 +144,7 @@ def mlstm_scan(q, k, v, log_a, beta, *, chunk=256):
     decays and causal scores once for both and never stores the ones."""
     if not _on_card(q):
         return _ssdw.mlstm_scan_plain(q, k, v, log_a, beta, chunk=chunk)
+    _no_backward("mlstm_scan", q, k, v, log_a, beta)
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     return _ssdw.mlstm_scan_cuda(q, k, v, log_a.float(), beta.float(),
                                  chunk=chunk)
@@ -102,6 +154,7 @@ def rmsnorm(x, w, *, eps=1e-5):
     """x: (..., D); w: (D,)."""
     if not _on_card(x):
         return rmsnorm_ref(x, w, eps)
+    _no_backward("rmsnorm", x, w)
     shape = x.shape
     out = _rn.rmsnorm_cuda(x.reshape(-1, shape[-1]).contiguous(),
                            w.contiguous(), eps)

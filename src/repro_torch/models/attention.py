@@ -45,7 +45,7 @@ def naive_attention(q, k, v, *, causal=True, window=0, q_offset=0):
 
 
 def chunked_attention(q, k, v, *, causal=True, window=0, q_offset=0,
-                      chunk_q=1024, chunk_k=1024):
+                      chunk_q=1024, chunk_k=1024, return_lse=False):
     """Online-softmax attention, O(chunk_q * chunk_k) score memory.
 
     Outer loop over query chunks, inner loop over KV chunks with a running
@@ -53,6 +53,10 @@ def chunked_attention(q, k, v, *, causal=True, window=0, q_offset=0,
     Every (q chunk, k chunk) pair is visited, as in the reference: a row
     whose first chunk is fully masked picks up exp(0) terms that the finite
     NEG_INF's correction exp(NEG_INF - m) = 0 wipes at its first real key.
+
+    With `return_lse` also returns each row's log-sum-exp of its masked,
+    scaled scores, m + log(l), as (B, H, Sq) float32: what the backward
+    recomputes the softmax from (`kernels.flash_attention`).
     """
     b, sq, h, dh = q.shape
     sk = k.shape[1]
@@ -64,7 +68,7 @@ def chunked_attention(q, k, v, *, causal=True, window=0, q_offset=0,
     scale = 1.0 / math.sqrt(dh)
     dev = q.device
     qf, kf, vf = q.float(), k.float(), v.float()
-    outs = []
+    outs, lses = [], []
     for i in range(nq):
         qc = qf[:, i * cq:(i + 1) * cq]
         rows = qc.shape[1]
@@ -101,7 +105,13 @@ def chunked_attention(q, k, v, *, causal=True, window=0, q_offset=0,
             m = m_new
         out = acc / torch.clamp(l[..., None], min=1e-30)
         outs.append(out.reshape(b, cq, h, dh)[:, :rows])
-    return torch.cat(outs, dim=1).to(q.dtype)
+        if return_lse:
+            lse = m + torch.log(torch.clamp(l, min=1e-30))
+            lses.append(lse.reshape(b, cq, h)[:, :rows].transpose(1, 2))
+    out = torch.cat(outs, dim=1).to(q.dtype)
+    if return_lse:
+        return out, torch.cat(lses, dim=2)
+    return out
 
 
 def decode_attention(q, k_cache, v_cache, pos, *, window=0, kpos=None):

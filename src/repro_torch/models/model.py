@@ -12,6 +12,7 @@ package's own parameters instead. Then:
     init_cache(batch_size, cache_len) -> cache
     prefill(batch, cache_len) -> (last_logits, cache)
     decode_step(tokens, cache, pos) -> (logits, cache)
+    loss(batch) -> (total, {"ce", "aux"})
 
 A batch is {"tokens": (B, S)}; audio's tokens are (B, K, S), one row per
 codebook (embeddings summed over the codebooks, one head each), and vlm's
@@ -30,8 +31,18 @@ tail of 3). The ssm family is n_layers / slstm_every groups, each of
 slstm_every - 1 mLSTM blocks then one sLSTM block (xlstm-1.3b: 6 x (7 + 1)
 = 48). Caches are plain dicts and lists: {"attn": [per block]},
 {"mamba": [per Mamba block], "attn": [per attention application]}, or
-{"mlstm": [...], "slstm": [...]} per block in order. Loss and training are
-not ported yet.
+{"mlstm": [...], "slstm": [...]} per block in order.
+
+Training: `loss` is the reference's mean next-token cross-entropy (audio
+over every codebook, vlm over the token positions after the patches,
+weighted by an optional "loss_mask") plus the MoE load-balancing loss, in
+float32, over `cfg.loss_chunk` positions at a time. The parameters do not
+require grad: `repro_torch.train.train_step` differentiates a compute copy
+installed with `torch.func.functional_call`. Under grad, with `cfg.remat`,
+every block of a full-sequence pass and every loss chunk is recomputed in
+the backward (`torch.utils.checkpoint`, the reference's per-block
+`jax.checkpoint`), so a block's activations and one chunk's float32
+logits live at a time.
 """
 from __future__ import annotations
 
@@ -39,6 +50,7 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -129,6 +141,19 @@ def _apply_slstm_block(p: SLSTMBlock, x, cfg, *, mode, cache, want_cache):
     y, c = L.apply_slstm(p.slstm, L.rmsnorm(x, p.ln, cfg.norm_eps), cfg,
                          mode=mode, cache=cache, want_cache=want_cache)
     return x + y, c
+
+
+def _call(remat: bool, fn, *args, **kw):
+    """fn(*args, **kw), recomputed in the backward when `remat`."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+    return fn(*args, **kw)
+
+
+def _nll(logits, targets):
+    """-log softmax(logits)[target] along the last axis, float32."""
+    lp = torch.log_softmax(logits, dim=-1)
+    return -lp.gather(-1, targets[..., None].long())[..., 0]
 
 
 def _ssm_groups(cfg: ModelConfig) -> tuple[int, int]:
@@ -233,11 +258,14 @@ class Model(nn.Module):
         the MoE blocks (a float32 0 for the other families)."""
         cfg = self.cfg
         keep = want_cache or mode == "decode"
+        remat = (cfg.remat and mode == "full" and not want_cache
+                 and torch.is_grad_enabled())
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if cfg.family in _ATTENTION_STACKS:
             new = []
             for i, blk in enumerate(self.layers):
-                x, c, a = _apply_dense_block(
+                x, c, a = _call(
+                    remat, _apply_dense_block,
                     blk, x, cfg, positions=positions, mode=mode,
                     cache=caches["attn"][i] if caches else None,
                     want_cache=want_cache)
@@ -250,12 +278,14 @@ class Model(nn.Module):
             mls, sls = [], []
             for gi, sblk in enumerate(self.slstm):
                 for i in range(gi * m, (gi + 1) * m):
-                    x, c = _apply_mlstm_block(
+                    x, c = _call(
+                        remat, _apply_mlstm_block,
                         self.mlstm[i], x, cfg, mode=mode,
                         cache=caches["mlstm"][i] if caches else None,
                         want_cache=want_cache)
                     mls.append(c)
-                x, c = _apply_slstm_block(
+                x, c = _call(
+                    remat, _apply_slstm_block,
                     sblk, x, cfg, mode=mode,
                     cache=caches["slstm"][gi] if caches else None,
                     want_cache=want_cache)
@@ -264,14 +294,16 @@ class Model(nn.Module):
         g = cfg.n_layers // cfg.attn_every
         mam, att = [], []
         for i, blk in enumerate(self.mamba):
-            x, c = _apply_mamba_block(
+            x, c = _call(
+                remat, _apply_mamba_block,
                 blk, x, cfg, mode=mode,
                 cache=caches["mamba"][i] if caches else None,
                 want_cache=want_cache)
             mam.append(c)
             gi, last = divmod(i + 1, cfg.attn_every)
             if last == 0 and gi <= g:       # after each full group of blocks
-                x, c, _ = _apply_dense_block(
+                x, c, _ = _call(
+                    remat, _apply_dense_block,
                     self.shared, x, cfg, positions=positions, mode=mode,
                     cache=caches["attn"][gi - 1] if caches else None,
                     want_cache=want_cache, window=cfg.sliding_window)
@@ -290,6 +322,60 @@ class Model(nn.Module):
                                     caches=None, want_cache=False)
         logits = self._head(x)
         return (logits, aux) if with_aux else logits
+
+    def loss(self, batch: dict):
+        """Mean next-token cross-entropy plus the MoE load-balancing loss:
+        (total, {"ce", "aux"}), float32 scalars. batch as `forward` takes
+        it plus "targets" ((B, S); audio (B, K, S)) and optionally
+        "loss_mask" ((B, S) float; not audio's). Over `cfg.loss_chunk`
+        positions at a time unless it is 0 or the family is audio (the
+        reference's `loss` and `_loss_chunked`)."""
+        cfg = self.cfg
+        if cfg.loss_chunk and cfg.family != "audio":
+            return self._loss_chunked(batch)
+        logits, aux = self.forward(batch, with_aux=True)
+        targets = batch["targets"]
+        if cfg.family == "audio":
+            # logits (B, S, K, V), targets (B, K, S)
+            nll = _nll(logits, targets.transpose(1, 2))
+            mask = torch.ones_like(nll)
+        else:
+            if cfg.family == "vlm":
+                logits = logits[:, logits.shape[1] - targets.shape[1]:]
+            nll = _nll(logits, targets)
+            mask = batch.get("loss_mask")
+            mask = torch.ones_like(nll) if mask is None else mask.float()
+        ce = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+        return ce + aux, {"ce": ce, "aux": aux}
+
+    def _loss_chunk_nll(self, x, targets, mask):
+        """Masked nll summed over one chunk of positions."""
+        return (_nll(self._head(x), targets) * mask).sum()
+
+    def _loss_chunked(self, batch: dict):
+        """`loss` over sequence chunks of `cfg.loss_chunk` positions: each
+        chunk's (B, chunk, V) float32 logits are made, reduced and (under
+        grad) dropped, and remade in the backward."""
+        cfg = self.cfg
+        x = self._embed(batch)
+        positions = torch.arange(x.shape[1], device=x.device)
+        x, _, aux = self._run_stack(x, positions=positions, mode="full",
+                                    caches=None, want_cache=False)
+        targets = batch["targets"]
+        if cfg.family == "vlm":
+            x = x[:, x.shape[1] - targets.shape[1]:]
+        mask = batch.get("loss_mask")
+        mask = (torch.ones(targets.shape, dtype=torch.float32,
+                           device=x.device) if mask is None else mask.float())
+        remat = torch.is_grad_enabled()
+        c = min(cfg.loss_chunk, x.shape[1])
+        nll_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(0, x.shape[1], c):
+            nll_sum = nll_sum + _call(
+                remat, self._loss_chunk_nll, x[:, i:i + c],
+                targets[:, i:i + c], mask[:, i:i + c])
+        ce = nll_sum / torch.clamp(mask.sum(), min=1.0)
+        return ce + aux, {"ce": ce, "aux": aux}
 
     def init_cache(self, batch: int, cache_len: int) -> dict:
         cfg, dev = self.cfg, self.device

@@ -949,3 +949,137 @@ def test_profile_span_waits_on_the_card(cuda):
     end.record()
     end.synchronize()
     assert span.dur * 1e3 >= 0.9 * start.elapsed_time(end) > 1.0
+
+
+# ------------------------------------------- flash attention's backward
+
+# bf16 gradients, kernel vs plain: |d| <= BWD_TOL * (rms of the plain
+# tensor + |plain|). The kernel rounds P and dS to bf16 as the operands of
+# its products (as FA2 does), and at the first positions, where a query
+# attends a few keys and P is large, that leaves entries a few per cent
+# off (0.03-0.08 on an H100 at the smoke's shapes; a plain version
+# rounding P and dS the same way reads the same); a skipped tile reads 0.4
+# or more (chip_smoke.py's BWD_TOL). The tensor's rms,
+# not a row's: some rows are exactly 0 in the plain version (a causal
+# first query row's dq: P = 1, dP = D).
+BWD_TOL = 0.15
+
+
+def _rows_close(a, b, tol):
+    b = b.float()
+    d = (a.float() - b).abs()
+    scale = b.square().mean().sqrt() + b.abs()
+    return bool((d <= tol * scale).all()), float((d / scale).max())
+
+
+def _bwd_inputs(cuda, seed, b, s, h, kv, dh, window):
+    """q, k, v, do bf16 and the forward's o and lse from the kernel."""
+    from repro_torch.kernels import flash_attention as FA
+    rng = np.random.default_rng(seed)
+    q = _rand(rng, (b, s, h, dh), torch.bfloat16, cuda)
+    k = _rand(rng, (b, s, kv, dh), torch.bfloat16, cuda)
+    v = _rand(rng, (b, s, kv, dh), torch.bfloat16, cuda)
+    do = _rand(rng, (b, s, h, dh), torch.bfloat16, cuda)
+    o, lse = FA.flash_attention_cuda(q, k, v, window=window,
+                                     return_lse=True)
+    return q, k, v, o, lse, do
+
+
+@pytest.mark.parametrize("b,s,h,kv,dh,window", [
+    (1, 256, 4, 4, 128, 0), (2, 300, 8, 2, 128, 0),      # causal, GQA 4
+    (1, 1000, 4, 4, 112, 130), (2, 333, 4, 4, 112, 50),  # windows
+    (1, 1500, 6, 6, 64, 0), (2, 200, 6, 2, 96, 0),       # ragged; GQA 3
+    (1, 129, 6, 2, 32, 0), (2, 257, 3, 1, 64, 64)])      # every HEAD_DIMS
+def test_flash_attention_bwd_kernel_matches_plain_version(cuda, b, s, h, kv,
+                                                          dh, window):
+    """dq, dk, dv of the backward kernel against `flash_attention_bwd_plain`
+    on the same inputs (the forward's o and lse from the kernel), and bit
+    for bit the same in a second run (no atomics)."""
+    from repro_torch.kernels import flash_attention as FA
+    args = _bwd_inputs(cuda, s + dh + h, b, s, h, kv, dh, window)
+    before = FA.launches["flash_attention_bwd"]
+    got = FA.flash_attention_bwd_cuda(*args, window=window)
+    again = FA.flash_attention_bwd_cuda(*args, window=window)
+    assert FA.launches["flash_attention_bwd"] == before + 2
+    plain = FA.flash_attention_bwd_plain(*args, window=window, chunk_q=256,
+                                         chunk_k=256)
+    torch.cuda.synchronize()
+    for name, x, y, z in zip(("dq", "dk", "dv"), got, again, plain):
+        assert x.shape == z.shape and x.dtype == torch.bfloat16
+        assert torch.equal(x, y), name
+        ok, rel = _rows_close(x, z, BWD_TOL)
+        assert ok, (name, rel)
+
+
+@pytest.mark.parametrize("dh", [32, 64, 96, 112, 128])
+def test_flash_attention_lse_leaves_the_output_bit_equal(cuda, dh):
+    """The forward with its LSE store gives the serving forward's output
+    bit for bit, and an LSE within 1e-3 of the plain version's."""
+    from repro_torch.kernels import flash_attention as FA
+    rng = np.random.default_rng(dh)
+    b, s, h, kv = 2, 333, 4, 2
+    q = _rand(rng, (b, s, h, dh), torch.bfloat16, cuda)
+    k = _rand(rng, (b, s, kv, dh), torch.bfloat16, cuda)
+    v = _rand(rng, (b, s, kv, dh), torch.bfloat16, cuda)
+    for window in (0, 100):
+        o = FA.flash_attention_cuda(q, k, v, window=window)
+        o2, lse = FA.flash_attention_cuda(q, k, v, window=window,
+                                          return_lse=True)
+        _, lse_plain = FA.flash_attention_plain(q, k, v, window=window,
+                                                return_lse=True)
+        torch.cuda.synchronize()
+        assert torch.equal(o, o2)
+        assert lse.shape == (b, h, s) and lse.dtype == torch.float32
+        torch.testing.assert_close(lse, lse_plain, atol=1e-3, rtol=0)
+
+
+def test_flash_attention_autograd_runs_the_kernels(cuda):
+    """`ops.flash_attention` under grad on the card: one forward launch
+    (with the LSE) and one backward launch, no plain route, and the
+    gradients of its strided q, k, v views against the plain backward."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(11)
+    b, s, h, kv, dh, window = 2, 300, 8, 2, 128, 100
+    qkv = _rand(rng, (b, s, (h + 2 * kv) * dh), torch.bfloat16, cuda)
+    qkv.requires_grad_(True)
+    q, k, v = (t.reshape(b, s, -1, dh) for t in torch.split(
+        qkv, [h * dh, kv * dh, kv * dh], dim=-1))
+    do = _rand(rng, (b, s, h, dh), torch.bfloat16, cuda)
+    before = dict(FA.launches)
+    out = ops.flash_attention(q, k, v, window=window)
+    out.backward(do)
+    assert FA.launches["flash_attention"] == before["flash_attention"] + 1
+    assert FA.launches["flash_attention_bwd"] == \
+        before["flash_attention_bwd"] + 1
+    with torch.no_grad():
+        o, lse = FA.flash_attention_plain(q, k, v, window=window,
+                                          return_lse=True)
+        plain = FA.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                             window=window)
+    grads = torch.split(qkv.grad, [h * dh, kv * dh, kv * dh], dim=-1)
+    for name, g, z in zip(("dq", "dk", "dv"), grads, plain):
+        ok, rel = _rows_close(g.reshape(z.shape), z, BWD_TOL)
+        assert ok, (name, rel)
+
+
+def test_kernels_without_backward_raise_under_grad(cuda):
+    """`ssd_scan`, `mlstm_scan` and `rmsnorm` on the card have no backward
+    kernel: under grad they raise instead of cutting the gradients; under
+    no_grad they run."""
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(3)
+    b, s, h, d = 1, 64, 2, 64
+    x = _rand(rng, (b, s, h, d), torch.bfloat16, cuda).requires_grad_(True)
+    la = -torch.rand((b, s, h), device=cuda)
+    beta = torch.rand((b, s, h), device=cuda)
+    w = torch.zeros(d, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(NotImplementedError, match="A3"):
+        ops.ssd_scan(x, x, x, la, beta, chunk=32)
+    with pytest.raises(NotImplementedError, match="A3"):
+        ops.mlstm_scan(x, x, x, la, beta, chunk=32)
+    with pytest.raises(NotImplementedError, match="A3"):
+        ops.rmsnorm(x, w)
+    with torch.no_grad():
+        ops.ssd_scan(x, x, x, la, beta, chunk=32)
+        ops.rmsnorm(x, w)

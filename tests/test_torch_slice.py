@@ -136,7 +136,7 @@ def test_smoke_wide_check_sees_a_cut_carry_at_slow_decay(dv):
 
 @pytest.mark.parametrize("name,entry,replaces,counters", [
     ("flash_attention", "flash_attention_fwd", "flash_attention_pallas",
-     {"flash_attention"}),
+     {"flash_attention", "flash_attention_bwd"}),
     ("ssd_scan", "ssd_scan_fwd", "ssd_scan_pallas", {"ssd_scan"}),
     ("ssd_scan_wide", "ssd_scan_wide_fwd", "ssd_scan_pallas",
      {"ssd_scan_wide", "mlstm_scan"}),
