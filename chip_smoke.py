@@ -2511,6 +2511,11 @@ SSD_PREVIOUS_MS_QUOTED = 6.09
 # 700 W: quoted from PERF.md's kernel table, printed beside this run's
 # times as such and not a reading of this run.
 FLASH_PREVIOUS_MS_QUOTED = (12.28, 3.33, 4.76, 5.07)
+# The backward kernel's earlier design (mma.sync, cp.async, one dK / dV
+# block per 128-key tile of a kv head) at BWD_SHAPES below, on an NVIDIA
+# H100 80GB HBM3 at 700 W: quoted from PERF.md's kernel table, printed
+# beside this run's times as such and not a reading of this run.
+BWD_PREVIOUS_MS_QUOTED = (3.136, 6.238, 0.885, 0.905)
 RMS_TOL = 2e-2          # bf16 RMSNorm (the reference sweep's)
 # flash attention's backward kernel against its plain version (float32 on
 # the same bf16 inputs): for each of dq, dk and dv, max |d| / (rms of the
@@ -2690,14 +2695,30 @@ def attention_bwd_bound(b, s, h, kv, dh, window):
                   BF16_OPS_PER_S)
 
 
+BWD_LAUNCHES = ("delta", "dkdv", "sum", "dq")   # the backward's kernels
+
+
 def flash_bwd_kernel_stats(dh: int) -> dict:
-    """ptxas's registers and spills for the backward's dK/dV and dQ
-    kernels at head dim dh."""
+    """ptxas's registers and spills for the backward's kernels: dK / dV
+    and dQ instantiated at head dim dh, the D and partial-sum launches."""
     from repro_torch.kernels import build
     log = build.build_log.get("flash_attention_bwd", {}).get("ptxas", "")
     return {kind: st for name, st in ptxas_kernel_stats(log).items()
-            for kind in ("dkdv", "dq")
-            if f"bwd_{kind}I" in name and f"ILi{dh}E" in name}
+            for kind in BWD_LAUNCHES
+            if (f"bwd_{kind}I" in name and f"ILi{dh}E" in name)
+            or f"bwd_{kind}E" in name}
+
+
+def ptxas_serialized(lib: str) -> list[str]:
+    """The kernels of a built library whose wgmma ptxas serialized
+    ("C7512 ... insufficient register resources"): each warning line's
+    function name from what follows the anonymous namespace's
+    `_cu_<hash>` on, 40 characters."""
+    import re
+    from repro_torch.kernels import build
+    log = build.build_log.get(lib, {}).get("ptxas", "")
+    return [re.sub(r"^.*?_cu_[0-9a-f]{8}\d+", "", m.group(1))[:40]
+            for m in re.finditer(r"C7512.*function '([^']+)'", log)]
 
 
 def grad_err(a, b) -> float:
@@ -2705,6 +2726,29 @@ def grad_err(a, b) -> float:
     b = b.float()
     return float(((a.float() - b).abs() / (b.square().mean().sqrt()
                                             + b.abs())).max())
+
+
+def sdpa_bwd_call(q, k, v, do, win):
+    """A call that runs SDPA's backward for the backward kernel's inputs:
+    `scaled_dot_product_attention` on (B, H, S, dh) views of q, k, v
+    (causal, or a boolean band mask for a window; GQA enabled), its
+    forward run once here, then `torch.autograd.grad` at do each call."""
+    import torch
+    import torch.nn.functional as F
+    s, h, kv = q.shape[1], q.shape[2], k.shape[2]
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    mask = None
+    if win:
+        ones = torch.ones((s, s), dtype=torch.bool, device=q.device)
+        mask = torch.tril(ones) & ~torch.tril(ones, diagonal=-win)
+        del ones
+    out = F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, is_causal=mask is None,
+        enable_gqa=h != kv)
+    dot = do.transpose(1, 2)
+    return lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                       retain_graph=True)
 
 
 def measure_flash_bwd(dev, seed, b, s, h, kv, dh, win):
@@ -2715,7 +2759,6 @@ def measure_flash_bwd(dev, seed, b, s, h, kv, dh, win):
     from the plain gradients); two runs bit-equal; kernel, per-launch,
     plain and SDPA-backward ms, the bound, ptxas. Returns the row."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as FA
     q, k, v = _attn_inputs(dev, seed, b, s, h, kv, dh)
     g = torch.Generator(device=dev).manual_seed(seed + 1)
@@ -2758,27 +2801,16 @@ def measure_flash_bwd(dev, seed, b, s, h, kv, dh, win):
                       cpu=False)["top"]
     launch_ms = {name: sum(t["device_s"] * 1e3 for t in top
                            if f"bwd_{name}" in t["kernel"])
-                 for name in ("delta", "dkdv", "dq")}
+                 for name in BWD_LAUNCHES}
+    plan = dict(FA.last_bwd_plan)       # the plan those calls launched
     plain_ms = cuda_ms(lambda: FA.flash_attention_bwd_plain(
         *args, window=win), iters=2, warmup=1)
     fwd_ms = cuda_ms(lambda: FA.flash_attention_cuda(q, k, v, window=win),
                      iters=10, warmup=2)
     fwd_lse_ms = cuda_ms(lambda: FA.flash_attention_cuda(
         q, k, v, window=win, return_lse=True), iters=10, warmup=2)
-    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
-                  for t in (q, k, v))
-    mask = None
-    if win:
-        ones = torch.ones((s, s), dtype=torch.bool, device=dev)
-        mask = torch.tril(ones) & ~torch.tril(ones, diagonal=-win)
-        del ones
-    lib_out = F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask, is_causal=mask is None,
-        enable_gqa=h != kv)
-    dot = do.transpose(1, 2)
-    lib_ms = cuda_ms(lambda: torch.autograd.grad(
-        lib_out, (qt, kt, vt), dot, retain_graph=True), iters=5, warmup=1)
-    del lib_out, qt, kt, vt, mask, got, plain, args
+    lib_ms = cuda_ms(sdpa_bwd_call(q, k, v, do, win), iters=5, warmup=1)
+    del got, plain, args
     torch.cuda.empty_cache()
     bound, by, nbytes, ops = attention_bwd_bound(b, s, h, kv, dh, win)
     return {"B": b, "S": s, "H": h, "KV": kv, "dh": dh, "window": win,
@@ -2790,12 +2822,18 @@ def measure_flash_bwd(dev, seed, b, s, h, kv, dh, win):
             "fwd_ms": fwd_ms, "fwd_lse_ms": fwd_lse_ms,
             "bound_ms": bound, "bound_by": by, "bytes": nbytes, "ops": ops,
             "tflops": ops / ms / 1e9, "bound_share": bound / ms,
+            **{k: plan[k] for k in ("splits", "dkdv_blocks", "dq_blocks",
+                                    "scratch_bytes")},
             **{f"ptxas_{k}": st for k, st in
                flash_bwd_kernel_stats(dh).items()}}
 
 
-def print_flash_bwd(row) -> None:
+def print_flash_bwd(row, previous_ms=None) -> None:
+    """One backward row; `previous_ms`, the earlier design's time quoted
+    from PERF.md, is printed as such."""
     e, f = row["errs"], row["fault_errs"]
+    quoted = (f" (earlier design {previous_ms:.3f}, quoted from PERF.md, "
+              f"not measured here)" if previous_ms is not None else "")
     print(f"  flash bwd B={row['B']} S={row['S']} H={row['H']} "
           f"KV={row['KV']} dh={row['dh']} window={row['window']}: err "
           f"(limit {BWD_TOL}) dq {e['dq']:.2e} dk {e['dk']:.2e} dv "
@@ -2804,8 +2842,11 @@ def print_flash_bwd(row) -> None:
           f"{'bit-equal' if row['deterministic'] else 'DIFFER'}; forward "
           f"with LSE: o {'bit-equal' if row['o_bit_equal'] else 'CHANGED'},"
           f" lse err {row['lse_err']:.1e}, ms {row['fwd_lse_ms']:.3f} "
-          f"(without {row['fwd_ms']:.3f}); bwd ms {row['ms']:.3f} "
-          f"{ {k: round(v, 3) for k, v in row['launch_ms'].items()} } plain "
+          f"(without {row['fwd_ms']:.3f}); bwd ms {row['ms']:.3f}{quoted} "
+          f"{ {k: round(v, 3) for k, v in row['launch_ms'].items()} }, "
+          f"{row['splits']} split(s), {row['dkdv_blocks']} dK / dV and "
+          f"{row['dq_blocks']} dQ blocks, scratch "
+          f"{row['scratch_bytes'] / 1e6:.1f} MB; plain "
           f"{row['plain_ms']:.1f} sdpa bwd {row['library_ms']:.3f} bound "
           f"{row['bound_ms']:.3f} ({row['bound_by']}) = "
           f"{row['bound_share']:.2f} of it; ptxas "
@@ -3171,9 +3212,12 @@ def phase_model_kernels(dev, detail):
         mask = None
 
     # the backward kernel at the train phase's shape and three others
+    for name in ptxas_serialized("flash_attention_bwd"):
+        print(f"  ptxas C7512: the wgmma of {name} serialized "
+              f"(insufficient register resources)")
     for i, shape in enumerate(BWD_SHAPES):
         row = measure_flash_bwd(dev, 500 + i, *shape)
-        print_flash_bwd(row)
+        print_flash_bwd(row, BWD_PREVIOUS_MS_QUOTED[i])
         faults = flash_bwd_faults(row)
         if faults:
             raise AssertionError(f"flash backward {shape}: "
@@ -3286,7 +3330,9 @@ def phase_model_kernels(dev, detail):
             shapes=[{k: r[k] for k in ("B", "S", "H", "KV", "dh", "window",
                                        "errs", "fault_errs", "ms",
                                        "launch_ms", "plain_ms",
-                                       "library_ms", "bound_ms")}
+                                       "library_ms", "bound_ms", "splits",
+                                       "dkdv_blocks", "dq_blocks",
+                                       "scratch_bytes")}
                     for r in rows["flash_attention_bwd"]]),
         "ssd_scan": entry(
             "ssd_scan", "ssd_scan.cu", "src/repro/kernels/ssd_scan.py:85",

@@ -57,9 +57,12 @@
 // about half its bound. Overlapping tile i's softmax with tile i+1's Q K^T
 // inside a warpgroup keeps S, P and O live beside the in-flight wgmma, and
 // ptxas then serialises the wgmma (C7512, "insufficient register
-// resources") at BK = 128, though it stays under the 240 registers that
-// setmaxnreg grants. That overlap at BK = 96 or 64, ping-pong turns on
-// named barriers, 3 stages and a 288-thread layout measured no faster. So:
+// resources") at BK = 128: ptxas's budget for the consumers is the 168
+// registers a thread the 384-thread launch bounds give, since a
+// setmaxnreg.inc in the consumers' branch does not raise it (measured for
+// the backward, csrc/flash_attention_bwd.cu). That overlap at BK = 96 or 64, ping-pong
+// turns on named barriers, 3 stages and a 288-thread layout measured no
+// faster. So:
 // BK = 128, 2 stages, one wgmma group at a time per consumer, O rescaled
 // only when a row max moved. Q 32 KB + 2 x (K 32 KB + V 32 KB) = 160 KB of
 // shared memory at DHP = 128, 168 registers a thread, no spills.
@@ -107,18 +110,6 @@ __device__ __forceinline__ void tile_range(const FwdArgs& a, int q0, int bq,
   *end = e;
 }
 
-// O += P V of one 16-key step, at the padded head dim.
-template <int DHP>
-__device__ __forceinline__ void wgmma_pv(float (&o)[DHP / 2],
-                                         const uint32_t* a, uint64_t db) {
-  if constexpr (DHP == 128) {
-    wgmma_rs_n128(o, a, db);
-  } else {
-    static_assert(DHP == 64, "DHP is 64 or 128");
-    wgmma_rs_n64(o, a, db);
-  }
-}
-
 // ----------------------------------------------------------------- kernel
 
 template <int DH>
@@ -135,12 +126,6 @@ struct Tile {
   static constexpr int BAR_OFF = Q_BYTES + 2 * kStages * KV_BYTES;
   static constexpr int SMEM = BAR_OFF + 8 * (1 + 4 * kStages) + 1024;
 };
-
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // Online softmax of one S tile in the log2 domain. Element e of sc is row
 // (e & 2 ? row1 : row0), key k0 + 8 (e / 4) + 2 t + (e & 1). The mask is
@@ -205,18 +190,6 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[kBK / 2], Rows& r,
   r.l1 = r.l1 * c1 + ls1;
   r.m0 = mx0;
   r.m1 = mx1;
-}
-
-// P in bf16 as the register A fragments of P V, 16 keys each.
-__device__ __forceinline__ void pack_p(const float (&sc)[kBK / 2],
-                                       uint32_t (&pa)[kBK / 16][4]) {
-#pragma unroll
-  for (int j = 0; j < kBK / 16; ++j) {
-    pa[j][0] = pack_bf16(sc[8 * j + 0], sc[8 * j + 1]);
-    pa[j][1] = pack_bf16(sc[8 * j + 2], sc[8 * j + 3]);
-    pa[j][2] = pack_bf16(sc[8 * j + 4], sc[8 * j + 5]);
-    pa[j][3] = pack_bf16(sc[8 * j + 6], sc[8 * j + 7]);
-  }
 }
 
 // One block per (batch, head, q tile): flat index (b*H + h) * n_qtiles +
@@ -342,7 +315,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       const uint32_t vs = k_tile(s) + T::KV_BYTES;
 #pragma unroll
       for (int j = 0; j < kBK / 16; ++j)
-        wgmma_pv<DHP>(o, pa[j],
+        wgmma_rs<DHP>(o, pa[j],
                       sw128_desc(vs + j * 16 * 128, T::KV_PANEL, 1024));
     };
 
@@ -366,7 +339,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       fence_regs(sc);
       mbar_arrive(empty_k(s));            // K may be refilled already
       softmax_tile(sc, r, a, k0, edge_tile(k0), sl2, c0, c1);
-      pack_p(sc, pa);
+      pack_a<kBK>(sc, pa);      // P as bf16 A fragments, 16 keys each
       if (c0 != 1.f || c1 != 1.f) {       // a row max moved: rescale O
 #pragma unroll
         for (int e = 0; e < DHP / 2; ++e) o[e] *= (e & 2) ? c1 : c0;
@@ -415,33 +388,6 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // ------------------------------------------------------------------- host
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver through the runtime, so the library
-// needs no -lcuda.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult res;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &res);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                            cudaEnableDefault, &res);
-#endif
-    if (e == cudaSuccess && res == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 template <int DH>
 cudaError_t launch(const CUtensorMap* maps, const FwdArgs& a, int blocks,
                    cudaStream_t s) {
@@ -486,24 +432,14 @@ extern "C" int flash_attention_fwd(
   const long long n_qtiles = (Sq + kBQ - 1) / kBQ;
   const long long blocks = n_qtiles * B * H;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  bind_context();
   EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return kErrNoEncoder;
   CUtensorMap tm[3];
   const void* ptrs[3] = {q, k, v};
-  for (int i = 0; i < 3; ++i) {
-    const unsigned long long* m = maps + 11 * i;
-    const cuuint64_t dims[4] = {m[0], m[1], m[2], m[3]};
-    const cuuint64_t strides[3] = {m[4], m[5], m[6]};
-    const cuuint32_t box[4] = {(cuuint32_t)m[7], (cuuint32_t)m[8],
-                               (cuuint32_t)m[9], (cuuint32_t)m[10]};
-    const cuuint32_t unit[4] = {1, 1, 1, 1};
-    if (enc(&tm[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-            const_cast<void*>(ptrs[i]), dims, strides, box, unit,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+  for (int i = 0; i < 3; ++i)
+    if (!encode_map(enc, &tm[i], ptrs[i], maps + 11 * i))
       return kErrEncodeQ - i;
-  }
   FwdArgs a{o,      static_cast<float*>(lse), o_sb,   o_ss,
             o_sh,   B,  Sq, Sk, H, KV, causal, window, (int)n_qtiles,
             scale * kLog2e};

@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: mbarriers,
-// TMA, cp.async, and warpgroup MMA (wgmma) on 128-byte-swizzled shared
-// tiles.
+// TMA (tensor maps and bulk copies), cp.async, and warpgroup MMA (wgmma)
+// on 128-byte-swizzled shared tiles; on the host, the tensor-map encoder.
 //
 // A 128-byte-swizzled tile is stored as panels of 64 bf16 columns (128
 // bytes a row); within a panel, row r's 16-byte piece c sits at piece
@@ -14,6 +14,7 @@
 #pragma once
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace repro_torch {
@@ -79,6 +80,17 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// Bulk copy (no tensor map): `bytes` (a multiple of 16) from global to
+// shared memory, both 16-byte aligned, completion counted on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
       : "memory");
 }
 
@@ -261,10 +273,97 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t* a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D (64 x N, f32) += A (64 x 16, registers) * B (16 x N, smem, MN-major),
+// N = 64 or 128 (a padded head dim).
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t* a,
+                                         uint64_t db) {
+  if constexpr (N == 128) {
+    wgmma_rs_n128(d, a, db);
+  } else {
+    static_assert(N == 64, "N is 64 or 128");
+    wgmma_rs_n64(d, a, db);
+  }
+}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&p);
+}
+
+// An f32 accumulator of 64 x N (N / 2 values a thread) in bf16 as the
+// register A fragments of N / 16 k-steps of 16 (see the map above).
+template <int N>
+__device__ __forceinline__ void pack_a(const float (&x)[N / 2],
+                                       uint32_t (&a)[N / 16][4]) {
+#pragma unroll
+  for (int j = 0; j < N / 16; ++j) {
+    a[j][0] = pack_bf16(x[8 * j + 0], x[8 * j + 1]);
+    a[j][1] = pack_bf16(x[8 * j + 2], x[8 * j + 3]);
+    a[j][2] = pack_bf16(x[8 * j + 4], x[8 * j + 5]);
+    a[j][3] = pack_bf16(x[8 * j + 6], x[8 * j + 7]);
+  }
+}
+
+// 2^x on the special-function unit (about 2 ulp; -inf gives +0).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// ------------------------------------------------------------------- host
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver through the runtime, so a library
+// needs no -lcuda; null when the driver has none.
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &res);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                            cudaEnableDefault, &res);
+#endif
+    if (e == cudaSuccess && res == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// Make the current device's primary context current on the calling thread
+// (cudaSetDevice does so since CUDA 12). The tensor-map encoder needs it,
+// and a thread that has made no runtime call yet has none: autograd's
+// backward thread, when an attention backward is the first thing it runs.
+inline void bind_context() {
+  int dev = 0;
+  if (cudaGetDevice(&dev) == cudaSuccess) cudaSetDevice(dev);
+}
+
+// A rank-4 bf16 map with the 128-byte swizzle from the 11 values the
+// Python wrappers compute (`kernels/flash_attention.py::tensor_map`): dims
+// innermost first, the three outer strides in bytes, the box.
+inline bool encode_map(EncodeTiled enc, CUtensorMap* tm, const void* ptr,
+                       const unsigned long long* m) {
+  const cuuint64_t dims[4] = {m[0], m[1], m[2], m[3]};
+  const cuuint64_t strides[3] = {m[4], m[5], m[6]};
+  const cuuint32_t box[4] = {(cuuint32_t)m[7], (cuuint32_t)m[8],
+                             (cuuint32_t)m[9], (cuuint32_t)m[10]};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return enc(tm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace sm90

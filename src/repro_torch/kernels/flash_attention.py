@@ -25,11 +25,16 @@ row's log-sum-exp (B, H, Sq) float32; serving passes a null pointer there,
 so its output and its code path are the same as without it.
 `flash_attention_bwd_cuda` launches `csrc/flash_attention_bwd.cu`, which
 computes dq, dk and dv from q, k, v, o, the LSE and do with the FA2
-formulas (P recomputed from the LSE), deterministically: no atomics, every
-gradient element summed by one thread in a fixed order. The TPU package
-has no backward kernel (its tests differentiate the jnp chunked route), so
-this one replaces none; its plain version is `flash_attention_bwd_plain`,
-the same formulas in float32 over chunks.
+formulas (P recomputed from the LSE), on the same Hopper pattern as the
+forward (TMA ring, wgmma, warp specialisation), deterministically: no
+atomics; a kv head's query heads are split over `bwd_plan(...)["splits"]`
+blocks, whose float32 partials a last launch sums in split order. Its host
+side is plain Python too: `bwd_tensor_maps` (the TMA maps of q, k, v and
+do), `bwd_plan` (the split, block counts and scratch) and
+`check_bwd_inputs`. The TPU package has no backward kernel (its tests
+differentiate the jnp chunked route), so this one replaces none; its plain
+version is `flash_attention_bwd_plain`, the same formulas in float32 over
+chunks.
 """
 from __future__ import annotations
 
@@ -56,11 +61,19 @@ ELEM_BYTES = 2
 _ERRORS = {-1: "the driver has no cuTensorMapEncodeTiled",
            -2: "encoding the tensor map of q failed",
            -3: "encoding the tensor map of k failed",
-           -4: "encoding the tensor map of v failed"}
+           -4: "encoding the tensor map of v failed",
+           -5: "encoding the tensor map of do failed"}
+# The backward's tiles (csrc/flash_attention_bwd.cu: kBK, kSQ, kBQ, kSK,
+# kBox; its entry point refuses maps with other boxes): a dK / dV block
+# takes 128 keys and steps over 64 queries, a dQ block 128 query rows and
+# steps over 64 keys; every TMA box is 64 rows of PANEL columns.
+BWD_BLOCK_K, BWD_BLOCK_Q, BWD_BOX = 128, 128, 64
 
-# Launches of the CUDA kernels (the backward's three launches count once, as
-# one call of its entry point); the plain versions never count.
+# Launches of the CUDA kernels (the backward's three or four launches count
+# once, as one call of its entry point); the plain versions never count.
 launches = {"flash_attention": 0, "flash_attention_bwd": 0}
+# The plan (`bwd_plan`) of the backward's last launch, as it was launched.
+last_bwd_plan: dict = {}
 
 
 def reset_launches() -> None:
@@ -91,8 +104,9 @@ def _bwd_library():
 def _bwd_kernel_lib():
     fn = _bwd_library().flash_attention_bwd
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P] * 10 + [I] * 6 + [ctypes.POINTER(ctypes.c_longlong),
-                                        I, I, ctypes.c_float, P]
+    fn.argtypes = [P] * 10 + [I] * 6 + [
+        ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_ulonglong),
+        I, I, I, ctypes.c_float, P]
     fn.restype = I
     return fn
 
@@ -228,7 +242,8 @@ def check_bwd_inputs(q, k, v, o, lse, do) -> None:
     """Raise ValueError on what the backward kernel does not take: q, k, v
     as `check_inputs` says, o and do bfloat16 of q's shape, lse float32
     (B, H, Sq) contiguous, and o and do with strides the kernel reads
-    (`kernel_takes_strides`)."""
+    (`kernel_takes_strides`: do goes through a TMA map like q, k and v,
+    o through its strides in 4-byte pairs)."""
     check_inputs(q, k, v)
     b, sq, h, _ = q.shape
     for name, t in (("o", o), ("do", do)):
@@ -246,49 +261,117 @@ def check_bwd_inputs(q, k, v, o, lse, do) -> None:
                          f"{tuple(lse.shape)}")
 
 
+def bwd_tensor_maps(q, k, v, do) -> list[int]:
+    """The 44 values the backward's C entry point encodes its four TMA maps
+    from: for each of q, k, v and do its dims, strides in bytes and box
+    (`tensor_map`), every box BWD_BOX rows."""
+    flat = []
+    for t in (q, k, v, do):
+        for part in tensor_map(tuple(t.shape), t.stride(), BWD_BOX):
+            flat.extend(part)
+    return flat
+
+
+def bwd_plan(b, sq, sk, h, kv, dh, *, sms, splits=None) -> dict:
+    """How the backward spreads its work on a card of `sms` SMs. The dK /
+    dV launch has one block per (128-key tile, batch, kv head, split); a
+    split takes H / KV / splits of the group's query heads. With more than
+    one split the blocks write float32 partials, (2, splits, B, Sk, KV,
+    dh), that one more launch sums in split order. `splits` (unless given)
+    is the smallest divisor of the group that gives at least 1.5 blocks an
+    SM (one block fits an SM), else the whole group: on an H100 at
+    qwen2.5-3b's (1, 4096, 16 / 2, 128) 4 splits (256 blocks) ran 0.64 ms
+    against 0.67 for 8 (512 blocks, twice the partials to sum) and 0.97
+    for 2; at (2, 2048, 24 / 8, 64) one split (256 blocks) 0.41 ms against
+    0.43 for 3 (tools/flash_bwd_variants.py). Returns the split, the block
+    counts, the padded query count and the float32 scratch the wrapper
+    allocates (the (lse, D) rows, then the partials) with its bytes."""
+    grp = h // kv
+    n_kt = -(-sk // BWD_BLOCK_K)
+    base = b * kv * n_kt
+    if splits is None:
+        splits = next((d for d in range(1, grp + 1)
+                       if grp % d == 0 and 2 * base * d >= 3 * sms),
+                      max(grp, 1))
+    if splits < 1 or grp % splits:
+        raise ValueError(f"flash_attention_bwd: splits {splits} does not "
+                         f"divide the group of {grp} query heads")
+    sq_pad = -(-sq // BWD_BOX) * BWD_BOX
+    ld = b * h * sq_pad * 2
+    part = 2 * splits * b * sk * kv * dh if splits > 1 else 0
+    return {"splits": splits, "heads_per_split": grp // splits,
+            "dkdv_blocks": base * splits,
+            "dq_blocks": b * h * -(-sq // BWD_BLOCK_Q), "sq_pad": sq_pad,
+            "scratch_floats": ld + part, "partial_floats": part,
+            "scratch_bytes": 4 * (ld + part)}
+
+
 def bwd_kernel_tiles() -> dict:
-    """The built backward's tiles (needs nvcc): keys per block of its dK/dV
-    launch and queries per step of its loop; query rows per block of its dQ
-    launch and keys per step of its loop."""
-    out = (ctypes.c_int * 4)()
+    """The built backward's tiles (needs nvcc): keys per block of its dK /
+    dV launch, queries per step of its ring and the ring's depth; query
+    rows per block of its dQ launch, keys per step and depth; TMA box
+    rows."""
+    out = (ctypes.c_int * 7)()
     _bwd_library().flash_attention_bwd_tiles(out)
     return {"dkdv_block_k": out[0], "dkdv_step_q": out[1],
-            "dq_block_q": out[2], "dq_step_k": out[3]}
+            "dkdv_stages": out[2], "dq_block_q": out[3], "dq_step_k": out[4],
+            "dq_stages": out[5], "box_rows": out[6]}
 
 
-def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal=True, window=0):
+def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal=True,
+                             window=0):
     """The gradient of `flash_attention_cuda` (scale 1/sqrt(dh)) at output
     gradient do: q (B, Sq, H, dh), k, v (B, Sk, KV, dh), o and do (B, Sq,
     H, dh), all CUDA bfloat16, and the forward's lse (B, H, Sq) float32.
     Returns (dq, dk, dv) bfloat16, contiguous, of q's, k's and v's shapes.
-    Three launches in one call of the C entry point: D = rowsum(do * o),
-    then dk and dv (one block per 128-key tile of a (batch, kv head),
-    looping over the group's query heads and their query tiles), then dq
-    (one block per 128-row query tile, looping over key tiles)."""
+    One call of the C entry point: D = rowsum(do * o) with the LSE rows,
+    then dk and dv (a block per 128-key tile of a (batch, kv head) and
+    split of its query heads), the splits' fixed-order sum when there is
+    more than one, then dq (a block per 128-row query tile); the split is
+    `bwd_plan`'s for this card."""
     _on_one_card(q, k, v, o, lse, do)
     check_bwd_inputs(q, k, v, o, lse, do)
+    b, sq, h, dh = q.shape
+    _, sk, kv, _ = k.shape
+    plan = bwd_plan(b, sq, sk, h, kv, dh, sms=torch.cuda
+                    .get_device_properties(q.device).multi_processor_count)
+    return _bwd_launch(q, k, v, o, lse, do, plan, causal, window)[:3]
+
+
+def _bwd_launch(q, k, v, o, lse, do, plan, causal, window):
+    """Launch the backward with `plan` (a `bwd_plan` of these shapes) on
+    inputs `flash_attention_bwd_cuda` has checked. Returns (dq, dk, dv,
+    scratch): scratch is the float32 buffer the kernels worked in, the
+    (lse, D) rows and then, with more than one split, the partials (2,
+    splits, B, Sk, KV, dh) of dk (unscaled) and dv; None when there was
+    nothing to launch."""
     b, sq, h, dh = q.shape
     _, sk, kv, _ = k.shape
     dq = torch.empty((b, sq, h, dh), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, sk, kv, dh), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
     if dq.numel() == 0 or dk.numel() == 0:
-        return dq.zero_(), dk.zero_(), dv.zero_()
-    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+        return dq.zero_(), dk.zero_(), dv.zero_(), None
+    scratch = torch.empty(plan["scratch_floats"], dtype=torch.float32,
+                          device=q.device)
     strides = (ctypes.c_longlong * 15)(*(
         st for t in (q, k, v, o, do) for st in t.stride()[:3]))
+    maps = (ctypes.c_ulonglong * 44)(*bwd_tensor_maps(q, k, v, do))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _bwd_kernel_lib()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), delta.data_ptr(), b, sq, sk, h, kv, dh, strides,
-            int(bool(causal)), int(window), 1.0 / math.sqrt(dh), stream)
+            dv.data_ptr(), scratch.data_ptr(), b, sq, sk, h, kv, dh, strides,
+            maps, plan["splits"], int(bool(causal)), int(window),
+            1.0 / math.sqrt(dh), stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error "
-                           f"{rc}")
+        raise RuntimeError(f"flash_attention_bwd launch failed: "
+                           f"{_ERRORS.get(rc, f'CUDA error {rc}')}")
     launches["flash_attention_bwd"] += 1
-    return dq, dk, dv
+    last_bwd_plan.clear()
+    last_bwd_plan.update(plan)
+    return dq, dk, dv, scratch
 
 
 def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal=True, window=0,

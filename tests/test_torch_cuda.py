@@ -989,12 +989,19 @@ def _bwd_inputs(cuda, seed, b, s, h, kv, dh, window):
     (1, 256, 4, 4, 128, 0), (2, 300, 8, 2, 128, 0),      # causal, GQA 4
     (1, 1000, 4, 4, 112, 130), (2, 333, 4, 4, 112, 50),  # windows
     (1, 1500, 6, 6, 64, 0), (2, 200, 6, 2, 96, 0),       # ragged; GQA 3
-    (1, 129, 6, 2, 32, 0), (2, 257, 3, 1, 64, 64)])      # every HEAD_DIMS
+    (1, 129, 6, 2, 32, 0), (2, 257, 3, 1, 64, 64),       # every HEAD_DIMS
+    # the split's edges: a group of 8 at B = 1 (each head its own block);
+    # a group of 6 at dh 112 and S not a multiple of the 128-key tile; a
+    # group of 3 at dh 96 with a window edge inside a tile; a window
+    # inside one 64-query step
+    (1, 512, 8, 1, 128, 0), (1, 700, 6, 1, 112, 0),
+    (2, 450, 6, 2, 96, 100), (1, 333, 8, 2, 64, 30)])
 def test_flash_attention_bwd_kernel_matches_plain_version(cuda, b, s, h, kv,
                                                           dh, window):
     """dq, dk, dv of the backward kernel against `flash_attention_bwd_plain`
     on the same inputs (the forward's o and lse from the kernel), and bit
-    for bit the same in a second run (no atomics)."""
+    for bit the same in a second run (no atomics, a fixed-order sum of the
+    splits)."""
     from repro_torch.kernels import flash_attention as FA
     args = _bwd_inputs(cuda, s + dh + h, b, s, h, kv, dh, window)
     before = FA.launches["flash_attention_bwd"]
@@ -1009,6 +1016,56 @@ def test_flash_attention_bwd_kernel_matches_plain_version(cuda, b, s, h, kv,
         assert torch.equal(x, y), name
         ok, rel = _rows_close(x, z, BWD_TOL)
         assert ok, (name, rel)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 6])
+def test_flash_attention_bwd_splits_sum_in_a_fixed_order(cuda, splits):
+    """Every split of a group of 6 query heads gives the plain version's
+    gradients; dk and dv are the splits' float32 partials summed in split
+    order (dk then scaled) and rounded to bf16, bit for bit; and with one
+    split's partial left out they miss the tolerance, so the sum is needed
+    and used. Launched through the wrapper's own launch helper with the
+    split given."""
+    from repro_torch.kernels import flash_attention as FA
+    b, s, h, kv, dh, window = 1, 400, 12, 2, 128, 0
+    args = _bwd_inputs(cuda, 77, b, s, h, kv, dh, window)
+    FA.check_bwd_inputs(*args)
+    plan = FA.bwd_plan(b, s, s, h, kv, dh, splits=splits, sms=torch.cuda
+                       .get_device_properties(cuda).multi_processor_count)
+    dq, dk, dv, scratch = FA._bwd_launch(*args, plan, True, window)
+    assert FA.last_bwd_plan == plan
+    plain = FA.flash_attention_bwd_plain(*args, window=window)
+    torch.cuda.synchronize()
+    for name, x, z in zip(("dq", "dk", "dv"), (dq, dk, dv), plain):
+        ok, rel = _rows_close(x, z, BWD_TOL)
+        assert ok, (name, rel)
+    if splits == 1:
+        assert plan["partial_floats"] == 0
+        return
+    part = scratch[-plan["partial_floats"]:].view(2, splits, b, s, kv, dh)
+    scale = 1.0 / dh ** 0.5
+
+    def fixed_order(w, skip=None):
+        acc = None
+        for i in range(splits):
+            if i != skip:
+                acc = part[w, i].clone() if acc is None else acc + part[w, i]
+        return ((acc * scale) if w == 0 else acc).to(torch.bfloat16)
+    assert torch.equal(fixed_order(0), dk)
+    assert torch.equal(fixed_order(1), dv)
+    for w, z in ((0, plain[1]), (1, plain[2])):
+        ok, rel = _rows_close(fixed_order(w, skip=splits // 2), z, BWD_TOL)
+        assert not ok, ("dk", "dv")[w]
+
+
+def test_flash_attention_bwd_tiles_are_the_wrappers(cuda):
+    """The built backward's tiles are the ones the wrapper plans with."""
+    from repro_torch.kernels import flash_attention as FA
+    tiles = FA.bwd_kernel_tiles()
+    assert (tiles["dkdv_block_k"], tiles["dq_block_q"], tiles["box_rows"]) \
+        == (FA.BWD_BLOCK_K, FA.BWD_BLOCK_Q, FA.BWD_BOX)
+    assert tiles["dkdv_step_q"] == tiles["dq_step_k"] == FA.BWD_BOX
+    assert tiles["dkdv_stages"] >= 2 and tiles["dq_stages"] >= 2
 
 
 @pytest.mark.parametrize("dh", [32, 64, 96, 112, 128])
@@ -1059,6 +1116,39 @@ def test_flash_attention_autograd_runs_the_kernels(cuda):
                                              window=window)
     grads = torch.split(qkv.grad, [h * dh, kv * dh, kv * dh], dim=-1)
     for name, g, z in zip(("dq", "dk", "dv"), grads, plain):
+        ok, rel = _rows_close(g.reshape(z.shape), z, BWD_TOL)
+        assert ok, (name, rel)
+
+
+def test_flash_attention_autograd_at_the_training_group(cuda):
+    """`ops.flash_attention` under grad at qwen2.5-3b's group (16 query
+    heads on 2 kv heads, dh 128, causal) on strided views of one qkv
+    projection: one forward and one backward launch, the plain backward's
+    gradients, and the same gradients bit for bit a second time."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(12)
+    b, s, h, kv, dh = 1, 1024, 16, 2, 128
+    qkv = _rand(rng, (b, s, (h + 2 * kv) * dh), torch.bfloat16, cuda)
+    do = _rand(rng, (b, s, h, dh), torch.bfloat16, cuda)
+    grads = []
+    for _ in range(2):
+        leaf = qkv.detach().clone().requires_grad_(True)
+        q, k, v = (t.reshape(b, s, -1, dh) for t in torch.split(
+            leaf, [h * dh, kv * dh, kv * dh], dim=-1))
+        before = dict(FA.launches)
+        ops.flash_attention(q, k, v).backward(do)
+        assert FA.launches["flash_attention_bwd"] == \
+            before["flash_attention_bwd"] + 1
+        grads.append(leaf.grad)
+    assert torch.equal(grads[0], grads[1])
+    with torch.no_grad():
+        q, k, v = (t.reshape(b, s, -1, dh) for t in torch.split(
+            qkv, [h * dh, kv * dh, kv * dh], dim=-1))
+        o, lse = FA.flash_attention_plain(q, k, v, return_lse=True)
+        plain = FA.flash_attention_bwd_plain(q, k, v, o, lse, do)
+    for name, g, z in zip(("dq", "dk", "dv"), torch.split(
+            grads[0], [h * dh, kv * dh, kv * dh], dim=-1), plain):
         ok, rel = _rows_close(g.reshape(z.shape), z, BWD_TOL)
         assert ok, (name, rel)
 

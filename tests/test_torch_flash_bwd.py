@@ -84,6 +84,65 @@ def test_bwd_plain_and_lse_match_reference_vjp(b, s, h, kv, dh, window):
                                    atol=TOL * np.abs(w).max(), err_msg=name)
 
 
+def split_model(q, k, v, o, lse, do, *, splits, window):
+    """The backward kernel's split in plain float32: dk and dv of each
+    split of a kv head's query heads (split i takes heads i * g / splits ..
+    (i + 1) * g / splits - 1 of each group of g), as `flash_attention_bwd_
+    plain` gives them for those heads alone, summed in split order; dq
+    unsplit. Returns (dq, dk, dv, [per-split (dk, dv)])."""
+    h, kv = q.shape[2], k.shape[2]
+    g = h // kv
+    hps = g // splits
+    parts, dk, dv = [], None, None
+    for i in range(splits):
+        heads = [n * g + i * hps + j for n in range(kv) for j in range(hps)]
+        _, dk_i, dv_i = FA.flash_attention_bwd_plain(
+            q[:, :, heads], k, v, o[:, :, heads], lse[:, heads],
+            do[:, :, heads], window=window, chunk_q=40, chunk_k=24)
+        parts.append((dk_i, dv_i))
+        dk = dk_i if dk is None else dk + dk_i
+        dv = dv_i if dv is None else dv + dv_i
+    dq = FA.flash_attention_bwd_plain(q, k, v, o, lse, do, window=window)[0]
+    return dq, dk, dv, parts
+
+
+@pytest.mark.parametrize("b,s,h,kv,dh,window,splits", [
+    (1, 72, 6, 2, 16, 0, 3),        # group 3, each head its own split
+    (1, 80, 8, 2, 16, 20, 2),       # group 4 in two splits, windowed
+    (2, 75, 8, 1, 8, 30, 4),        # group 8 in four, ragged S
+    (1, 64, 12, 2, 16, 0, 6)])      # group 6, the card test's split edge
+def test_split_model_matches_reference_vjp(b, s, h, kv, dh, window, splits):
+    """The per-split partials of dk and dv summed in the kernel's fixed
+    order give `jax.vjp` of the reference's chunked attention and the
+    unsplit plain backward; each split alone does not (it is a share of
+    the group), so the sum is needed."""
+    q, k, v, do = _inputs(s + h, b, s, h, kv, dh)
+
+    def ref(q_, k_, v_):
+        return RA.chunked_attention(q_, k_, v_, causal=True, window=window,
+                                    chunk_q=32, chunk_k=32)
+    _, vjp = jax.vjp(jax.jit(ref), *(jnp.asarray(x) for x in (q, k, v)))
+    want = [np.asarray(w) for w in vjp(jnp.asarray(do))]
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    o, lse = chunked_attention(tq, tk, tv, window=window, chunk_q=32,
+                               chunk_k=32, return_lse=True)
+    dq, dk, dv, parts = split_model(tq, tk, tv, o, lse, tdo, splits=splits,
+                                    window=window)
+    whole = FA.flash_attention_bwd_plain(tq, tk, tv, o, lse, tdo,
+                                         window=window)
+    for name, g, w, x in zip(("dq", "dk", "dv"), (dq, dk, dv), want, whole):
+        tol = TOL * np.abs(w).max()
+        np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=tol,
+                                   err_msg=name)
+        np.testing.assert_allclose(g.numpy(), x.numpy(), rtol=0, atol=tol,
+                                   err_msg=name)
+    for dk_i, dv_i in parts:
+        assert np.abs(dk_i.numpy() - want[1]).max() > 100 * TOL * np.abs(
+            want[1]).max()
+        assert np.abs(dv_i.numpy() - want[2]).max() > 100 * TOL * np.abs(
+            want[2]).max()
+
+
 @pytest.mark.parametrize("b,s,h,kv,dh,window", CASES[1:3])
 def test_cpu_route_differentiates_the_plain_attention(b, s, h, kv, dh,
                                                       window):

@@ -1,7 +1,9 @@
-"""What surrounds the flash-attention kernel, on the CPU: the TMA tensor
-maps the wrapper computes, the dh padding and what the kernel refuses
-(`repro_torch.kernels.flash_attention`). The kernel itself, and the block
-order it decides, run only on a card (tests/test_torch_cuda.py).
+"""What surrounds the flash-attention kernels, on the CPU: the TMA tensor
+maps the wrappers compute (forward and backward), the dh padding, the
+backward's split of the query heads over blocks, and what the kernels
+refuse (`repro_torch.kernels.flash_attention`). The kernels themselves,
+and the block order they decide, run only on a card
+(tests/test_torch_cuda.py).
 
 Also the plain version at the kernel's 128 x 128 tiles against the
 reference's `flash_attention_pallas`, run in interpret mode as
@@ -123,6 +125,132 @@ def test_check_inputs_refuses_bad_shapes():
         FA.check_inputs(q, k, v[:, :, :1])
 
 
+# ------------------------------------------------ the backward's host side
+
+def test_bwd_tensor_maps_of_contiguous_and_strided_inputs():
+    """The backward's four maps (q, k, v, do), 11 values each, are
+    `tensor_map` of each tensor at BWD_BOX rows: q, k and v split out of one
+    qkv projection keep its strides, do is contiguous."""
+    b, s, h, kv, dh = 2, 130, 4, 2, 112
+    qkv = _bf16(b, s, (h + 2 * kv) * dh)
+    q, k, v = (t.reshape(b, s, -1, dh) for t in torch.split(
+        qkv, [h * dh, kv * dh, kv * dh], dim=-1))
+    do = _bf16(b, s, h, dh)
+    flat = FA.bwd_tensor_maps(q, k, v, do)
+    assert len(flat) == 44
+    row = (h + 2 * kv) * dh * 2                     # bytes per qkv token
+    assert flat[0:11] == [dh, h, s, b, dh * 2, row, s * row, 64, 1, 64, 1]
+    assert flat[11:22] == [dh, kv, s, b, dh * 2, row, s * row, 64, 1, 64, 1]
+    assert flat[22:33] == flat[11:22]               # v: k's dims and strides
+    assert flat[33:44] == [dh, h, s, b, dh * 2, h * dh * 2, s * h * dh * 2,
+                           64, 1, 64, 1]
+    for i, t in enumerate((q, k, v, do)):
+        dims, strides, box = FA.tensor_map(tuple(t.shape), t.stride(),
+                                           FA.BWD_BOX)
+        assert flat[11 * i:11 * i + 11] == [*dims, *strides, *box]
+        assert all(x % 16 == 0 for x in strides)
+
+
+def _smoke_bwd_shapes():
+    return _smoke().BWD_SHAPES
+
+
+H100_SMS = 132          # the SMs of an H100 SXM, which the plans are for
+# (B, S, H, KV, dh, window) -> the split, dK / dV blocks, dQ blocks
+BWD_PLANS = {
+    (1, 4096, 16, 2, 128, 0): (4, 256, 512),        # qwen2.5-3b's
+    (1, 8192, 32, 32, 112, 4096): (1, 2048, 2048),  # MHA: nothing to split
+    (4, 1500, 24, 24, 64, 0): (1, 1152, 1152),
+    (2, 2048, 24, 8, 64, 0): (1, 256, 768),         # group 3, unsplit
+}
+
+
+@pytest.mark.parametrize("shape", list(BWD_PLANS))
+def test_bwd_plan_at_the_smoke_shapes(shape):
+    """The backward's split of the query heads at each of the smoke's
+    BWD_SHAPES (an H100's 132 SMs): the smallest divisor of the group that
+    gives at least 1.5 dK / dV blocks an SM, else the whole group; at least
+    256 dK / dV blocks at the training shape, against 64 unsplit; the
+    scratch the wrapper allocates, the partials only with a split."""
+    assert shape in _smoke_bwd_shapes()
+    b, s, h, kv, dh, _ = shape
+    plan = FA.bwd_plan(b, s, s, h, kv, dh, sms=H100_SMS)
+    assert (plan["splits"], plan["dkdv_blocks"], plan["dq_blocks"]) == \
+        BWD_PLANS[shape]
+    n_kt = -(-s // FA.BWD_BLOCK_K)
+    assert plan["dkdv_blocks"] == b * kv * n_kt * plan["splits"]
+    assert 2 * plan["dkdv_blocks"] >= 3 * H100_SMS or \
+        plan["splits"] == h // kv
+    assert plan["heads_per_split"] * plan["splits"] == h // kv
+    sq_pad = -(-s // 64) * 64
+    part = 2 * plan["splits"] * b * s * kv * dh if plan["splits"] > 1 else 0
+    assert plan["partial_floats"] == part
+    assert plan["scratch_floats"] == b * h * sq_pad * 2 + part
+    assert plan["scratch_bytes"] == 4 * plan["scratch_floats"]
+    if shape[:5] == (1, 4096, 16, 2, 128):
+        assert plan["dkdv_blocks"] >= 256 > b * kv * n_kt
+        assert plan["partial_floats"] * 4 == 33_554_432     # 33.6 MB
+
+
+def test_bwd_plan_takes_a_given_split_and_refuses_others():
+    plan = FA.bwd_plan(1, 1000, 1000, 12, 2, 64, sms=H100_SMS, splits=3)
+    assert (plan["splits"], plan["heads_per_split"]) == (3, 2)
+    assert FA.bwd_plan(1, 1000, 1000, 12, 2, 64, sms=1)["splits"] == 1
+    assert FA.bwd_plan(1, 100, 100, 12, 2, 64, sms=1000)["splits"] == 6
+    for bad in (0, 4, 7):
+        with pytest.raises(ValueError, match="does not divide"):
+            FA.bwd_plan(1, 1000, 1000, 12, 2, 64, sms=H100_SMS,
+                        splits=bad)
+
+
+def _bwd_args():
+    q, k, v = _qkv(h=4, kv=2, dh=64)
+    do = torch.zeros_like(q)
+    lse = torch.zeros((1, 4, 40))
+    return q, k, v, q.clone(), lse, do
+
+
+def test_check_bwd_inputs_accepts_what_the_kernel_takes():
+    FA.check_bwd_inputs(*_bwd_args())
+    q, k, v, o, lse, do = _bwd_args()
+    wide = torch.zeros((1, 40, 8, 64), dtype=torch.bfloat16)
+    FA.check_bwd_inputs(q, k, v, o, lse, wide[:, :, :4])     # a head slice
+
+
+@pytest.mark.parametrize("which", ["o", "do"])
+def test_check_bwd_inputs_refuses_what_tma_cannot_take(which):
+    """do goes through a TMA map and o through its strides: both need dh
+    unit-stride, a 16-byte aligned base and 16-byte multiples for the
+    other strides."""
+    args = list(_bwd_args())
+    i = {"o": 3, "do": 5}[which]
+    odd = torch.zeros((1, 40, 4, 72), dtype=torch.bfloat16)[..., 4:68]
+    assert odd.data_ptr() % 16 == 8
+    ragged = torch.zeros((1, 40, 260), dtype=torch.bfloat16)[
+        ..., :256].reshape(1, 40, 4, 64)       # token stride 260 elements
+    assert ragged.stride(1) == 260 and (260 * 2) % 16 == 8
+    col = torch.zeros((1, 40, 64, 4), dtype=torch.bfloat16).transpose(-1, -2)
+    for bad in (odd, ragged, col):
+        args[i] = bad
+        with pytest.raises(ValueError, match="strides or alignment"):
+            FA.check_bwd_inputs(*args)
+
+
+def test_check_bwd_inputs_refuses_other_lse_and_shapes():
+    q, k, v, o, lse, do = _bwd_args()
+    with pytest.raises(ValueError, match="lse"):
+        FA.check_bwd_inputs(q, k, v, o, lse.transpose(1, 2).contiguous()
+                            .transpose(1, 2), do)   # not contiguous
+    with pytest.raises(ValueError, match="lse"):
+        FA.check_bwd_inputs(q, k, v, o, lse.double(), do)
+    with pytest.raises(ValueError, match="do must be"):
+        FA.check_bwd_inputs(q, k, v, o, lse, do[:, :20])
+    k3, v3 = (torch.zeros((1, 40, 3, 64), dtype=torch.bfloat16)
+              for _ in range(2))
+    with pytest.raises(ValueError, match="incompatible"):
+        FA.check_bwd_inputs(q, k3, v3, o, lse, do)     # 4 heads on 3
+
+
 def test_kernel_wrapper_refuses_cpu_tensors():
     """A CPU tensor never reaches the kernel; ops.flash_attention sends it
     to the plain version instead."""
@@ -208,6 +336,24 @@ def test_smoke_reads_registers_and_spills_from_ptxas():
                                        "spill_loads": 196, "registers": 168}
     assert stats["_Z5k_ILi64EEv"] == {"spill_stores": 0, "spill_loads": 0,
                                       "registers": 151}
+
+
+def test_smoke_reports_serialized_wgmma_from_ptxas(monkeypatch):
+    """The smoke prints each kernel ptxas's C7512 warning names, cut to the
+    kernel's own name after the anonymous namespace."""
+    from repro_torch.kernels import build
+    sm = _smoke()
+    name = ("_ZN55_GLOBAL__N__3b49a283_22_flash_attention_bwd_cu_2b1a21a58"
+            "bwd_dkdvILi128EEEv14CUtensorMap_stS1_S1_S1_NS_7BwdArgsE")
+    log = ("ptxas info    : (C7512) Potential Performance Loss: "
+           "wgmma.mma_async instructions are serialized due to insufficient "
+           f"register resources for the function '{name}'\n"
+           "ptxas info    : Used 168 registers")
+    monkeypatch.setattr(build, "build_log",
+                        {"flash_attention_bwd": {"ptxas": log}})
+    assert sm.ptxas_serialized("flash_attention_bwd") == [
+        "bwd_dkdvILi128EEEv14CUtensorMap_stS1_S1_"]
+    assert sm.ptxas_serialized("flash_attention") == []
 
 
 def test_cached_build_keeps_its_ptxas_report(tmp_path, monkeypatch):

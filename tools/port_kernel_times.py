@@ -1,19 +1,25 @@
 #!/usr/bin/env python3
-"""Time the port's flash-attention and SSD-scan kernels, its GrIn grid
-solve and zamba2-7b prefill from any checkout of the repository, on chip_smoke.py's inputs and
-with its timer, so that two versions can be compared in one run on one
-NVIDIA GPU:
+"""Time the port's flash-attention kernels (forward and backward) and
+SSD-scan kernel, its GrIn grid solve and zamba2-7b prefill from any
+checkout of the repository, on chip_smoke.py's inputs and with its timer,
+so that two versions can be compared in one run on one NVIDIA GPU:
 
     python3 tools/port_kernel_times.py --root OLD_CHECKOUT
-    python3 tools/port_kernel_times.py --root .
+    python3 tools/port_kernel_times.py --root . [--parts bwd flash]
+    python3 tools/port_kernel_times.py --parts bwd_sdpa --reps 10
 
 It imports `repro_torch` from ROOT/src (building that tree's kernels) and
 this tree's `chip_smoke.py` for the shapes, seeds, input makers and
 `cuda_ms`, and calls only entry points every version of the port has:
 `kernels.flash_attention.flash_attention_cuda` on the smoke's serving
 call (B = 4, S = 8192, H = KV = 32, dh = 112, window 4096) and its causal
-B = 1 case, `kernels.ssd_scan.ssd_scan_cuda` on the smoke's serving-shape
-SSD inputs,
+B = 1 case (the time between CUDA events, and the kernel's own device
+time under `torch.profiler` as `*_device_ms`), `flash_attention_bwd_cuda` at each of the smoke's BWD_SHAPES
+(inputs as `chip_smoke.measure_flash_bwd` makes them; checkouts since the
+backward kernel), with `bwd_sdpa` that backward and SDPA's backward
+(`chip_smoke.sdpa_bwd_call`) alternately on the same inputs, `--reps`
+readings each in the order kernel, SDPA, SDPA, kernel, ...,
+`kernels.ssd_scan.ssd_scan_cuda` on the smoke's serving-shape SSD inputs,
 `sched.solve_targets_grid_torch` on the smoke's 64 x 64 max-x grid, and
 `ServeEngine.prefill` of the smoke's model and prompts. Prints the card's
 name and power limit, then one JSON line. Imports nothing of JAX.
@@ -52,25 +58,107 @@ def _wall(fn, reps):
     return out
 
 
-def measure(sm, dev, reps):
+PARTS = ("flash", "bwd", "bwd_sdpa", "ssd", "grid", "prefill")
+
+
+def _bwd_inputs(sm, dev, i):
+    """The smoke's backward inputs at BWD_SHAPES[i]: q, k, v, o, lse, do
+    and the window."""
     import torch
-    from repro_torch.configs import get_arch
     from repro_torch.kernels import flash_attention as FA
+    b, s, h, kv, dh, win = sm.BWD_SHAPES[i]
+    q, k, v = sm._attn_inputs(dev, 500 + i, b, s, h, kv, dh)
+    g = torch.Generator(device=dev).manual_seed(501 + i)
+    do = torch.randn((b, s, h, dh), dtype=torch.bfloat16, device=dev,
+                     generator=g)
+    o, lse = FA.flash_attention_cuda(q, k, v, window=win, return_lse=True)
+    return (q, k, v, o, lse, do), win
+
+
+def _shape_key(b, s, h, kv, dh, win):
+    return f"{b}x{s}x{h}/{kv}x{dh}w{win}"
+
+
+def measure_bwd(sm, dev, reps):
+    """{shape: ms} of the backward at each of the smoke's BWD_SHAPES."""
+    from repro_torch.kernels import flash_attention as FA
+    out = {}
+    for i, shape in enumerate(sm.BWD_SHAPES):
+        args, win = _bwd_inputs(sm, dev, i)
+        out[_shape_key(*shape)] = sm.cuda_ms(
+            lambda: FA.flash_attention_bwd_cuda(*args, window=win),
+            iters=10 * reps, warmup=2)
+        del args
+    return out
+
+
+def measure_bwd_sdpa(sm, dev, reps):
+    """{shape: {"kernel": [ms, ...], "sdpa": [ms, ...]}}: the backward
+    kernel and SDPA's backward at each of the smoke's BWD_SHAPES on the
+    same inputs, `reps` readings of 10 calls each, alternately (kernel,
+    SDPA, SDPA, kernel, ...)."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    out = {}
+    for i, shape in enumerate(sm.BWD_SHAPES):
+        args, win = _bwd_inputs(sm, dev, i)
+        calls = {"kernel": lambda: FA.flash_attention_bwd_cuda(
+                     *args, window=win),
+                 "sdpa": sm.sdpa_bwd_call(*args[:3], args[5], win)}
+        got = {name: [] for name in calls}
+        for r in range(reps):
+            for name in (("kernel", "sdpa") if r % 2 == 0
+                         else ("sdpa", "kernel")):
+                got[name].append(sm.cuda_ms(calls[name], iters=10,
+                                            warmup=2))
+        out[_shape_key(*shape)] = got
+        del args, calls
+        torch.cuda.empty_cache()
+    return out
+
+
+def measure(sm, dev, reps, parts=PARTS):
+    from repro_torch.kernels import flash_attention as FA
+    res = {}
+    if "bwd" in parts:
+        res["flash_bwd_ms"] = measure_bwd(sm, dev, reps)
+    if "bwd_sdpa" in parts:
+        res["flash_bwd_and_sdpa_ms"] = measure_bwd_sdpa(sm, dev, reps)
+    if "flash" in parts:
+        for name, b, win in (("window_b4", sm.SERVE_B, 4096),
+                             ("causal_b1", 1, 0)):
+            q, k, v = sm._attn_inputs(dev, 100, b, sm.SERVE_S, 32, 32, 112)
+
+            def call():
+                return FA.flash_attention_cuda(q, k, v, window=win)
+            res[f"flash_{name}_ms"] = sm.cuda_ms(call, iters=10 * reps)
+            res[f"flash_{name}_device_ms"] = sm.device_busy(
+                lambda: [call() for _ in range(10)],
+                cpu=False)["device_s"] * 100
+            del q, k, v
+    if "ssd" in parts:
+        res["ssd_ms"] = measure_ssd(sm, dev, reps)
+    if "grid" in parts:
+        res["grid_64x64_max_x_s"] = measure_grid(sm, dev, reps)
+        res["grid_solves_per_s"] = GRID[0] * GRID[1] / min(
+            res["grid_64x64_max_x_s"])
+    if "prefill" in parts:
+        res["prefill_s"] = measure_prefill(sm, dev, reps)
+        res["prefill_tok_per_s"] = sm.SERVE_B * sm.SERVE_S / min(
+            res["prefill_s"])
+    return res
+
+
+def measure_ssd(sm, dev, reps):
     from repro_torch.kernels import ssd_scan as SSD
-    from repro_torch.models.model import Model
-    from repro_torch.sched import solve_targets_grid_torch
-    from repro_torch.serve.engine import ServeEngine
-    flash = {}
-    for name, b, win in (("window_b4", sm.SERVE_B, 4096), ("causal_b1", 1, 0)):
-        q, k, v = sm._attn_inputs(dev, 100, b, sm.SERVE_S, 32, 32, 112)
-        flash[name] = sm.cuda_ms(lambda: FA.flash_attention_cuda(
-            q, k, v, window=win), iters=10 * reps)
-        del q, k, v
     q, k, v, la, beta = sm.ssd_inputs(dev, 200, sm.SERVE_B, sm.SERVE_S, 112,
                                       64)
-    ssd = sm.cuda_ms(lambda: SSD.ssd_scan_cuda(q, k, v, la, beta,
-                                               chunk=256), iters=10 * reps)
-    del q, k, v, la, beta
+    return sm.cuda_ms(lambda: SSD.ssd_scan_cuda(q, k, v, la, beta,
+                                                chunk=256), iters=10 * reps)
+
+
+def measure_grid(sm, dev, reps):
+    from repro_torch.sched import solve_targets_grid_torch
     mus, mixes = sm.skewed_grid(GRID[2], GRID[0], GRID[1], sm.K, sm.L,
                                 sm.N_TASKS)
     solve_targets_grid_torch(mus[:1], mixes[:2], device=dev)
@@ -78,6 +166,14 @@ def measure(sm, dev, reps):
     def grid():
         if not solve_targets_grid_torch(mus, mixes, device=dev)[2].all():
             raise AssertionError("a grid point did not converge")
+    return _wall(grid, reps)
+
+
+def measure_prefill(sm, dev, reps):
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import Model
+    from repro_torch.serve.engine import ServeEngine
     cfg = get_arch(sm.SERVE_ARCH)
     model = Model(cfg, device=dev).init(
         torch.Generator(device=dev).manual_seed(0))
@@ -91,10 +187,7 @@ def measure(sm, dev, reps):
         if not bool(torch.isfinite(engine.prefill({"tokens": toks})[0])
                     .all()):
             raise AssertionError("prefill logits not finite")
-    return {"flash_window_b4_ms": flash["window_b4"],
-            "flash_causal_b1_ms": flash["causal_b1"], "ssd_ms": ssd,
-            "grid_64x64_max_x_s": _wall(grid, reps),
-            "prefill_s": _wall(prefill, reps)}
+    return _wall(prefill, reps)
 
 
 def main() -> int:
@@ -102,6 +195,8 @@ def main() -> int:
     ap.add_argument("--root", default=str(HERE),
                     help="checkout whose src/repro_torch is timed")
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--parts", nargs="+", choices=PARTS, default=PARTS,
+                    help="what to time (default: all)")
     args = ap.parse_args()
     root = Path(args.root).resolve()
     if not (root / "src" / "repro_torch").is_dir():
@@ -120,10 +215,7 @@ def main() -> int:
                           text=True, check=True).stdout.strip().splitlines()[0]
     print(card)
     res = {"root": str(root), "card": card,
-           **measure(sm, torch.device("cuda"), args.reps)}
-    res["grid_solves_per_s"] = GRID[0] * GRID[1] / min(
-        res["grid_64x64_max_x_s"])
-    res["prefill_tok_per_s"] = sm.SERVE_B * sm.SERVE_S / min(res["prefill_s"])
+           **measure(sm, torch.device("cuda"), args.reps, args.parts)}
     print(json.dumps(res))
     return 0
 
