@@ -54,16 +54,21 @@ launch counts set to 0 just before it and read just after:
     flash kernel once per attention layer per prefill), each with a
     decode-vs-forward check against a negative control;
   * `ops.rmsnorm`, the RMSNorm kernel's only entry point;
-  * training — qwen2.5-3b at full width and depth (36 blocks, d_model
-    2048, 3.09 B parameters; random initialisation from a seed) through
-    `launch.train.train`: 6 AdamW steps of 4 x 4096 tokens in 4
-    microbatches, flash attention forward (with the rows' log-sum-exp) and
-    its hand-written backward kernel in every layer, every block
-    recomputed in the backward; a gradient check against the plain
-    attention, recovery from an injected failure at `smoke_config`
-    (bit-equal), and the hybrid and ssm families raising under grad (their
-    scans have no backward kernel yet). The model-kernels phase holds the
-    backward kernel against its plain version at four shapes;
+  * training — through `launch.train.train`, 6 AdamW steps of 4 x 4096
+    tokens in 4 microbatches each, every block recomputed in the
+    backward, from a random initialisation (a seed): qwen2.5-3b at full
+    width and depth (36 blocks, d_model 2048, 3.09 B parameters; flash
+    attention with the rows' log-sum-exp and its backward kernel in every
+    layer); zamba2-7b at full width cut to 27 Mamba2 blocks (2.54 B; the
+    SSD scan's forward and backward kernels in every block, flash
+    attention in the 4 applications of the shared block); xlstm-1.3b at
+    full width and depth (1.19 B; mLSTM's pair and its backward kernel in
+    the 42 mLSTM blocks). Each with a gradient check against the plain
+    routes (`grad_check_routes`) and a dropped-gradient control, and
+    recovery from an injected failure at `smoke_config` (bit-equal). The
+    model-kernels phase holds the flash backward kernel against its plain
+    version at four shapes, and the two scan backward kernels at their
+    training shapes;
 
 and checks each result by the repository's own means. It prints the card's
 name and power limit, one JSON line describing every kernel (launches on
@@ -2517,6 +2522,19 @@ FLASH_PREVIOUS_MS_QUOTED = (12.28, 3.33, 4.76, 5.07)
 # beside this run's times as such and not a reading of this run.
 BWD_PREVIOUS_MS_QUOTED = (3.136, 6.238, 0.885, 0.905)
 RMS_TOL = 2e-2          # bf16 RMSNorm (the reference sweep's)
+# the scans' backward kernels against their plain versions (float32 math
+# on the same bf16 inputs): for each of dq, dk, dv (bf16) and dlog_a, dbeta
+# (float32), grad_err <= SSD_BWD_TOL. Both compute in float32 and differ in
+# summation order, then round dq, dk, dv to bf16, where two float32 values
+# an ulp apart can land one bf16 spacing (2^-8 relative) apart; the plain
+# version's own distance to its float64 run (printed as the rounding
+# floor) is that size, 2-4e-3, and so are the kernels' readings. The limit
+# is four spacings, 2^-6; the kernels with the reverse carry cut between
+# chunks read 0.1-10 at slow decay (FORGET_BIASES).
+SSD_BWD_TOL = 2.0 ** -6
+SSD_BWD_CHUNK = 256     # the models' chunk; the backward walks 64 tokens
+SSD_BWD_GRADS = ("dq", "dk", "dv", "dlog_a", "dbeta")
+SSD_BWD_LAUNCHES = ("states", "dqk", "dv", "finish", "cast")
 # flash attention's backward kernel against its plain version (float32 on
 # the same bf16 inputs): for each of dq, dk and dv, max |d| / (rms of the
 # plain tensor + |plain|) <= BWD_TOL. The kernel rounds P and dS to bf16
@@ -2536,21 +2554,40 @@ LSE_TOL = 1e-3          # the forward's log-sum-exp against the plain one's
 # query heads a kv head
 BWD_SHAPES = ((1, 4096, 16, 2, 128, 0), (1, 8192, 32, 32, 112, 4096),
               (4, 1500, 24, 24, 64, 0), (2, 2048, 24, 8, 64, 0))
-# the train phase: qwen2.5-3b at full width and depth, global batch
-# TRAIN_B x TRAIN_S in TRAIN_MICRO microbatches, TRAIN_STEPS steps of
-# AdamW at TRAIN_LR (warmup TRAIN_WARMUP steps, cosine decay over the run)
+# the train phases (qwen2.5-3b at full width and depth; the hybrid's and
+# ssm's below): global batch TRAIN_B x TRAIN_S in TRAIN_MICRO microbatches,
+# TRAIN_STEPS steps of AdamW at TRAIN_LR (warmup TRAIN_WARMUP steps, cosine
+# decay over the run)
 TRAIN_ARCH = "qwen2.5-3b"
 TRAIN_B, TRAIN_S, TRAIN_MICRO, TRAIN_STEPS = 4, 4096, 4, 6
 TRAIN_LR, TRAIN_WARMUP = 2e-6, 1
 # the first loss: ln V plus half the variance of the initial logits (rms-
-# normed hidden state against N(0, 0.02^2) tied embeddings: d * 0.02^2),
-# within TRAIN_LOSS0_TOL
+# normed hidden state against N(0, 0.02^2) tied embeddings or head: d *
+# 0.02^2), within TRAIN_LOSS0_TOL
 TRAIN_LOSS0_TOL = 0.3
 # one microbatch's gradients through the kernels against the plain
 # attention's, per leaf group (a layer's attention, MLP or norms; the
 # embedding; the final norm): ||kernel - plain|| / ||plain|| <= GRAD_REL_TOL;
 # the control drops one layer's attention gradient (dq, dk, dv = 0)
 GRAD_REL_TOL = 2e-2
+# the train-hybrid phase: zamba2-7b at full width, cut to 27 Mamba2 blocks
+# (the shared attention block after every 6, 4 times, then the trailing 3,
+# as at 81 = 13 x 6 + 3): 2.54 B parameters, whose float32 masters, Adam
+# moments and gradients fit on the 80 GB card, where the full 6.75 B (~108
+# GB) do not
+TRAIN_HYBRID_LAYERS = 27
+# the train-ssm phase's learning rate: the reference launcher's default
+# (`OptimizerConfig.lr`). At 2e-6 xlstm-1.3b's loss does not move in 6
+# steps (11.229 to 11.232, within its step-to-step noise); at 3e-4 it falls
+# to 11.123 (tools/train_lr_probe.py --arch xlstm-1.3b)
+TRAIN_SSM_LR = 3e-4
+# train-ssm's check against the plain scans' autograd runs on the first
+# TRAIN_SSM_CUT_GROUPS groups of xlstm-1.3b's blocks (7 mLSTM and 1 sLSTM
+# each), with the trained parameters: the plain route's own float32 spread
+# (chunk 64 against 256) reads 1.4e-3 on 8 blocks and 0.19 on all 48, on
+# an NVIDIA H100 80GB HBM3 at 700 W (tools/train_grad_noise.py; PERF.md
+# section 6)
+TRAIN_SSM_CUT_GROUPS = 1
 # recovery at smoke_config on the card: RECOVERY_STEPS steps of 4 x 256 in
 # 2 microbatches, a checkpoint every 3, a failure injected at call 5
 RECOVERY_STEPS, RECOVERY_FAIL_AT = 8, 5
@@ -3113,6 +3150,183 @@ def print_wide_ssd(row) -> None:
           f"{ {k: round(v, 3) for k, v in row['phase_ms'].items()} }")
 
 
+# ------------------------------------------------- the scans' backward
+
+def ssd_bwd_bound(b, s, h, dk, dv, chunk, shared_qk, normaliser=False):
+    """The backward of the chunked form at chunks of c = min(chunk, 64, s)
+    tokens (dv + 1 columns with mLSTM's normaliser): per chunk and row the
+    causal half of dy v^T, q k~^T, A k~, A^T q and G^T dy (2 x pairs x (3 dk
+    + 2 dv) FLOP) and five state products (the forward's chunk states, the
+    reverse carry, S_in dy, dS v, dS^T k~: 5 x 2 c dk dv FLOP), at the bf16
+    tensor-core rate; bytes q, k (once for all heads when shared), v, dy
+    read and dq, dk, dv written (bf16; two tensors of dk columns, three of
+    dv), log_a, beta read and dlog_a, dbeta written (float32), dnm read
+    with the normaliser."""
+    c = min(chunk, 64, s)
+    n = -(-s // c)
+    dvx = dv + int(normaliser)
+    pairs = c * (c + 1) // 2
+    ops = b * h * n * (2 * pairs * (3 * dk + 2 * dvx) + 10 * c * dk * dvx)
+    qk = 2 * 2 * 2 * b * s * dk * (1 if shared_qk else h)
+    nbytes = qk + 2 * 3 * b * s * h * dv + 4 * 4 * b * s * h \
+        + 2 * b * s * h * int(normaliser)
+    return _bound(nbytes, ops, BF16_OPS_PER_S)
+
+
+def ssd_bwd_inputs(dev, seed, b, s, h, dk, dv, bias, shared, dtype=None):
+    """The backward's inputs, bf16 (or `dtype`): q (scaled by 1/sqrt(dk))
+    and k, shared by the heads (expanded views, head stride 0) when
+    `shared` as Mamba2 passes its C and B; v; log_a = log_sigmoid(. +
+    bias), beta = sigmoid(.) float32; the cotangents dy, dnm (like v) and
+    the final states' d_state, dn (float32)."""
+    import torch
+    import torch.nn.functional as F
+    dtype = dtype or torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(seed)
+    kw = dict(device=dev, generator=g)
+    hq = 1 if shared else h
+    q = (torch.randn((b, s, hq, dk), **kw) / dk ** 0.5).to(dtype)
+    k = torch.randn((b, s, hq, dk), **kw).to(dtype)
+    return {"q": q.expand(b, s, h, dk), "k": k.expand(b, s, h, dk),
+            "v": torch.randn((b, s, h, dv), **kw).to(dtype),
+            "log_a": F.logsigmoid(torch.randn((b, s, h), **kw) + bias),
+            "beta": torch.sigmoid(torch.randn((b, s, h), **kw)),
+            "dy": torch.randn((b, s, h, dv), **kw).to(dtype),
+            "dnm": torch.randn((b, s, h, 1), **kw).to(dtype),
+            "d_state": torch.randn((b, h, dk, dv), **kw),
+            "dn": torch.randn((b, h, dk, 1), **kw)}
+
+
+def ssd_bwd_call(fn, x, pair, final, **kw):
+    """fn (a backward wrapper or plain version, `pair` for mLSTM's) on the
+    inputs `x`, with the final states' cotangents when `final`."""
+    args = [x[n] for n in ("q", "k", "v", "log_a", "beta", "dy")]
+    if pair:
+        return fn(*args, x["dnm"], x["d_state"] if final else None,
+                  x["dn"] if final else None, chunk=SSD_BWD_CHUNK, **kw)
+    return fn(*args, x["d_state"] if final else None, chunk=SSD_BWD_CHUNK,
+              **kw)
+
+
+def grad_errs(got, want) -> dict:
+    return {n: grad_err(g, w) for n, g, w in zip(SSD_BWD_GRADS, got, want)}
+
+
+def measure_ssd_bwd(dev, pair):
+    """A scan backward kernel at its training path's shape: Mamba2's
+    (`ssd_scan_bwd_cuda`, zamba2's (1, 4096, 112, 64, 64) with q and k
+    shared by the heads) or mLSTM's pair (`mlstm_scan_bwd_cuda`, xlstm's
+    (1, 4096, 4, 512, 512) and the normaliser), at each forget bias of
+    FORGET_BIASES, without and with the final states' cotangents: the five
+    gradients against the plain version on the same inputs (grad_err, under
+    SSD_BWD_TOL), two runs bit-equal, the plain version's own distance to
+    its float64 run (the rounding floor); at slow decay the kernel with its
+    reverse carry cut between chunks, which must read above the tolerance.
+    Then the kernel's, each launch's and the plain version's ms and the
+    bound. Returns the row; `ssd_bwd_faults` says whether it holds."""
+    import torch
+    from repro_torch.kernels import ssd_scan_bwd as SB
+    b, s, h, dk, dv = ((1, TRAIN_S, XLSTM_H, XLSTM_D, XLSTM_D) if pair
+                       else (1, TRAIN_S, 112, 64, 64))
+    kern = SB.mlstm_scan_bwd_cuda if pair else SB.ssd_scan_bwd_cuda
+    plain = SB.mlstm_scan_bwd_plain if pair else SB.ssd_scan_bwd_plain
+    checks = []
+    for bias in FORGET_BIASES:
+        x = ssd_bwd_inputs(dev, 700 + 10 * pair, b, s, h, dk, dv, bias,
+                           not pair)
+        for final in (False, True):
+            got = ssd_bwd_call(kern, x, pair, final)
+            again = ssd_bwd_call(kern, x, pair, final)
+            same = all(bool(torch.equal(u, w)) for u, w in zip(got, again))
+            del again
+            want = ssd_bwd_call(plain, x, pair, final)
+            r = {"forget_bias": bias, "final_state": final,
+                 "errs": grad_errs(got, want), "bit_equal": same,
+                 "max_abs_err": max(float((u.float() - w.float()).abs().max())
+                                    for u, w in zip(got, want))}
+            del got
+            if final:       # the rounding floor: float32 against float64
+                x64 = {n: (t[:, :, :1].double().expand(t.shape)
+                           if SB.shared_heads(t) else t.double())
+                       for n, t in x.items()}
+                w64 = ssd_bwd_call(plain, x64, pair, final)
+                r["plain_errs_vs_f64"] = grad_errs(want, w64)
+                del x64, w64
+            if bias == SLOW_FORGET_BIAS:
+                cut = ssd_bwd_call(kern, x, pair, final, cut_carry=True)
+                r["cut_carry_errs"] = grad_errs(cut, want)
+                del cut
+            checks.append(r)
+            del want
+            torch.cuda.empty_cache()
+    x = ssd_bwd_inputs(dev, 790 + pair, b, s, h, dk, dv, SLOW_FORGET_BIAS,
+                       not pair)
+    ms = cuda_ms(lambda: ssd_bwd_call(kern, x, pair, False), iters=10,
+                 warmup=2)
+    top = device_busy(lambda: ssd_bwd_call(kern, x, pair, False),
+                      cpu=False)["top"]
+    launch_ms = {name: sum(t["device_s"] * 1e3 for t in top
+                           if f"ssd_bwd::bwd_{name}" in t["kernel"])
+                 for name in SSD_BWD_LAUNCHES}
+    plain_ms = cuda_ms(lambda: ssd_bwd_call(plain, x, pair, False), iters=2,
+                       warmup=1)
+    del x
+    torch.cuda.empty_cache()
+    bound, by, nbytes, ops = ssd_bwd_bound(b, s, h, dk, dv, SSD_BWD_CHUNK,
+                                           not pair, pair)
+    return {"pair": pair, "B": b, "S": s, "H": h, "dk": dk, "dv": dv,
+            "chunk": SSD_BWD_CHUNK, "shared_qk": not pair, "checks": checks,
+            "max_abs_err": max(r["max_abs_err"] for r in checks),
+            "max_err": max(max(r["errs"].values()) for r in checks),
+            "ms": ms, "launch_ms": launch_ms, "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": bound, "bound_by": by,
+            "bytes": nbytes, "ops": ops, "bound_share": bound / ms,
+            "scratch_bytes": 4 * sum(SB.scratch_numel(
+                b, s, h, dk, dv, SSD_BWD_CHUNK, pair).values())}
+
+
+def print_ssd_bwd(row) -> None:
+    what = "mlstm pair bwd" if row["pair"] else "ssd bwd"
+    for r in row["checks"]:
+        cut = (f"; reverse carry cut: " + " ".join(
+            f"{n} {e:.2e}" for n, e in r["cut_carry_errs"].items())
+            if "cut_carry_errs" in r else "")
+        floor = (f"; plain float32 vs float64: " + " ".join(
+            f"{n} {e:.1e}" for n, e in r["plain_errs_vs_f64"].items())
+            if "plain_errs_vs_f64" in r else "")
+        print(f"  {what} forget bias {r['forget_bias']} final-state "
+              f"cotangent {r['final_state']}: err (limit {SSD_BWD_TOL}) "
+              + " ".join(f"{n} {e:.2e}" for n, e in r["errs"].items())
+              + f"; two runs {'bit-equal' if r['bit_equal'] else 'DIFFER'}"
+              f"{floor}{cut}")
+    print(f"  {what} B={row['B']} S={row['S']} H={row['H']} dk={row['dk']} "
+          f"dv={row['dv']}{' +1 (normaliser)' if row['pair'] else ''} "
+          f"chunk {row['chunk']}: ms {row['ms']:.3f} "
+          f"{ {k: round(v, 3) for k, v in row['launch_ms'].items()} }; "
+          f"plain {row['plain_ms']:.1f} bound {row['bound_ms']:.3f} "
+          f"({row['bound_by']}; {row['bound_share']:.3f} of the bound); "
+          f"scratch {row['scratch_bytes'] / 1e6:.0f} MB")
+
+
+def ssd_bwd_faults(row) -> list[str]:
+    """What a backward row fails: a gradient over SSD_BWD_TOL, two runs
+    that differ, or a cut reverse carry that the check passes (at slow
+    decay, in the gradients the carry reaches: dk, dv, dlog_a, dbeta)."""
+    out = []
+    for r in row["checks"]:
+        tag = f"bias {r['forget_bias']}, final {r['final_state']}"
+        out += [f"{n} off by {e:.3g} ({tag})" for n, e in r["errs"].items()
+                if not e <= SSD_BWD_TOL]
+        if not r["bit_equal"]:
+            out.append(f"two runs differ ({tag})")
+        if "cut_carry_errs" in r and not all(
+                e > SSD_BWD_TOL for n, e in r["cut_carry_errs"].items()
+                if n != "dq"):
+            out.append(f"the check passes a cut reverse carry ({tag}): "
+                       f"{r['cut_carry_errs']}")
+    return out
+
+
 def phase_model_kernels(dev, detail):
     """The flash-attention, SSD-scan (both kernels; the wide one alone and
     as mLSTM's pair) and RMSNorm kernels against their plain versions on
@@ -3125,7 +3339,8 @@ def phase_model_kernels(dev, detail):
     from repro_torch.kernels import rmsnorm as RN
     from repro_torch.kernels import ssd_scan as SSD
     rows = {"flash_attention": [], "flash_attention_bwd": [], "ssd_scan": [],
-            "ssd_scan_wide": [], "mlstm_scan": [], "rmsnorm": []}
+            "ssd_scan_wide": [], "mlstm_scan": [], "ssd_scan_bwd": [],
+            "mlstm_scan_bwd": [], "rmsnorm": []}
 
     # (B, S, H, KV, dh, window): the zamba2 prefill's call first; the last
     # three are granite-moe-3b's prefill call (GQA 24 / 8, dh 64),
@@ -3266,6 +3481,16 @@ def phase_model_kernels(dev, detail):
                                  + "; ".join(faults))
         rows["mlstm_scan" if pair else "ssd_scan_wide"].append(row)
 
+    # the scans' backward kernels at the training paths' shapes
+    for pair in (False, True):
+        row = measure_ssd_bwd(dev, pair)
+        print_ssd_bwd(row)
+        faults = ssd_bwd_faults(row)
+        if faults:
+            raise AssertionError(f"{'mlstm' if pair else 'ssd'} backward: "
+                                 + "; ".join(faults))
+        rows["mlstm_scan_bwd" if pair else "ssd_scan_bwd"].append(row)
+
     g = torch.Generator(device=dev).manual_seed(300)
     for d in (3584, 7168):
         x = torch.randn((SERVE_B * SERVE_S, d), dtype=torch.bfloat16,
@@ -3355,6 +3580,21 @@ def phase_model_kernels(dev, detail):
             f"B={SERVE_B},S={SERVE_S},H={XLSTM_H},dk=dv={XLSTM_D},chunk=256,"
             f"bf16, memory + normaliser (v = ones) in one call"),
             phase_ms=rows["mlstm_scan"][0]["phase_ms"]),
+        **{name: dict(entry(
+            name, source, "src/repro/kernels/ssd_scan.py:85", shape),
+            replaces_note="the gradient of that kernel; the reference has "
+                          "no backward kernel (jax.vjp of its jnp route)",
+            launch_ms=rows[name][0]["launch_ms"],
+            max_grad_err=rows[name][0]["max_err"])
+           for name, source, shape in (
+               ("ssd_scan_bwd", "ssd_scan_bwd.cu",
+                f"B=1,S={TRAIN_S},H=112,dk=dv=64,chunk={SSD_BWD_CHUNK},"
+                f"bf16,q/k head-broadcast (one zamba2-7b training "
+                f"microbatch)"),
+               ("mlstm_scan_bwd", "ssd_scan_wide_bwd.cu",
+                f"B=1,S={TRAIN_S},H={XLSTM_H},dk=dv={XLSTM_D},"
+                f"chunk={SSD_BWD_CHUNK},bf16, memory + normaliser (one "
+                f"xlstm-1.3b training microbatch)"))},
         "rmsnorm": entry(
             "rmsnorm", "rmsnorm.cu", "src/repro/kernels/rmsnorm.py:33",
             f"T={SERVE_B * SERVE_S},D=3584,bf16"),
@@ -3363,8 +3603,9 @@ def phase_model_kernels(dev, detail):
 
 def _kernel_modules():
     from repro_torch.kernels import flash_attention, grin_moves, rmsnorm
-    from repro_torch.kernels import ssd_scan, ssd_scan_wide
-    return grin_moves, flash_attention, ssd_scan, ssd_scan_wide, rmsnorm
+    from repro_torch.kernels import ssd_scan, ssd_scan_bwd, ssd_scan_wide
+    return (grin_moves, flash_attention, ssd_scan, ssd_scan_wide,
+            ssd_scan_bwd, rmsnorm)
 
 
 def reset_all_launches():
@@ -4303,37 +4544,82 @@ def phase_ops_rmsnorm(dev, detail):
 
 
 @contextlib.contextmanager
-def dropped_attention_grad(call: int, record: dict):
-    """The negative control of the train phase's gradient check: the
-    `call`-th backward of the flash kernel's autograd Function (the
-    backward runs the layers last to first) returns zero dq, dk, dv."""
-    from repro_torch.kernels import ops
-    real = ops._FlashAttention.backward
+def dropped_grad(fn, call: int, record: dict):
+    """The negative control of a train phase's gradient check: the
+    `call`-th backward of the kernels' autograd Function `fn` (the flash
+    kernel's, the SSD scan's or mLSTM's pair's; the backward runs the
+    layers last to first) returns zero gradients for its inputs."""
+    real = fn.backward
     seen = {"n": 0}
 
-    def backward(ctx, do):
-        out = real(ctx, do)
+    def backward(ctx, *grads):
+        out = real(ctx, *grads)
         seen["n"] += 1
         if seen["n"] == call:
             record["dropped"] = True
-            return (*(g.zero_() for g in out[:3]), *out[3:])
+            return tuple(g if g is None else g.zero_() for g in out)
         return out
-    ops._FlashAttention.backward = staticmethod(backward)
+    fn.backward = staticmethod(backward)
     try:
         yield
     finally:
-        ops._FlashAttention.backward = staticmethod(real)
+        fn.backward = staticmethod(real)
+
+
+@contextlib.contextmanager
+def plain_scans():
+    """`ops.ssd_scan` and `ops.mlstm_scan` replaced by their plain versions
+    (the routes a CPU tensor takes, which autograd differentiates), for the
+    train phases' gradient checks on the card."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan_wide as SSDW
+    from repro_torch.models.linear_scan import linear_scan_chunked
+    real = ops.ssd_scan, ops.mlstm_scan
+
+    def ssd(q, k, v, log_a, beta, *, chunk=256):
+        return linear_scan_chunked(q, k, v, log_a, beta, chunk=chunk)
+
+    def pair(q, k, v, log_a, beta, *, chunk=256):
+        return SSDW.mlstm_scan_plain(q, k, v, log_a, beta, chunk=chunk)
+    ops.ssd_scan, ops.mlstm_scan = ssd, pair
+    try:
+        yield
+    finally:
+        ops.ssd_scan, ops.mlstm_scan = real
+
+
+@contextlib.contextmanager
+def plain_scan_backward():
+    """The scans' backward kernels replaced by their plain versions
+    (`ssd_scan_bwd_plain`, `mlstm_scan_bwd_plain`: the same float32 math)
+    inside the autograd Functions, whose forwards stay the kernels: the
+    reference of the train phases' gradient checks for the scans, with the
+    forward on both sides the same."""
+    from repro_torch.kernels import ssd_scan_bwd as SB
+    real = (SB.ssd_scan_bwd_cuda, SB.mlstm_scan_bwd_cuda,
+            SB.ssd_scan_wide_bwd_cuda)
+    SB.ssd_scan_bwd_cuda = SB.ssd_scan_wide_bwd_cuda = SB.ssd_scan_bwd_plain
+    SB.mlstm_scan_bwd_cuda = SB.mlstm_scan_bwd_plain
+    try:
+        yield
+    finally:
+        (SB.ssd_scan_bwd_cuda, SB.mlstm_scan_bwd_cuda,
+         SB.ssd_scan_wide_bwd_cuda) = real
 
 
 def leaf_groups(names) -> dict:
-    """Leaf groups of a dense model's parameters: each layer's attention,
-    MLP and norms, the embedding, the final norm."""
+    """Leaf groups of a model's parameters: each block's mixer (attention,
+    Mamba2, mLSTM, sLSTM), MLP and norms, zamba2's shared block's, the
+    embedding, the head, the final norm."""
     groups = {}
     for n in names:
         parts = n.split(".")
-        if parts[0] == "layers":
+        if parts[0] in ("layers", "mamba", "mlstm", "slstm"):
             kind = "ln" if parts[2].startswith("ln") else parts[2]
-            key = f"layers.{parts[1]}.{kind}"
+            key = f"{parts[0]}.{parts[1]}.{kind}"
+        elif parts[0] == "shared":
+            kind = "ln" if parts[1].startswith("ln") else parts[1]
+            key = f"shared.{kind}"
         else:
             key = parts[0]
         groups.setdefault(key, []).append(n)
@@ -4351,21 +4637,88 @@ def group_rel_errs(got: dict, want: dict) -> dict:
     return out
 
 
-def phase_train(dev, detail, smoke=False):
-    """qwen2.5-3b trained at full width and depth (36 blocks, d_model 2048,
-    3.09 B parameters, tied embeddings; random initialisation from a seeded
-    generator) through `launch.train.train`: TRAIN_STEPS steps of TRAIN_B x
-    TRAIN_S tokens in TRAIN_MICRO microbatches, every block and loss chunk
-    recomputed in the backward. Per step: seconds and tokens/s (the last
-    step under the profiler, for the device time and busy share; the others
-    without it), peak GB, flash forward and backward launches (2 x 36 x 4
-    and 36 x 4 expected) and no plain attention call.
-    Then one microbatch's gradients through the kernels against the plain
-    attention's, per leaf group, with one layer's attention gradient
-    dropped as the control; recovery at `smoke_config` (an injected
-    failure, restore and replay, bit-equal to an uninterrupted run); and
-    the hybrid and ssm families raising under grad on the card. `smoke`
-    trains the reduced config instead (a rehearsal on a CPU)."""
+def train_launches(cfg) -> dict:
+    """The model kernels' launches in one train step of TRAIN_MICRO
+    microbatches: a block's forward kernel twice a microbatch (the forward
+    and its recompute in the backward), its backward kernel once."""
+    m = TRAIN_MICRO
+    if cfg.family == "hybrid":
+        att = cfg.n_layers // cfg.attn_every
+        return {"ssd_scan": 2 * cfg.n_layers * m,
+                "ssd_scan_bwd": cfg.n_layers * m,
+                "flash_attention": 2 * att * m, "flash_attention_bwd": att * m}
+    if cfg.family == "ssm":
+        n = (cfg.n_layers // cfg.slstm_every) * (cfg.slstm_every - 1)
+        return {"mlstm_scan": 2 * n * m, "mlstm_scan_bwd": n * m}
+    return {"flash_attention": 2 * cfg.n_layers * m,
+            "flash_attention_bwd": cfg.n_layers * m}
+
+
+def train_control(cfg):
+    """(the autograd Function whose backward the gradient check's control
+    drops once, its backward calls a microbatch, the leaf group that
+    owns the layer `dropped_grad` hits at call n // 2)."""
+    from repro_torch.kernels import ops
+    if cfg.family == "hybrid":
+        fn, n, block = ops._SSDScan, cfg.n_layers, "mamba.{}.mamba"
+    elif cfg.family == "ssm":
+        fn, block = ops._MLSTMScan, "mlstm.{}.mlstm"
+        n = (cfg.n_layers // cfg.slstm_every) * (cfg.slstm_every - 1)
+    else:
+        fn, n, block = ops._FlashAttention, cfg.n_layers, "layers.{}.attn"
+    return fn, n, block.format(n - n // 2)
+
+
+def grad_check_routes(cfg):
+    """(compute dtype, {reference name: (its contexts, blocks)}, the
+    kernels' route's contexts) of a train phase's gradient check; contexts
+    as a function returning fresh context managers, blocks None for the
+    phase's whole model or a depth to cut it to (its first blocks, with the
+    trained parameters). Each reference comes with its own dropped-gradient
+    control. The dense family: bf16, the kernels against the plain
+    attention. The hybrid and ssm families: float32, where rounding moves a
+    check little (at bf16 the plain route against itself at another chunk
+    reads 0.09 for zamba2-7b at 27 blocks and 1.4 for xlstm-1.3b,
+    `tools/train_grad_noise.py`), attention plain on every side (the flash
+    kernels take bf16 only): the kernels against their plain backward under
+    the same kernel forwards (`plain_scan_backward`), and against the plain
+    scans' autograd (`plain_scans`), for xlstm-1.3b at its first
+    TRAIN_SSM_CUT_GROUPS groups of blocks (at full depth that route reads
+    0.19 against itself at float32, beyond any limit a check could hold;
+    PERF.md section 7)."""
+    if cfg.family == "dense":
+        return (cfg.dtype, {"the plain attention": (lambda: (
+            plain_attention(),), None)}, lambda: ())
+    cut = (TRAIN_SSM_CUT_GROUPS * cfg.slstm_every if cfg.family == "ssm"
+           else None)
+    refs = {"the plain backward": (lambda: (plain_attention(),
+                                            plain_scan_backward()), None),
+            "the plain scans" + (f", first {cut} blocks" if cut else ""): (
+                lambda: (plain_attention(), plain_scans()), cut)}
+    return "float32", refs, lambda: (plain_attention(),)
+
+
+def phase_train(dev, detail, smoke=False, arch=TRAIN_ARCH, layers=None,
+                key="train", lr=None):
+    """`arch` trained at full width (and depth, or `layers` blocks) from a
+    random initialisation (a seeded generator) through `launch.train.train`:
+    TRAIN_STEPS steps of TRAIN_B x TRAIN_S tokens in TRAIN_MICRO
+    microbatches, every block and loss chunk recomputed in the backward.
+    qwen2.5-3b by default (36 blocks, d_model 2048, 3.09 B parameters, tied
+    embeddings; flash attention and its backward kernel in every layer);
+    `phase_train_hybrid` and `phase_train_ssm` run zamba2-7b and
+    xlstm-1.3b. Per step: seconds and tokens/s (the last step under the
+    profiler, for the device time and busy share; the others without it),
+    peak GB, each model kernel's launches (`train_launches`; nothing else)
+    and no plain attention or scan call. Then one microbatch's gradients
+    through the kernels against the reference routes of
+    `grad_check_routes` (the plain attention for the dense family; at
+    float32 the scans' plain backward and the plain scans, the latter for
+    xlstm-1.3b on its first blocks), per leaf group, each with one layer's
+    kernel gradient dropped as its control (`train_control`); and recovery at `smoke_config` (an injected failure,
+    restore and replay, bit-equal to an uninterrupted run, through the
+    backward kernels). `smoke` trains the reduced config instead (a
+    rehearsal on a CPU). Results go to detail[key]."""
     import math
     import statistics
     import tempfile
@@ -4377,10 +4730,13 @@ def phase_train(dev, detail, smoke=False):
     from repro_torch.train.data import DataConfig, batch_for_step
     from repro_torch.train.optimizer import OptimizerConfig
     from repro_torch.train.train_step import compute_copy, loss_and_grads
-    cfg = get_arch(TRAIN_ARCH)
+    cfg = get_arch(arch)
+    if layers:
+        cfg = cfg.with_(n_layers=layers)
     if smoke:
         cfg = smoke_config(cfg)
-    opt = OptimizerConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+    want = train_launches(cfg)
+    opt = OptimizerConfig(lr=lr or TRAIN_LR, warmup_steps=TRAIN_WARMUP,
                           decay_steps=TRAIN_STEPS)
     records = []
 
@@ -4414,11 +4770,9 @@ def phase_train(dev, detail, smoke=False):
                    "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
                    "device_s": busy.get("device_s"),
                    "busy_share": busy.get("busy_share"),
-                   "flash_fwd": n["flash_attention"],
-                   "flash_bwd": n["flash_attention_bwd"],
-                   "other_launches": {k: c for k, c in n.items() if c and k
-                                      not in ("flash_attention",
-                                              "flash_attention_bwd")},
+                   "launches": {k: n[k] for k in want},
+                   "other_launches": {k: c for k, c in n.items()
+                                      if c and k not in want},
                    "top": busy.get("top")}
             records.append(rec)
             print(f"  step {rec['step']}: loss {rec['loss']:.5f} grad norm "
@@ -4427,16 +4781,16 @@ def phase_train(dev, detail, smoke=False):
                   + (f"; under the profiler, device "
                      f"{rec['device_s'] or 0:.3f} s, busy "
                      f"{rec['busy_share'] or 0:.3f}" if profiled else "")
-                  + f"), peak {rec['peak_gb']:.2f} GB; flash launches fwd "
-                  f"{rec['flash_fwd']} bwd {rec['flash_bwd']}", flush=True)
+                  + f"), peak {rec['peak_gb']:.2f} GB; launches "
+                  f"{rec['launches']}", flush=True)
             return r
         return run
 
     plain = {"ssd": 0, "attention": 0}
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as d, counting_plain_routes(plain):
-        res = T.train(TRAIN_ARCH, steps=TRAIN_STEPS, batch=TRAIN_B,
-                      seq=TRAIN_S, microbatches=TRAIN_MICRO, smoke=smoke,
+        res = T.train(arch, steps=TRAIN_STEPS, batch=TRAIN_B, seq=TRAIN_S,
+                      microbatches=TRAIN_MICRO, smoke=smoke, layers=layers,
                       ckpt_dir=d, ckpt_every=TRAIN_STEPS + 1, device=dev,
                       opt=opt, step_wrapper=measure)
     train_s = time.perf_counter() - t0
@@ -4447,8 +4801,6 @@ def phase_train(dev, detail, smoke=False):
     n_params = sum(p.numel() for p in state.params.values())
     losses = [r["loss"] for r in records]
     loss0 = math.log(cfg.vocab_size) + cfg.d_model * 0.02 ** 2 / 2
-    want_fwd = 2 * cfg.n_layers * TRAIN_MICRO
-    want_bwd = cfg.n_layers * TRAIN_MICRO
     # the steps after the first (which warms the allocator and the
     # libraries) and before the profiled last one
     timed = [r["s"] for r in records[1:] if not r["profiled"]]
@@ -4456,9 +4808,9 @@ def phase_train(dev, detail, smoke=False):
     prof_rec = next((r for r in records if r["profiled"]), None)
     busy_est = (prof_rec["device_s"] / step_s
                 if prof_rec and prof_rec["device_s"] and step_s else None)
-    print(f"  {cfg.name}: {n_params:,} parameters; {len(records)} steps of "
-          f"{TRAIN_B} x {TRAIN_S} in {TRAIN_MICRO} microbatches in "
-          f"{train_s:.1f} s (init included); losses "
+    print(f"  {cfg.name} ({cfg.n_layers} blocks): {n_params:,} parameters; "
+          f"{len(records)} steps of {TRAIN_B} x {TRAIN_S} in {TRAIN_MICRO} "
+          f"microbatches in {train_s:.1f} s (init included); losses "
           f"{[round(x, 4) for x in losses]} (first expected {loss0:.3f} +- "
           f"{TRAIN_LOSS0_TOL}); plain calls {plain}")
     if step_s:
@@ -4467,35 +4819,65 @@ def phase_train(dev, detail, smoke=False):
               f"the profiled step's device time over it "
               f"{busy_est or 0:.3f}")
 
-    # one microbatch's gradients: kernels, plain attention, and the control
+    # one microbatch's gradients: kernels, the reference routes, the control
     dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_S,
                     global_batch=TRAIN_B)
     mb = {k: torch.from_numpy(v[:TRAIN_B // TRAIN_MICRO]).to(dev)
           for k, v in batch_for_step(dc, 0).items()}
-    pc = compute_copy(state.params, getattr(torch, cfg.dtype))
-    t1 = time.perf_counter()
-    loss_k, _, g_k = loss_and_grads(model, pc, mb)
-    with plain_attention():
-        loss_p, _, g_p = loss_and_grads(model, pc, mb)
-    rel = group_rel_errs(g_k, g_p)
-    del g_k
-    drop_call = cfg.n_layers // 2
-    drop_layer = cfg.n_layers - drop_call      # backward runs last to first
-    dropped = {}
-    with dropped_attention_grad(drop_call, dropped):
-        _, _, g_f = loss_and_grads(model, pc, mb)
-    rel_f = group_rel_errs(g_f, g_p)
-    del g_f, g_p, pc
+    state.opt = {}                      # the moments: not needed from here
     torch.cuda.empty_cache()
-    worst = max(rel, key=rel.get)
-    worst_f = max(rel_f, key=rel_f.get)
+    check_dtype, refs, kernel_ctx = grad_check_routes(cfg)
+    pc = compute_copy(state.params, getattr(torch, check_dtype))
+    t1 = time.perf_counter()
+
+    def grads(m, p, *ctx):
+        with contextlib.ExitStack() as st:
+            for c in ctx:
+                st.enter_context(c)
+            loss, _, g = loss_and_grads(m, p, mb)
+        return float(loss), g
+    checks, runs = {}, {}
+    for name, (ctx, blocks) in refs.items():
+        ccfg = cfg.with_(dtype=check_dtype,
+                         **({"n_layers": blocks} if blocks else {}))
+        if blocks:      # the first blocks, with the trained parameters
+            m = Model(ccfg, device="meta")
+            p = {n: pc[n] for n, _ in m.named_parameters()}
+        else:
+            m, p = model, pc
+            m.cfg = ccfg
+        fn, n_bwd, drop_group = train_control(ccfg)
+        if blocks not in runs:  # the kernels, and with the control
+            runs.clear()
+            dropped = {}
+            runs[blocks] = (grads(m, p, *kernel_ctx()),
+                            grads(m, p, *kernel_ctx(), dropped_grad(
+                                fn, n_bwd // 2, dropped))[1],
+                            bool(dropped))
+            torch.cuda.empty_cache()
+        (loss_k, g_k), g_f, was_dropped = runs[blocks]
+        loss_r, g_r = grads(m, p, *ctx())
+        rel, rel_f = group_rel_errs(g_k, g_r), group_rel_errs(g_f, g_r)
+        del g_k, g_f, g_r
+        torch.cuda.empty_cache()
+        worst, worst_f = max(rel, key=rel.get), max(rel_f, key=rel_f.get)
+        checks[name] = {
+            "blocks": ccfg.n_layers, "loss_kernel": loss_k, "loss": loss_r,
+            "rel": rel, "worst": worst, "control": fn.__name__,
+            "dropped_group": drop_group, "dropped": was_dropped,
+            "rel_dropped": rel_f, "worst_dropped": worst_f}
+        print(f"  gradients of one {TRAIN_B // TRAIN_MICRO} x {TRAIN_S} "
+              f"microbatch at {check_dtype} compute, {ccfg.n_layers} "
+              f"blocks, through the kernels (loss {loss_k:.6f}) against "
+              f"{name} (loss {loss_r:.6f}): worst group ||d|| / ||ref|| "
+              f"{rel[worst]:.2e} ({worst}); limit {GRAD_REL_TOL}; "
+              f"{fn.__name__}'s gradient dropped once ({drop_group}): "
+              f"{rel_f[worst_f]:.2e} ({worst_f})", flush=True)
+    model.cfg = cfg
+    del runs, pc
+    torch.cuda.empty_cache()
     grad_s = time.perf_counter() - t1
-    print(f"  gradients of one {TRAIN_B // TRAIN_MICRO} x {TRAIN_S} "
-          f"microbatch, kernels vs plain attention: loss {float(loss_k):.5f}"
-          f" vs {float(loss_p):.5f}; worst group ||d|| / ||plain|| "
-          f"{rel[worst]:.2e} ({worst}; limit {GRAD_REL_TOL}); layer "
-          f"{drop_layer}'s attention gradient dropped: {rel_f[worst_f]:.2e} "
-          f"({worst_f}); {grad_s:.1f} s")
+    print(f"  gradient checks: {grad_s:.1f} s")
 
     # recovery at smoke_config: an uninterrupted run and one with a failure
     kw = dict(steps=RECOVERY_STEPS, batch=4, seq=256, microbatches=2,
@@ -4517,8 +4899,8 @@ def phase_train(dev, detail, smoke=False):
     t2 = time.perf_counter()
     with tempfile.TemporaryDirectory() as d1, \
             tempfile.TemporaryDirectory() as d2:
-        clean = T.train(TRAIN_ARCH, ckpt_dir=d1, log=lambda *a: None, **kw)
-        healed = T.train(TRAIN_ARCH, ckpt_dir=d2, step_wrapper=flaky,
+        clean = T.train(arch, ckpt_dir=d1, log=lambda *a: None, **kw)
+        healed = T.train(arch, ckpt_dir=d2, step_wrapper=flaky,
                          log=lambda *a: None, **kw)
     rec_launches = all_launches()
     same = all(bool(torch.equal(p, clean["state"].params[n]))
@@ -4528,40 +4910,24 @@ def phase_train(dev, detail, smoke=False):
           f"call {RECOVERY_FAIL_AT}, checkpoints every 3): restarts "
           f"{healed['restarts']}, steps {healed['steps']}, parameters "
           f"{'bit-equal to' if same else 'DIFFERENT from'} the "
-          f"uninterrupted run's; launches {rec_launches}; {rec_s:.1f} s")
-
-    # the families whose kernels have no backward yet raise on the card
-    raised = {}
-    for arch in ("zamba2-7b", "xlstm-1.3b"):
-        scfg = smoke_config(get_arch(arch))
-        m = Model(scfg, device=dev).init(
-            torch.Generator(device=dev).manual_seed(0))
-        toks = torch.randint(0, scfg.vocab_size, (2, 64), device=dev)
-        try:
-            loss_and_grads(m, compute_copy(dict(m.named_parameters()),
-                                           getattr(torch, scfg.dtype)),
-                           {"tokens": toks, "targets": toks})
-            raised[arch] = None
-        except NotImplementedError as e:
-            raised[arch] = str(e)[:80]
-        del m
-    print(f"  under grad on the card: {raised}")
+          f"uninterrupted run's; launches "
+          f"{ {k: c for k, c in rec_launches.items() if c} }; "
+          f"{rec_s:.1f} s")
 
     per_step = [{k: v for k, v in r.items() if k != "top"} for r in records]
-    detail["train"] = {
-        "arch": cfg.name, "params": n_params, "B": TRAIN_B, "S": TRAIN_S,
-        "microbatches": TRAIN_MICRO, "steps": per_step,
-        "median_step_s": step_s, "busy_share_est": busy_est,
+    detail[key] = {
+        "arch": cfg.name, "layers": cfg.n_layers, "params": n_params,
+        "B": TRAIN_B, "S": TRAIN_S, "microbatches": TRAIN_MICRO,
+        "steps": per_step, "median_step_s": step_s,
+        "busy_share_est": busy_est,
         "top_profiled_step": prof_rec["top"] if prof_rec else None,
         "train_s": train_s, "loss0_expected": loss0,
-        "plain_calls": plain, "grad_check": {
-            "loss_kernel": float(loss_k), "loss_plain": float(loss_p),
-            "rel": rel, "dropped_layer": drop_layer, "rel_dropped": rel_f,
-            "seconds": grad_s},
+        "plain_calls": plain, "launches_per_step_expected": want,
+        "grad_check": {"dtype": check_dtype, "against": checks,
+                       "seconds": grad_s},
         "recovery": {"restarts": healed["restarts"],
                      "steps": healed["steps"], "bit_equal": same,
-                     "launches": rec_launches, "seconds": rec_s},
-        "raises_under_grad": raised}
+                     "launches": rec_launches, "seconds": rec_s}}
     faults = []
     if len(records) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
         faults.append(f"losses {losses}")
@@ -4570,40 +4936,59 @@ def phase_train(dev, detail, smoke=False):
     elif not losses[-1] < losses[0]:
         faults.append(f"last loss {losses[-1]:.4f} not below the first")
     for r in records:
-        if (r["flash_fwd"], r["flash_bwd"]) != (want_fwd, want_bwd) \
-                or r["other_launches"]:
-            faults.append(f"step {r['step']}: launches fwd {r['flash_fwd']} "
-                          f"bwd {r['flash_bwd']} other "
-                          f"{r['other_launches']}, expected {want_fwd} and "
-                          f"{want_bwd}")
+        if r["launches"] != want or r["other_launches"]:
+            faults.append(f"step {r['step']}: launches {r['launches']} other "
+                          f"{r['other_launches']}, expected {want}")
     if plain["attention"] or plain["ssd"]:
         faults.append(f"plain calls on the main path: {plain}")
-    if not rel[worst] <= GRAD_REL_TOL:
-        faults.append(f"gradients off in {worst}: {rel[worst]:.3g}")
-    if not dropped.get("dropped") or rel_f[worst_f] <= GRAD_REL_TOL:
-        faults.append("the gradient check passes a dropped attention "
-                      "gradient")
+    for name, c in checks.items():
+        if not c["rel"][c["worst"]] <= GRAD_REL_TOL:
+            faults.append(f"gradients off {name}'s in {c['worst']}: "
+                          f"{c['rel'][c['worst']]:.3g}")
+        if not c["dropped"] \
+                or c["rel_dropped"][c["worst_dropped"]] <= GRAD_REL_TOL:
+            faults.append(f"the gradient check against {name} passes a "
+                          f"dropped {c['control']} gradient")
+    bwd = [k for k in want if k.endswith("_bwd")]
     if healed["restarts"] != 1 or healed["steps"] != RECOVERY_STEPS \
-            or not same or rec_launches["flash_attention_bwd"] <= 0:
+            or not same or not all(rec_launches[k] > 0 for k in bwd):
         faults.append("recovery not bit-equal or not through the kernels")
-    if any(v is None for v in raised.values()):
-        faults.append(f"no error under grad: {raised}")
     if faults:
         raise AssertionError("; ".join(faults))
-    per_step = sorted({r["flash_bwd"] for r in records})
-    return {"flash_attention": sum(r["flash_fwd"] for r in records),
-            "flash_attention_bwd": sum(r["flash_bwd"] for r in records),
-            "per_step": per_step[0] if len(per_step) == 1 else per_step}
+    measured = {k: sorted({r["launches"][k] for r in records}) for k in want}
+    return {**{k: sum(r["launches"][k] for r in records) for k in want},
+            "per_step": {k: n[0] if len(n) == 1 else n
+                         for k, n in measured.items()}}
+
+
+def phase_train_hybrid(dev, detail, smoke=False):
+    """zamba2-7b at full width, depth cut to TRAIN_HYBRID_LAYERS Mamba2
+    blocks (the shared attention block after every 6, then the trailing
+    3, as at 81 = 13 x 6 + 3): `phase_train`'s run, checks and recovery,
+    through the SSD scan's forward and backward kernels and flash
+    attention's."""
+    return phase_train(dev, detail, smoke, arch=SERVE_ARCH,
+                       layers=None if smoke else TRAIN_HYBRID_LAYERS,
+                       key="train_hybrid")
+
+
+def phase_train_ssm(dev, detail, smoke=False):
+    """xlstm-1.3b at full width and depth (42 mLSTM and 6 sLSTM blocks):
+    `phase_train`'s run, checks and recovery, through the wide SSD
+    kernel's pair (`mlstm_scan_cuda`) and its backward kernel."""
+    return phase_train(dev, detail, smoke, arch=XLSTM_ARCH, key="train_ssm",
+                       lr=TRAIN_SSM_LR)
 
 
 # ------------------------------------------------------------------- main
 
 def build_kernels() -> float:
-    """Build the six CUDA libraries (one nvcc per source, all started
+    """Build the eight CUDA libraries (one nvcc per source, all started
     together), load them, and print the build's seconds and ptxas's
     register counts; returns the seconds."""
     from repro_torch.kernels import (build, flash_attention, grin_moves,
-                                     rmsnorm, ssd_scan, ssd_scan_wide)
+                                     rmsnorm, ssd_scan, ssd_scan_bwd,
+                                     ssd_scan_wide)
     t0 = time.perf_counter()
     model_flags = build.MODEL_NVCC_FLAGS
     mods = {"grin_moves": (grin_moves.SOURCES, build.NVCC_FLAGS,
@@ -4615,6 +5000,10 @@ def build_kernels() -> float:
             "ssd_scan": (ssd_scan.SOURCES, model_flags, ssd_scan._kernel_lib),
             "ssd_scan_wide": (ssd_scan_wide.SOURCES, model_flags,
                               ssd_scan_wide._kernel_lib),
+            "ssd_scan_bwd": (ssd_scan_bwd.SOURCES, model_flags,
+                             ssd_scan_bwd._kernel_lib),
+            "ssd_scan_wide_bwd": (ssd_scan_bwd.WIDE_SOURCES, model_flags,
+                                  ssd_scan_bwd._wide_kernel_lib),
             "rmsnorm": (rmsnorm.SOURCES, model_flags, rmsnorm._kernel_lib)}
     handles = {name: build.start_build(name, sources, flags)
                for name, (sources, flags, _) in mods.items()}
@@ -4741,7 +5130,11 @@ def main() -> int:
         torch.cuda.empty_cache()        # each engine is freed before the next
     rms_launches = run("ops-rmsnorm", phase_ops_rmsnorm, dev, detail)
     torch.cuda.empty_cache()
-    train_launches = run("train", phase_train, dev, detail)
+    train_counts = run("train", phase_train, dev, detail)
+    torch.cuda.empty_cache()
+    hybrid_counts = run("train-hybrid", phase_train_hybrid, dev, detail)
+    torch.cuda.empty_cache()
+    ssm_counts = run("train-ssm", phase_train_ssm, dev, detail)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_detail.json").write_text(
@@ -4749,24 +5142,35 @@ def main() -> int:
     if failed or entry is None or model_entries is None \
             or solve_entry is None or serve_launches is None \
             or xlstm_launches is None or rms_launches is None \
-            or train_launches is None or None in family_launches.values():
+            or train_counts is None or hybrid_counts is None \
+            or ssm_counts is None or None in family_launches.values():
         _fail(f"phases failed: {failed}")
     entry["launches"] = launches["block_move_gains"]
     solve_entry["launches"] = launches["grin_solve"]
     flash_by_phase = {"serve": serve_launches["flash_attention"], **{
         name: n["flash_attention"] for name, n in family_launches.items()},
-        "train": train_launches["flash_attention"]}
-    model_entries["flash_attention"]["launches"] = sum(
-        flash_by_phase.values())
-    model_entries["flash_attention"]["launches_by_phase"] = flash_by_phase
-    model_entries["flash_attention_bwd"]["launches"] = \
-        train_launches["flash_attention_bwd"]
-    model_entries["flash_attention_bwd"]["launches_per_train_step"] = \
-        train_launches["per_step"]
-    model_entries["ssd_scan"]["launches"] = serve_launches["ssd_scan"]
-    model_entries["ssd_scan_wide"]["launches"] = \
-        xlstm_launches["ssd_scan_wide"]
-    model_entries["mlstm_scan"]["launches"] = xlstm_launches["mlstm_scan"]
+        "train": train_counts["flash_attention"],
+        "train-hybrid": hybrid_counts["flash_attention"]}
+    by_phase = {
+        "flash_attention": flash_by_phase,
+        "flash_attention_bwd": {
+            "train": train_counts["flash_attention_bwd"],
+            "train-hybrid": hybrid_counts["flash_attention_bwd"]},
+        "ssd_scan": {"serve": serve_launches["ssd_scan"],
+                     "train-hybrid": hybrid_counts["ssd_scan"]},
+        "ssd_scan_wide": {"serve-xlstm": xlstm_launches["ssd_scan_wide"]},
+        "mlstm_scan": {"serve-xlstm": xlstm_launches["mlstm_scan"],
+                       "train-ssm": ssm_counts["mlstm_scan"]},
+        "ssd_scan_bwd": {"train-hybrid": hybrid_counts["ssd_scan_bwd"]},
+        "mlstm_scan_bwd": {"train-ssm": ssm_counts["mlstm_scan_bwd"]}}
+    for name, counts in by_phase.items():
+        model_entries[name]["launches"] = sum(counts.values())
+        model_entries[name]["launches_by_phase"] = counts
+    for name, counts in (("flash_attention_bwd", train_counts),
+                         ("ssd_scan_bwd", hybrid_counts),
+                         ("mlstm_scan_bwd", ssm_counts)):
+        model_entries[name]["launches_per_train_step"] = \
+            counts["per_step"][name]
     model_entries["rmsnorm"]["launches"] = rms_launches
     print(json.dumps({"kernels": [entry, solve_entry,
                                   *model_entries.values()]}))

@@ -5,10 +5,11 @@ synthetic Zipfian corpus (`train.data`): the microbatched AdamW step
 (`train.train_step`), checkpoints every `--ckpt-every` steps and restart on
 a fault (`train.fault_tolerance.run_with_recovery`). `--smoke` (the
 default) trains the reduced same-family config, `--full` the registry's.
-Runs on the card unless `--device cpu` is given. On the card only the
-dense family trains (its one kernel, flash attention, has a backward
-kernel); the other families' kernels raise under grad there. `train(...)`
-is the same run as a function.
+Runs on the card unless `--device cpu` is given. On the card the dense,
+hybrid and ssm families train through their kernels and the kernels'
+backward kernels (flash attention, the SSD scan, mLSTM's pair); the moe
+family's routed experts have no deterministic backward yet (ROADMAP A3).
+`train(...)` is the same run as a function.
 """
 from __future__ import annotations
 
@@ -57,21 +58,23 @@ class Batches:
 
 
 def train(arch: str, *, steps: int = 100, batch: int = 8, seq: int = 128,
-          microbatches: int = 1, smoke: bool = True, ckpt_dir: str | None = None,
-          ckpt_every: int = 50, device=None, seed: int = 0,
-          opt: OptimizerConfig | None = None, step_wrapper=None,
-          log=print) -> dict:
-    """Train `arch` (`smoke_config` of it unless `smoke=False`) for `steps`
-    steps of `batch` x `seq` tokens in `microbatches` microbatches, from
-    parameters drawn from a `torch.Generator` seeded `seed`; `opt` defaults
-    to the reference launcher's AdamW (warmup over 10 steps, decay over
-    `steps`). `step_wrapper`, if
-    given, wraps the logged step function (the card smoke measures and
-    injects faults there). Returns {"cfg", "model", "state", "steps",
-    "restarts", "history"}: history one dict per step run, with its loss,
-    grad_norm, lr and seconds."""
+          microbatches: int = 1, smoke: bool = True, layers: int | None = None,
+          ckpt_dir: str | None = None, ckpt_every: int = 50, device=None,
+          seed: int = 0, opt: OptimizerConfig | None = None,
+          step_wrapper=None, log=print) -> dict:
+    """Train `arch` (`smoke_config` of it unless `smoke=False`, cut to
+    `layers` blocks when given) for `steps` steps of `batch` x `seq` tokens
+    in `microbatches` microbatches, from parameters drawn from a
+    `torch.Generator` seeded `seed`; `opt` defaults to the reference
+    launcher's AdamW (warmup over 10 steps, decay over `steps`).
+    `step_wrapper`, if given, wraps the logged step function (the card
+    smoke measures and injects faults there). Returns {"cfg", "model",
+    "state", "steps", "restarts", "history"}: history one dict per step
+    run, with its loss, grad_norm, lr and seconds."""
     dev = resolve_device(device)
     cfg = get_arch(arch)
+    if layers:
+        cfg = cfg.with_(n_layers=layers)
     if smoke:
         cfg = smoke_config(cfg)
     log(f"[train] {cfg.name}: {count_params(cfg) / 1e6:.1f}M params "

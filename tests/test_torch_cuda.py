@@ -1154,22 +1154,186 @@ def test_flash_attention_autograd_at_the_training_group(cuda):
 
 
 def test_kernels_without_backward_raise_under_grad(cuda):
-    """`ssd_scan`, `mlstm_scan` and `rmsnorm` on the card have no backward
-    kernel: under grad they raise instead of cutting the gradients; under
-    no_grad they run."""
+    """`rmsnorm` on the card has no backward kernel: under grad it raises
+    instead of cutting the gradients, under no_grad it runs. `ssd_scan` and
+    `mlstm_scan` under grad are their autograd Functions: one forward and
+    one backward kernel call each, finite gradients."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as SSD
+    from repro_torch.kernels import ssd_scan_bwd as SB
+    from repro_torch.kernels import ssd_scan_wide as SSDW
     rng = np.random.default_rng(3)
     b, s, h, d = 1, 64, 2, 64
     x = _rand(rng, (b, s, h, d), torch.bfloat16, cuda).requires_grad_(True)
     la = -torch.rand((b, s, h), device=cuda)
     beta = torch.rand((b, s, h), device=cuda)
     w = torch.zeros(d, dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(NotImplementedError, match="A3"):
-        ops.ssd_scan(x, x, x, la, beta, chunk=32)
-    with pytest.raises(NotImplementedError, match="A3"):
-        ops.mlstm_scan(x, x, x, la, beta, chunk=32)
-    with pytest.raises(NotImplementedError, match="A3"):
+    with pytest.raises(NotImplementedError, match="no backward kernel"):
         ops.rmsnorm(x, w)
+    before = {**SSD.launches, **SSDW.launches, **SB.launches}
+    ops.ssd_scan(x, x, x, la, beta, chunk=32)[0].float().sum().backward()
+    ops.mlstm_scan(x, x, x, la, beta, chunk=32)[0].float().sum().backward()
+    after = {**SSD.launches, **SSDW.launches, **SB.launches}
+    assert {k: after[k] - before[k] for k in ("ssd_scan", "ssd_scan_bwd",
+                                             "mlstm_scan", "mlstm_scan_bwd")
+            } == dict.fromkeys(("ssd_scan", "ssd_scan_bwd", "mlstm_scan",
+                                "mlstm_scan_bwd"), 1)
+    assert torch.isfinite(x.grad.float()).all()
     with torch.no_grad():
         ops.ssd_scan(x, x, x, la, beta, chunk=32)
         ops.rmsnorm(x, w)
+
+
+# ---------------------------------------------------- the scans' backward
+#
+# The backward kernels against their plain versions (float32 math on the
+# same inputs): grad_err = max |kernel - plain| / (rms(plain) + |plain|)
+# <= SSD_BWD_TOL for dq, dk, dv (rounded to the inputs' dtype: bf16 puts
+# two float32 values an ulp apart up to one spacing, 2^-8, apart) and
+# dlog_a, dbeta (float32); chip_smoke.py's SSD_BWD_TOL, 2^-6.
+
+SSD_BWD_TOL = 2.0 ** -6
+
+
+def _grad_err(a, b):
+    b = b.float()
+    return float(((a.float() - b).abs() / (b.square().mean().sqrt()
+                                            + b.abs())).max())
+
+
+def _scan_bwd_inputs(rng, dev, b, s, h, dk, dv, dtype, shared, bias):
+    """q, k (expanded over the heads when `shared`), v, log_a, beta, dy,
+    d_state, dnm, dn."""
+    hq = 1 if shared else h
+    q = (_rand(rng, (b, s, hq, dk), torch.float32, dev) / dk ** 0.5).to(
+        dtype).expand(b, s, h, dk)
+    k = _rand(rng, (b, s, hq, dk), dtype, dev).expand(b, s, h, dk)
+    v = _rand(rng, (b, s, h, dv), dtype, dev)
+    la = torch.nn.functional.logsigmoid(
+        _rand(rng, (b, s, h), torch.float32, dev) + bias)
+    beta = torch.sigmoid(_rand(rng, (b, s, h), torch.float32, dev))
+    return (q, k, v, la, beta, _rand(rng, (b, s, h, dv), dtype, dev),
+            _rand(rng, (b, h, dk, dv), torch.float32, dev),
+            _rand(rng, (b, s, h, 1), dtype, dev),
+            _rand(rng, (b, h, dk, 1), torch.float32, dev))
+
+
+@pytest.mark.parametrize("b,s,h,dk,dv,chunk,shared", [
+    (2, 70, 3, 16, 16, 16, True),       # ragged: 5 chunks, the last of 6
+    (1, 523, 3, 64, 64, 256, True),     # Mamba2's state, a padded tail
+    (2, 200, 2, 128, 96, 32, False),    # the widest, dv not a multiple of 64
+    (1, 300, 2, 64, 1, 64, False),      # dv = 1
+    (1, 4096, 112, 64, 64, 256, True),  # zamba2-7b's training microbatch
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("bias", [0.0, 6.0])
+def test_ssd_bwd_kernel_matches_plain_version(cuda, b, s, h, dk, dv, chunk,
+                                              shared, dtype, bias):
+    """`ssd_scan_bwd_cuda` against `ssd_scan_bwd_plain` without and with a
+    final-state cotangent; two runs bit-equal; at slow decay the reverse
+    carry cut between chunks reads above the tolerance."""
+    from repro_torch.kernels import ssd_scan_bwd as SB
+    rng = np.random.default_rng(40 + s)
+    q, k, v, la, beta, dy, ds, _, _ = _scan_bwd_inputs(
+        rng, cuda, b, s, h, dk, dv, dtype, shared, bias)
+    for d_state in (None, ds):
+        got = SB.ssd_scan_bwd_cuda(q, k, v, la, beta, dy, d_state,
+                                   chunk=chunk)
+        again = SB.ssd_scan_bwd_cuda(q, k, v, la, beta, dy, d_state,
+                                     chunk=chunk)
+        want = SB.ssd_scan_bwd_plain(q, k, v, la, beta, dy, d_state,
+                                     chunk=chunk)
+        torch.cuda.synchronize()
+        for name, g, w in zip(("dq", "dk", "dv", "dlog_a", "dbeta"), got,
+                              want):
+            assert g.shape == w.shape and g.dtype == w.dtype, name
+            assert _grad_err(g, w) <= SSD_BWD_TOL, (name, _grad_err(g, w))
+        assert all(torch.equal(x, y) for x, y in zip(got, again))
+        if bias == 6.0 and s > 2 * min(chunk, 64):
+            cut = SB.ssd_scan_bwd_cuda(q, k, v, la, beta, dy, d_state,
+                                       chunk=chunk, cut_carry=True)
+            assert min(_grad_err(g, w) for g, w in zip(cut[1:], want[1:])
+                       ) > SSD_BWD_TOL
+
+
+@pytest.mark.parametrize("b,s,h,dk,dv,chunk", [
+    (2, 70, 3, 16, 16, 16), (1, 300, 2, 160, 96, 64),
+    (1, 200, 2, 64, 64, 32),            # the normaliser in a tile of its own
+    (1, 4096, 4, 512, 512, 256),        # xlstm-1.3b's training microbatch
+])
+@pytest.mark.parametrize("bias", [0.0, 6.0])
+def test_mlstm_bwd_kernel_matches_plain_version(cuda, b, s, h, dk, dv, chunk,
+                                                bias):
+    """`mlstm_scan_bwd_cuda` (the memory and the normaliser in one call)
+    against `mlstm_scan_bwd_plain`, without and with the states'
+    cotangents; two runs bit-equal; at slow decay the cut reverse carry
+    reads above the tolerance; with the normaliser off
+    (`ssd_scan_wide_bwd_cuda`) it is the plain single scan's backward."""
+    from repro_torch.kernels import ssd_scan_bwd as SB
+    rng = np.random.default_rng(60 + s)
+    q, k, v, la, beta, dy, dC, dnm, dn = _scan_bwd_inputs(
+        rng, cuda, b, s, h, dk, dv, torch.bfloat16, False, bias)
+    for final in (False, True):
+        args = (q, k, v, la, beta, dy, dnm, dC if final else None,
+                dn if final else None)
+        got = SB.mlstm_scan_bwd_cuda(*args, chunk=chunk)
+        again = SB.mlstm_scan_bwd_cuda(*args, chunk=chunk)
+        want = SB.mlstm_scan_bwd_plain(*args, chunk=chunk)
+        torch.cuda.synchronize()
+        for name, g, w in zip(("dq", "dk", "dv", "dlog_a", "dbeta"), got,
+                              want):
+            assert g.shape == w.shape and g.dtype == w.dtype, name
+            assert _grad_err(g, w) <= SSD_BWD_TOL, (name, _grad_err(g, w))
+        assert all(torch.equal(x, y) for x, y in zip(got, again))
+        if bias == 6.0:
+            cut = SB.mlstm_scan_bwd_cuda(*args, chunk=chunk, cut_carry=True)
+            assert min(_grad_err(g, w) for g, w in zip(cut[1:], want[1:])
+                       ) > SSD_BWD_TOL
+    got = SB.ssd_scan_wide_bwd_cuda(q, k, v, la, beta, dy, dC, chunk=chunk)
+    want = SB.ssd_scan_bwd_plain(q, k, v, la, beta, dy, dC, chunk=chunk)
+    for g, w in zip(got, want):
+        assert _grad_err(g, w) <= SSD_BWD_TOL
+
+
+def _layer_grads(cuda, arch, plain):
+    """A full-width Mamba2 (zamba2-7b) or mLSTM (xlstm-1.3b) layer's
+    parameter and input gradients at S = 1024, through the kernels'
+    Functions or (`plain`) the plain scans."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan_wide as SSDW
+    from repro_torch.models import layers as L
+    from repro_torch.models.linear_scan import linear_scan_chunked
+    cfg = get_arch(arch)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    init, apply = ((L.init_mamba, L.apply_mamba) if cfg.family == "hybrid"
+                   else (L.init_mlstm, L.apply_mlstm))
+    p = init(cfg, g, device=cuda)
+    for t in p.parameters():
+        t.requires_grad_(True)
+    x = (0.5 * torch.randn((1, 1024, cfg.d_model), device=cuda,
+                           generator=g)).to(torch.bfloat16).requires_grad_(True)
+    real = ops.ssd_scan, ops.mlstm_scan
+    if plain:
+        ops.ssd_scan = lambda *a, chunk=256: linear_scan_chunked(
+            *a, chunk=chunk)
+        ops.mlstm_scan = lambda *a, chunk=256: SSDW.mlstm_scan_plain(
+            *a, chunk=chunk)
+    try:
+        y, _ = apply(p, x, cfg)
+        y.float().square().mean().backward()
+    finally:
+        ops.ssd_scan, ops.mlstm_scan = real
+    return {"x": x.grad, **{n: t.grad for n, t in p.named_parameters()}}
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "xlstm-1.3b"])
+def test_layer_gradients_through_the_scan_functions(cuda, arch):
+    """A full Mamba2 or mLSTM layer's gradients through `_SSDScan` /
+    `_MLSTMScan` against the plain route's: ||d|| / ||plain|| <= 2e-2 per
+    tensor (the smoke's GRAD_REL_TOL), bf16."""
+    got = _layer_grads(cuda, arch, plain=False)
+    want = _layer_grads(cuda, arch, plain=True)
+    for name, w in want.items():
+        rel = float((got[name].float() - w.float()).norm() / w.float().norm())
+        assert rel <= 2e-2, (name, rel)

@@ -13,8 +13,8 @@ and 2e-5 on the LSE.
 On the CPU `ops.flash_attention` is the plain route, differentiated by
 autograd. The card's route (the kernel forward with its LSE and the
 backward kernel in a `torch.autograd.Function`) and the guard on the
-kernels without a backward are held here on CPU stand-ins: the kernels'
-wrappers replaced by the plain versions.
+kernel without a backward (RMSNorm's) are held here on CPU stand-ins: the
+kernels' wrappers replaced by the plain versions.
 """
 import numpy as np
 import pytest
@@ -210,18 +210,27 @@ def test_card_route_is_the_kernel_pair_under_grad(card_stand_in):
         torch.testing.assert_close(g.reshape(w.shape), w)
 
 
-def test_kernels_without_backward_raise_under_grad(card_stand_in):
+def test_kernels_without_backward_raise_under_grad(card_stand_in,
+                                                   monkeypatch):
     """Trap: a ctypes kernel returns a tensor without a grad_fn, so a
     backward through it would cut every gradient upstream silently. On the
-    card `ssd_scan`, `mlstm_scan` and `rmsnorm` raise under grad, before
-    reaching their kernels, and name what comes next."""
+    card `rmsnorm` (no backward kernel, and off every model's path) raises
+    under grad, before reaching its kernel; `ssd_scan` and `mlstm_scan`
+    under grad are their autograd Functions, whose backward is a kernel
+    (held in tests/test_torch_ssd_bwd.py)."""
+    from repro_torch.kernels import ssd_scan as SSD
+    from repro_torch.kernels import ssd_scan_wide as SSDW
+    from repro_torch.models.linear_scan import linear_scan_chunked
+    monkeypatch.setattr(SSD, "ssd_scan_cuda", linear_scan_chunked)
+    monkeypatch.setattr(SSDW, "mlstm_scan_cuda", SSDW.mlstm_scan_plain)
     x = torch.zeros((1, 8, 2, 4), requires_grad=True)
     la, beta = torch.zeros((1, 8, 2)), torch.ones((1, 8, 2))
-    for call in (lambda: ops.ssd_scan(x, x, x, la, beta),
-                 lambda: ops.mlstm_scan(x, x, x, la, beta),
-                 lambda: ops.rmsnorm(x, torch.zeros(4))):
-        with pytest.raises(NotImplementedError, match="A3"):
-            call()
+    with pytest.raises(NotImplementedError, match="no backward kernel"):
+        ops.rmsnorm(x, torch.zeros(4))
+    y, _ = ops.ssd_scan(x, x, x, la, beta)
+    assert type(y.grad_fn).__name__ == "_SSDScanBackward"
+    y, *_ = ops.mlstm_scan(x, x, x, la, beta)
+    assert type(y.grad_fn).__name__ == "_MLSTMScanBackward"
     # the gate is grad mode and requires_grad, not the device alone
     with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
         ops.rmsnorm(x, torch.zeros(4))

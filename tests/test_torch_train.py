@@ -14,9 +14,10 @@ and how tightly:
     failure (bit-equal to an uninterrupted run), joining an in-flight
     async write, and, for a fault inside the in-place update, replaying
     only from a checkpoint (bit-equal) and raising without one;
-  * the train step of qwen2.5-3b's smoke config at float32 compute from
-    the reference's initial state (`convert.train_state_from_reference`),
-    one and two steps, microbatches 1 and 2: loss to 1e-5 relative,
+  * the train step of qwen2.5-3b's smoke config (and zamba2-7b's and
+    xlstm-1.3b's) at float32 compute from the reference's initial state
+    (`convert.train_state_from_reference`), one and two steps,
+    microbatches 1 and 2: loss to 1e-5 relative,
     parameters to 5e-5 + 5e-4 relative (the reference's own microbatching
     tolerance). At float32 the gradients agree to ~1e-6, far from Adam's
     first-step sign flip (m / sqrt(v) = g / |g|, 2 lr apart), which a bf16
@@ -329,16 +330,21 @@ def test_fault_inside_the_update_replays_only_from_a_checkpoint(
 
 # ------------------------------------------------------------ train step
 
-@pytest.mark.parametrize("microbatches", [1, 2])
-def test_train_step_matches_reference(microbatches):
-    """qwen2.5-3b's smoke config at float32 compute, from the reference's
-    initial state: after one and after two steps."""
-    rcfg = ref_smoke(REF_ARCHS[ARCH]).with_(dtype="float32")
+@pytest.mark.parametrize("arch,microbatches", [
+    pytest.param(ARCH, 1, id="1"), pytest.param(ARCH, 2, id="2"),
+    pytest.param("zamba2-7b", 1, id="zamba2-7b-1"),
+    pytest.param("xlstm-1.3b", 2, id="xlstm-1.3b-2")])
+def test_train_step_matches_reference(arch, microbatches):
+    """qwen2.5-3b's, zamba2-7b's and xlstm-1.3b's smoke configs at float32
+    compute, from the reference's initial state: after one and after two
+    steps (the hybrid and ssm families through their scans, whose backward
+    on the card is the SSD and mLSTM backward kernels)."""
+    rcfg = ref_smoke(REF_ARCHS[arch]).with_(dtype="float32")
     m = build_model(rcfg)
     ropt = RO.OptimizerConfig(warmup_steps=2, decay_steps=20)
     rstate = jax.jit(lambda k: ref_init(m, k, ropt))(jax.random.PRNGKey(0))
     rfn = jax.jit(ref_step(m, ropt, microbatches=microbatches))
-    model = Model(smoke_config(get_arch(ARCH)).with_(dtype="float32"),
+    model = Model(smoke_config(get_arch(arch)).with_(dtype="float32"),
                   device="cpu")
     state = train_state_from_reference(jax.tree.map(np.asarray, rstate),
                                        model)

@@ -9,9 +9,9 @@ runs each named phase in order with the smoke's own function, constants
 and checks, and prints the card's name and power limit, each phase's
 output, verdict and seconds. The phases that need no shared engine or
 process pool can be named: model-kernels, serve-xlstm, serve-moe,
-serve-audio, serve-vlm, ops-rmsnorm, train. Details go to
-`chiprun_out/smoke_phases_detail.json`. Exits 1 if a phase fails. Imports
-nothing of JAX.
+serve-audio, serve-vlm, ops-rmsnorm, train, train-hybrid, train-ssm.
+Details go to `chiprun_out/smoke_phases_detail.json`. Exits 1 if a phase
+fails. Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -30,7 +30,8 @@ sys.path.insert(0, str(ROOT))
 PHASES = {"model-kernels": "phase_model_kernels",
           "serve-xlstm": "phase_serve_xlstm", "serve-moe": "phase_serve_moe",
           "serve-audio": "phase_serve_audio", "serve-vlm": "phase_serve_vlm",
-          "ops-rmsnorm": "phase_ops_rmsnorm", "train": "phase_train"}
+          "ops-rmsnorm": "phase_ops_rmsnorm", "train": "phase_train",
+          "train-hybrid": "phase_train_hybrid", "train-ssm": "phase_train_ssm"}
 
 
 def main(argv=None) -> int:

@@ -2,10 +2,12 @@
 """The train phase's losses at other learning rates, on an NVIDIA GPU:
 
     python3 tools/train_lr_probe.py [--lrs 1e-5 2e-6 5e-7] [--warmup 1]
-        [--steps 6]
+        [--steps 6] [--arch qwen2.5-3b] [--layers N]
 
-Trains qwen2.5-3b at full width through `launch.train.train` as
-`chip_smoke.py`'s train phase does (the same batch, sequence,
+Trains `--arch` (qwen2.5-3b by default; zamba2-7b with `--layers 27` and
+xlstm-1.3b are the train-hybrid and train-ssm phases' models) at full
+width through `launch.train.train` as `chip_smoke.py`'s train phases do
+(the same batch, sequence,
 microbatches, seed and data), once per learning rate (warmup `--warmup`
 steps, cosine decay over the run), and prints each run's losses, gradient
 norms and peak memory. Shows how the smoke's TRAIN_LR was chosen: from a
@@ -33,6 +35,8 @@ def main(argv=None) -> int:
                     default=[1e-5, 2e-6, 5e-7])
     ap.add_argument("--warmup", type=int, default=1)
     ap.add_argument("--steps", type=int, default=None)
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--layers", type=int, default=None)
     args = ap.parse_args(argv)
     import tempfile
 
@@ -52,9 +56,10 @@ def main(argv=None) -> int:
     for lr in args.lrs:
         torch.cuda.reset_peak_memory_stats()
         with tempfile.TemporaryDirectory() as d:
-            res = T.train(cs.TRAIN_ARCH, steps=steps, batch=cs.TRAIN_B,
-                          seq=cs.TRAIN_S, microbatches=cs.TRAIN_MICRO,
-                          smoke=False, ckpt_dir=d, ckpt_every=steps + 1,
+            res = T.train(args.arch or cs.TRAIN_ARCH, steps=steps,
+                          batch=cs.TRAIN_B, seq=cs.TRAIN_S,
+                          microbatches=cs.TRAIN_MICRO, smoke=False,
+                          layers=args.layers, ckpt_dir=d, ckpt_every=steps + 1,
                           device="cuda", opt=OptimizerConfig(
                               lr=lr, warmup_steps=args.warmup,
                               decay_steps=steps),
