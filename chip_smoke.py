@@ -143,14 +143,15 @@ def fused_kernel_ms(mus, mixes, dev, iters: int = 5) -> float:
     return ms
 
 
-def device_busy(fn, cpu: bool = True) -> dict:
+def device_busy(fn, cpu: bool = True, top: int = 6) -> dict:
     """Run fn() once under torch.profiler: wall seconds, summed device
     kernel seconds, the busy share, and the top kernels by device time,
     read from the profiler's raw device events (building its Python event
     tree takes seconds for the ~20,000 launches of a training step). The
     profiler's own host overhead inflates the wall time, so the share is a
     lower bound. Device fields are None if the trace shows none.
-    `cpu=False` traces device activity only (fewer events to record)."""
+    `cpu=False` traces device activity only (fewer events to record);
+    `top` kernels are listed."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -167,11 +168,11 @@ def device_busy(fn, cpu: bool = True) -> dict:
             us, n = by_name.get(e.name(), (0.0, 0))
             by_name[e.name()] = (us + e.duration_ns() / 1e3, n + 1)
     total = sum(us for us, _ in by_name.values()) / 1e6
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    most = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
     return {"wall_s": wall, "device_s": total or None,
             "busy_share": (total / wall) if total else None,
             "top": [{"kernel": k[:80], "device_s": us / 1e6, "calls": n}
-                    for k, (us, n) in top if us > 0]}
+                    for k, (us, n) in most if us > 0]}
 
 
 def host_run(job):
@@ -2534,7 +2535,16 @@ RMS_TOL = 2e-2          # bf16 RMSNorm (the reference sweep's)
 SSD_BWD_TOL = 2.0 ** -6
 SSD_BWD_CHUNK = 256     # the models' chunk; the backward walks 64 tokens
 SSD_BWD_GRADS = ("dq", "dk", "dv", "dlog_a", "dbeta")
-SSD_BWD_LAUNCHES = ("states", "dqk", "dv", "finish", "cast")
+# the kernels of `csrc/ssd_bwd.cuh` (`bwd_<name>`); a call launches those
+# `ssd_scan_bwd.kernel_launches` names, and a named launch that matches no
+# profiled kernel fails the row
+SSD_BWD_LAUNCHES = ("chunk", "carry", "fused", "scores", "grads", "finish",
+                    "cast")
+# The backward kernels' first design (float32 CUDA-core products,
+# the chunk states walked in sequence) at the rows' shapes below, on an
+# NVIDIA H100 80GB HBM3 at 700 W: quoted from PERF.md's kernel table,
+# printed beside this run's times as such and not a reading of this run.
+SSD_BWD_PREVIOUS_MS_QUOTED = {False: 4.691, True: 5.794}
 # flash attention's backward kernel against its plain version (float32 on
 # the same bf16 inputs): for each of dq, dk and dv, max |d| / (rms of the
 # plain tensor + |plain|) <= BWD_TOL. The kernel rounds P and dS to bf16
@@ -3150,6 +3160,46 @@ def print_wide_ssd(row) -> None:
           f"{ {k: round(v, 3) for k, v in row['phase_ms'].items()} }")
 
 
+def measure_fwd_train(dev, pair):
+    """A forward scan kernel at the shape its training path launches it:
+    `ssd_scan_cuda` at one zamba2-7b microbatch (1, TRAIN_S, 112, 64, 64,
+    chunk 256, Mamba2's inputs), or the pair `mlstm_scan_cuda` at one
+    xlstm-1.3b microbatch (1, TRAIN_S, 4, 512, 512 + the normaliser, slow
+    decay): y and the state against the plain version (SSD_Y_TOL,
+    SSD_STATE_TOL), the kernel's and the plain version's ms, the bound."""
+    import torch
+    from repro_torch.kernels import ssd_scan as SSD
+    from repro_torch.kernels import ssd_scan_wide as SSDW
+    chunk = 256
+    if pair:
+        b, s, h, dk, dv = 1, TRAIN_S, XLSTM_H, XLSTM_D, XLSTM_D
+        args = mlstm_scan_inputs(dev, 230, b, s, h, dk, dv, SLOW_FORGET_BIAS)
+        kern, plain = SSDW.mlstm_scan_cuda, SSDW.mlstm_scan_plain
+        bound, by, nbytes, ops = mlstm_bound(b, s, h, dk, dv, chunk)
+    else:
+        b, s, h, dk, dv = 1, TRAIN_S, 112, 64, 64
+        args = ssd_inputs(dev, 220, b, s, h, dk)
+        kern, plain = SSD.ssd_scan_cuda, SSD.ssd_scan_plain
+        bound, by, nbytes, ops = ssd_bound(b, s, h, dk, dv, chunk, True)
+    got = kern(*args, chunk=chunk)
+    want = plain(*args, chunk=chunk)
+    errs = [_close(x, w, SSD_STATE_TOL if i % 2 else SSD_Y_TOL)
+            for i, (x, w) in enumerate(zip(got, want))]
+    del got, want
+    ms = cuda_ms(lambda: kern(*args, chunk=chunk), iters=10, warmup=2)
+    plain_ms = cuda_ms(lambda: plain(*args, chunk=chunk), iters=2, warmup=1)
+    del args
+    torch.cuda.empty_cache()
+    return {"B": b, "S": s, "H": h, "dk": dk, "dv": dv, "chunk": chunk,
+            "pair": pair, "train_shape": True,
+            "y_err": max(e[0] for e in errs[0::2]),
+            "state_err": max(e[0] for e in errs[1::2]),
+            "max_abs_err": max(e[0] for e in errs),
+            "ok": all(e[1] for e in errs), "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": bound, "bound_by": by,
+            "bytes": nbytes, "ops": ops, "bound_share": bound / ms}
+
+
 # ------------------------------------------------- the scans' backward
 
 def ssd_bwd_bound(b, s, h, dk, dv, chunk, shared_qk, normaliser=False):
@@ -3222,8 +3272,10 @@ def measure_ssd_bwd(dev, pair):
     SSD_BWD_TOL), two runs bit-equal, the plain version's own distance to
     its float64 run (the rounding floor); at slow decay the kernel with its
     reverse carry cut between chunks, which must read above the tolerance.
-    Then the kernel's, each launch's and the plain version's ms and the
-    bound. Returns the row; `ssd_bwd_faults` says whether it holds."""
+    Then the kernel's, each launch's (`ssd_scan_bwd.kernel_launches`; a
+    name no profiled kernel matches is listed as missing) and the plain
+    version's ms and the bound. Returns the row; `ssd_bwd_faults` says
+    whether it holds."""
     import torch
     from repro_torch.kernels import ssd_scan_bwd as SB
     b, s, h, dk, dv = ((1, TRAIN_S, XLSTM_H, XLSTM_D, XLSTM_D) if pair
@@ -3264,10 +3316,13 @@ def measure_ssd_bwd(dev, pair):
     ms = cuda_ms(lambda: ssd_bwd_call(kern, x, pair, False), iters=10,
                  warmup=2)
     top = device_busy(lambda: ssd_bwd_call(kern, x, pair, False),
-                      cpu=False)["top"]
-    launch_ms = {name: sum(t["device_s"] * 1e3 for t in top
-                           if f"ssd_bwd::bwd_{name}" in t["kernel"])
-                 for name in SSD_BWD_LAUNCHES}
+                      cpu=False, top=20)["top"]
+    named = SB.kernel_launches(dk, dv, pair)
+    hits = {name: [t["device_s"] * 1e3 for t in top
+                   if f"ssd_bwd::bwd_{name}" in t["kernel"]]
+            for name in named}
+    launch_ms = {name: sum(v) for name, v in hits.items() if v}
+    missing = [name for name, v in hits.items() if not v]
     plain_ms = cuda_ms(lambda: ssd_bwd_call(plain, x, pair, False), iters=2,
                        warmup=1)
     del x
@@ -3278,7 +3333,9 @@ def measure_ssd_bwd(dev, pair):
             "chunk": SSD_BWD_CHUNK, "shared_qk": not pair, "checks": checks,
             "max_abs_err": max(r["max_abs_err"] for r in checks),
             "max_err": max(max(r["errs"].values()) for r in checks),
-            "ms": ms, "launch_ms": launch_ms, "plain_ms": plain_ms,
+            "ms": ms, "launch_ms": launch_ms, "missing_launches": missing,
+            "previous_ms_quoted": SSD_BWD_PREVIOUS_MS_QUOTED[pair],
+            "plain_ms": plain_ms,
             "library_ms": None, "bound_ms": bound, "bound_by": by,
             "bytes": nbytes, "ops": ops, "bound_share": bound / ms,
             "scratch_bytes": 4 * sum(SB.scratch_numel(
@@ -3302,7 +3359,9 @@ def print_ssd_bwd(row) -> None:
     print(f"  {what} B={row['B']} S={row['S']} H={row['H']} dk={row['dk']} "
           f"dv={row['dv']}{' +1 (normaliser)' if row['pair'] else ''} "
           f"chunk {row['chunk']}: ms {row['ms']:.3f} "
-          f"{ {k: round(v, 3) for k, v in row['launch_ms'].items()} }; "
+          f"{ {k: round(v, 3) for k, v in row['launch_ms'].items()} } "
+          f"(first design {row['previous_ms_quoted']} ms, quoted from "
+          f"PERF.md, not measured here); "
           f"plain {row['plain_ms']:.1f} bound {row['bound_ms']:.3f} "
           f"({row['bound_by']}; {row['bound_share']:.3f} of the bound); "
           f"scratch {row['scratch_bytes'] / 1e6:.0f} MB")
@@ -3310,9 +3369,11 @@ def print_ssd_bwd(row) -> None:
 
 def ssd_bwd_faults(row) -> list[str]:
     """What a backward row fails: a gradient over SSD_BWD_TOL, two runs
-    that differ, or a cut reverse carry that the check passes (at slow
-    decay, in the gradients the carry reaches: dk, dv, dlog_a, dbeta)."""
-    out = []
+    that differ, a cut reverse carry that the check passes (at slow
+    decay, in the gradients the carry reaches: dk, dv, dlog_a, dbeta), or
+    a launch the call names that the profile does not show."""
+    out = [f"launch bwd_{n} not in the profile" for n in
+           row["missing_launches"]]
     for r in row["checks"]:
         tag = f"bias {r['forget_bias']}, final {r['final_state']}"
         out += [f"{n} off by {e:.3g} ({tag})" for n, e in r["errs"].items()
@@ -3481,6 +3542,24 @@ def phase_model_kernels(dev, detail):
                                  + "; ".join(faults))
         rows["mlstm_scan" if pair else "ssd_scan_wide"].append(row)
 
+    # the forward kernels at the training paths' shapes (216 ssd_scan
+    # launches a zamba2 train step, 336 of the pair an xlstm one)
+    for pair in (False, True):
+        row = measure_fwd_train(dev, pair)
+        print(f"  {'mlstm pair' if pair else 'ssd'} at its training shape "
+              f"B=1 S={row['S']} H={row['H']} dk={row['dk']} "
+              f"dv={row['dv']}{' +1' if pair else ''} chunk {row['chunk']}: "
+              f"y err {row['y_err']:.2e} state err {row['state_err']:.2e} "
+              f"ms {row['ms']:.3f} plain {row['plain_ms']:.1f} bound "
+              f"{row['bound_ms']:.3f} ({row['bound_by']}; "
+              f"{row['bound_share']:.3f} of the bound)")
+        if not row["ok"]:
+            raise AssertionError(f"{'pair' if pair else 'ssd'} forward at "
+                                 f"the training shape off: y "
+                                 f"{row['y_err']:.3g}, state "
+                                 f"{row['state_err']:.3g}")
+        rows["mlstm_scan" if pair else "ssd_scan"].append(row)
+
     # the scans' backward kernels at the training paths' shapes
     for pair in (False, True):
         row = measure_ssd_bwd(dev, pair)
@@ -3519,6 +3598,13 @@ def phase_model_kernels(dev, detail):
         del x, out, plain
     torch.cuda.empty_cache()
     detail["model_kernel_rows"] = rows
+
+    def train_shape(name, shape):
+        r = next(x for x in rows[name] if x.get("train_shape"))
+        return {"train_shape": shape, "train_ms": r["ms"],
+                "train_plain_ms": r["plain_ms"],
+                "train_bound_ms": r["bound_ms"],
+                "train_bound_by": r["bound_by"]}
 
     def entry(name, source, replaces, main):
         r = rows[name][0]
@@ -3559,10 +3645,12 @@ def phase_model_kernels(dev, detail):
                                        "dkdv_blocks", "dq_blocks",
                                        "scratch_bytes")}
                     for r in rows["flash_attention_bwd"]]),
-        "ssd_scan": entry(
+        "ssd_scan": dict(entry(
             "ssd_scan", "ssd_scan.cu", "src/repro/kernels/ssd_scan.py:85",
             f"B={SERVE_B},S={SERVE_S},H=112,dk=dv=64,chunk=256,bf16,"
             f"q/k head-broadcast"),
+            **train_shape("ssd_scan", f"B=1,S={TRAIN_S},H=112,dk=dv=64,"
+                          f"chunk=256,bf16 (one zamba2-7b microbatch)")),
         "ssd_scan_wide": dict(entry(
             "ssd_scan_wide", "ssd_scan_wide.cu",
             "src/repro/kernels/ssd_scan.py:85",
@@ -3579,7 +3667,10 @@ def phase_model_kernels(dev, detail):
             "src/repro/kernels/ssd_scan.py:85",
             f"B={SERVE_B},S={SERVE_S},H={XLSTM_H},dk=dv={XLSTM_D},chunk=256,"
             f"bf16, memory + normaliser (v = ones) in one call"),
-            phase_ms=rows["mlstm_scan"][0]["phase_ms"]),
+            phase_ms=rows["mlstm_scan"][0]["phase_ms"],
+            **train_shape("mlstm_scan", f"B=1,S={TRAIN_S},H={XLSTM_H},"
+                          f"dk=dv={XLSTM_D},chunk=256,bf16 (one xlstm-1.3b "
+                          f"microbatch)")),
         **{name: dict(entry(
             name, source, "src/repro/kernels/ssd_scan.py:85", shape),
             replaces_note="the gradient of that kernel; the reference has "

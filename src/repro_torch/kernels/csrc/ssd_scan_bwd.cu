@@ -10,7 +10,10 @@
 // k may be Mamba2's B and C, one row per token expanded over the heads (a
 // head stride of 0, read in place); their gradients are then the sums over
 // the 112 heads, taken in head order by the last launch (sum_q / sum_k),
-// so dq and dk leave as (B, S, 1, dk). No normaliser column.
+// so dq and dk leave as (B, S, 1, dk). No normaliser column. At Mamba2's
+// 64 x 64 heads the state is one tile, so a chunk's scores and all three
+// gradients take one launch (`bwd_fused`, two warpgroups) that reads the
+// chunk's dS once; 128 x 128 states take `bwd_scores` and `bwd_grads`.
 #include "ssd_bwd.cuh"
 
 // ptrs, dims, dtype and stream as ssd_bwd::entry describes; returns a

@@ -12,9 +12,11 @@
 // scan of [v | 1] at the cotangents [dy | dnm] and [dC | dn] (norm = 1):
 // the kernels read a column of ones beside v and dnm beside dy, never
 // stored, and the two scans' gradients come out summed. The 512 x 513
-// float32 state of a head goes through device memory in 64 x 64 tiles
-// (72 tiles a head for the chunk states and the reverse carry, 8 column
-// tiles of dk and of dv a chunk for the gradients).
+// state of a head goes through device memory in 64 x 64 tiles (72 a head,
+// the normaliser's column in a ninth column tile of its own): each chunk's
+// contribution and the carry over the chunks per tile; the scores once a
+// chunk (`bwd_scores`); then dq and dk~ per 64 columns of dk and dv per 64
+// columns of dv (`bwd_grads`, 24 blocks a chunk).
 #include "ssd_bwd.cuh"
 
 // ptrs, dims, dtype and stream as ssd_bwd::entry describes; returns a

@@ -36,11 +36,18 @@ of the state leaving it (`d_state` for the last chunk, else zero):
 the last from y and the final state depending on log_a only through
 differences of its global cumsum L. The two terms of dL nearly cancel at
 slow decay, so both are taken in float32 from the float32 dq and dk~,
-before any rounding. The kernels run it in five launches (the forward's
-chunk states, the reverse carry, dq / dk~ per chunk and 64 columns of dk,
-dv per chunk and 64 columns of dv, the reverse cumsum) plus one that casts
-dq and dk (summing shared heads); every sum is in a fixed order and there
-are no atomics, so two runs are bit-equal.
+before any rounding.
+
+The kernels (`csrc/ssd_bwd.cuh`, every product on the tensor cores, the
+float32 operands as bf16 hi + lo pairs) run it in six or seven launches:
+each chunk's own contribution to the states and to the reverse carry, all
+chunks in parallel (`bwd_chunk`); the carry over the chunks, elementwise,
+in place (`bwd_carry`); then, when the state is one 64 x 64 tile (Mamba2's
+heads), the scores and all three gradients of a chunk in one launch
+(`bwd_fused`), else the scores once a chunk (`bwd_scores`) and dq, dk~ and
+dv per 64 columns (`bwd_grads`); the reverse cumsum (`bwd_finish`); and
+the cast of dq and dk, summing shared heads (`bwd_cast`, twice). Every sum
+is in a fixed order and there are no atomics, so two runs are bit-equal.
 """
 from __future__ import annotations
 
@@ -208,18 +215,39 @@ def _wide_kernel_lib():
                               MODEL_NVCC_FLAGS).mlstm_scan_bwd)
 
 
+def fused(dk, dv, normaliser=False) -> bool:
+    """Whether the state (dk x dv, plus the normaliser's column) is one
+    64 x 64 tile: the scores and gradients then take one launch."""
+    return dk <= TILE and dv + int(normaliser) <= TILE
+
+
+def kernel_launches(dk, dv, normaliser=False) -> tuple:
+    """The names of the kernels one call launches (`csrc/ssd_bwd.cuh`'s
+    `bwd_<name>`), in order."""
+    grads = (("fused",) if fused(dk, dv, normaliser)
+             else ("scores", "grads"))
+    return ("chunk", "carry", *grads, "finish", "cast")
+
+
 def scratch_numel(b, s, h, dk, dv, chunk, normaliser=False) -> dict:
-    """Elements of each float32 scratch buffer of one call: the forward's
-    chunk states `s_in` and the reverse carry `ds_out` (dk x dvx a chunk,
-    dvx = dv + 1 with the normaliser), dq and dk~ scaled by beta before the
-    cast (B, S, H, dk each), the partial dL and dbeta rows (one per 64
-    columns of dk) and the partial <d_state, S_final> (one per 64 x 64
-    tile of the state)."""
+    """Elements of each float32 scratch buffer of one call. `s_in` and
+    `ds_out` hold a slot of 64 x 64 floats per (row, chunk, 64 x 64 tile of
+    the dk x dvx state, dvx = dv + 1 with the normaliser): first each
+    chunk's own contribution, then the image (bf16 hi and lo panels) of the
+    state entering the chunk and of the cotangent leaving it; after its
+    slots `s_in` holds the scores' images (A and G, 2 x 64 x 64 floats per
+    (row, chunk)) unless the state is one tile, and `ds_out` each chunk's
+    total log decay. Then dq and dk~ scaled by beta before the cast (B, S,
+    H, dk each), the partial q . dq and k . dk~ rows (one per 64 columns of
+    dk) and the partial <d_state, S_final> (one per tile)."""
     c = min(chunk, TILE, s)
     n = -(-s // c)
     dvx = dv + int(normaliser)
     ks, vs = -(-dk // TILE), -(-dvx // TILE)
-    return {"s_in": b * h * n * dk * dvx, "ds_out": b * h * n * dk * dvx,
+    rn = b * h * n
+    states = rn * ks * vs * TILE * TILE
+    scores = 0 if fused(dk, dv, normaliser) else rn * 2 * TILE * TILE
+    return {"s_in": states + scores, "ds_out": states + rn,
             "dq": b * s * h * dk, "dk": b * s * h * dk,
             "dl": b * h * ks * s, "db": b * h * ks * s,
             "fin": b * h * ks * vs}

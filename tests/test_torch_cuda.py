@@ -1224,6 +1224,8 @@ def _scan_bwd_inputs(rng, dev, b, s, h, dk, dv, dtype, shared, bias):
     (2, 200, 2, 128, 96, 32, False),    # the widest, dv not a multiple of 64
     (1, 300, 2, 64, 1, 64, False),      # dv = 1
     (1, 4096, 112, 64, 64, 256, True),  # zamba2-7b's training microbatch
+    (2, 64, 3, 64, 64, 256, True),      # one chunk: nothing to carry
+    (1, 65, 2, 64, 64, 256, False),     # a second chunk of one token
 ])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("bias", [0.0, 6.0])
@@ -1260,6 +1262,10 @@ def test_ssd_bwd_kernel_matches_plain_version(cuda, b, s, h, dk, dv, chunk,
     (2, 70, 3, 16, 16, 16), (1, 300, 2, 160, 96, 64),
     (1, 200, 2, 64, 64, 32),            # the normaliser in a tile of its own
     (1, 4096, 4, 512, 512, 256),        # xlstm-1.3b's training microbatch
+    (1, 48, 2, 64, 32, 256),            # one chunk
+    (2, 65, 2, 64, 63, 256),            # a one-token chunk; dv + 1 = 64
+    (1, 130, 2, 128, 64, 64),           # dk = 128, dv = 64 + 1
+    (1, 130, 2, 128, 63, 64),           # ... the normaliser beside v
 ])
 @pytest.mark.parametrize("bias", [0.0, 6.0])
 def test_mlstm_bwd_kernel_matches_plain_version(cuda, b, s, h, dk, dv, chunk,
@@ -1285,7 +1291,7 @@ def test_mlstm_bwd_kernel_matches_plain_version(cuda, b, s, h, dk, dv, chunk,
             assert g.shape == w.shape and g.dtype == w.dtype, name
             assert _grad_err(g, w) <= SSD_BWD_TOL, (name, _grad_err(g, w))
         assert all(torch.equal(x, y) for x, y in zip(got, again))
-        if bias == 6.0:
+        if bias == 6.0 and s > 2 * min(chunk, 64):
             cut = SB.mlstm_scan_bwd_cuda(*args, chunk=chunk, cut_carry=True)
             assert min(_grad_err(g, w) for g, w in zip(cut[1:], want[1:])
                        ) > SSD_BWD_TOL
@@ -1293,6 +1299,35 @@ def test_mlstm_bwd_kernel_matches_plain_version(cuda, b, s, h, dk, dv, chunk,
     want = SB.ssd_scan_bwd_plain(q, k, v, la, beta, dy, dC, chunk=chunk)
     for g, w in zip(got, want):
         assert _grad_err(g, w) <= SSD_BWD_TOL
+
+
+@pytest.mark.parametrize("pair", [False, True])
+@pytest.mark.parametrize("s", [64, 65, 300])
+def test_scan_bwd_cut_carry_matches_plain_cut(cuda, pair, s):
+    """With the reverse carry cut and a final-state cotangent, the kernels
+    equal the plain version cut the same way: the carry seeded by d_state
+    (and dn) at the last chunk, every earlier chunk's cotangent its own
+    term alone; at one chunk (s = 64) cut and whole agree."""
+    from repro_torch.kernels import ssd_scan_bwd as SB
+    rng = np.random.default_rng(80 + s + pair)
+    b, h, dk, dv = 1, 2, 128 if pair else 64, 64
+    q, k, v, la, beta, dy, ds, dnm, dn = _scan_bwd_inputs(
+        rng, cuda, b, s, h, dk, dv, torch.bfloat16, not pair, 6.0)
+    if pair:
+        args = (q, k, v, la, beta, dy, dnm, ds, dn)
+        kern, plain = SB.mlstm_scan_bwd_cuda, SB.mlstm_scan_bwd_plain
+    else:
+        args = (q, k, v, la, beta, dy, ds)
+        kern, plain = SB.ssd_scan_bwd_cuda, SB.ssd_scan_bwd_plain
+    got = kern(*args, chunk=64, cut_carry=True)
+    want = plain(*args, chunk=64, cut_carry=True)
+    whole = plain(*args, chunk=64)
+    torch.cuda.synchronize()
+    for name, g, w, x in zip(("dq", "dk", "dv", "dlog_a", "dbeta"), got,
+                             want, whole):
+        assert _grad_err(g, w) <= SSD_BWD_TOL, (name, _grad_err(g, w))
+        if s == 64:
+            assert _grad_err(g, x) <= SSD_BWD_TOL, (name, _grad_err(g, x))
 
 
 def _layer_grads(cuda, arch, plain):

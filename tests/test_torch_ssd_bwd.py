@@ -309,5 +309,46 @@ def test_bwd_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="CUDA"):
         SB.mlstm_scan_bwd_cuda(q, q, q, la, la, q, q[..., :1])
     sizes = SB.scratch_numel(1, 4096, 4, 512, 512, 256, normaliser=True)
-    assert sizes["s_in"] == 4 * 64 * 512 * 513          # 64-token chunks
+    # 64-token chunks, a 64 x 64 slot per tile of 512 x 513 (8 x 9 tiles),
+    # then the scores' two images a chunk
+    assert sizes["s_in"] == 4 * 64 * (72 + 2) * 64 * 64
+    assert sizes["ds_out"] == 4 * 64 * 72 * 64 * 64 + 4 * 64   # and lt
     assert sizes["fin"] == 4 * 8 * 9                   # 64 x 64 tiles
+
+
+def _smoke():
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_smoke_launch_names_are_the_header_kernels():
+    """chip_smoke's SSD_BWD_LAUNCHES are the `__global__` kernels of
+    `csrc/ssd_bwd.cuh` (`bwd_<name>`), both ways, so the smoke's per-launch
+    times read every kernel; each call's `kernel_launches` names are among
+    them, the fused launch exactly where the state is one 64 x 64 tile."""
+    import re
+    from pathlib import Path
+    header = (Path(SB.__file__).resolve().parent / "csrc" / "ssd_bwd.cuh"
+              ).read_text()
+    kernels = set(re.findall(r"__global__[^;{]*?\bvoid\s+(\w+)\s*\(",
+                             header))
+    launches = _smoke().SSD_BWD_LAUNCHES
+    assert kernels == {f"bwd_{n}" for n in launches}
+    assert len(set(launches)) == len(launches)
+    for dk, dv, norm, fused in [(64, 64, False, True), (16, 1, True, True),
+                                (64, 63, True, True), (64, 64, True, False),
+                                (128, 96, False, False),
+                                (512, 512, True, False)]:
+        names = SB.kernel_launches(dk, dv, norm)
+        assert set(names) <= set(launches)
+        assert ("fused" in names) == fused == SB.fused(dk, dv, norm)
+        assert ("scores" in names) == ("grads" in names) == (not fused)
+        sizes = SB.scratch_numel(1, 300, 2, dk, dv, 64, norm)
+        states = 2 * 5 * -(-dk // 64) * -(-(dv + norm) // 64) * 64 * 64
+        assert sizes["s_in"] == states + (0 if fused else 2 * 5 * 2 * 4096)
+        assert sizes["ds_out"] == states + 2 * 5

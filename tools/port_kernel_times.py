@@ -20,6 +20,10 @@ backward kernel), with `bwd_sdpa` that backward and SDPA's backward
 (`chip_smoke.sdpa_bwd_call`) alternately on the same inputs, `--reps`
 readings each in the order kernel, SDPA, SDPA, kernel, ...,
 `kernels.ssd_scan.ssd_scan_cuda` on the smoke's serving-shape SSD inputs,
+with `scan_bwd` the scans' backward kernels (`ssd_scan_bwd_cuda`,
+`mlstm_scan_bwd_cuda`; checkouts since those kernels) at the smoke's
+training shapes and inputs (`chip_smoke.ssd_bwd_inputs`), with each
+launch's device ms from `torch.profiler`,
 `sched.solve_targets_grid_torch` on the smoke's 64 x 64 max-x grid, and
 `ServeEngine.prefill` of the smoke's model and prompts. Prints the card's
 name and power limit, then one JSON line. Imports nothing of JAX.
@@ -58,7 +62,7 @@ def _wall(fn, reps):
     return out
 
 
-PARTS = ("flash", "bwd", "bwd_sdpa", "ssd", "grid", "prefill")
+PARTS = ("flash", "bwd", "bwd_sdpa", "ssd", "scan_bwd", "grid", "prefill")
 
 
 def _bwd_inputs(sm, dev, i):
@@ -138,6 +142,8 @@ def measure(sm, dev, reps, parts=PARTS):
             del q, k, v
     if "ssd" in parts:
         res["ssd_ms"] = measure_ssd(sm, dev, reps)
+    if "scan_bwd" in parts:
+        res.update(measure_scan_bwd(sm, dev, reps))
     if "grid" in parts:
         res["grid_64x64_max_x_s"] = measure_grid(sm, dev, reps)
         res["grid_solves_per_s"] = GRID[0] * GRID[1] / min(
@@ -155,6 +161,33 @@ def measure_ssd(sm, dev, reps):
                                       64)
     return sm.cuda_ms(lambda: SSD.ssd_scan_cuda(q, k, v, la, beta,
                                                 chunk=256), iters=10 * reps)
+
+
+def measure_scan_bwd(sm, dev, reps):
+    """The SSD backward at zamba2's and the pair's at xlstm's training
+    shape: ms between CUDA events, and device ms by kernel name."""
+    import torch
+    from repro_torch.kernels import ssd_scan_bwd as SB
+    out = {}
+    for pair, name in ((False, "ssd_bwd"), (True, "mlstm_bwd")):
+        b, s, h, dk, dv = ((1, sm.TRAIN_S, sm.XLSTM_H, sm.XLSTM_D,
+                            sm.XLSTM_D) if pair else
+                           (1, sm.TRAIN_S, 112, 64, 64))
+        x = sm.ssd_bwd_inputs(dev, 790 + pair, b, s, h, dk, dv,
+                              sm.SLOW_FORGET_BIAS, not pair)
+        kern = SB.mlstm_scan_bwd_cuda if pair else SB.ssd_scan_bwd_cuda
+
+        def call():
+            return sm.ssd_bwd_call(kern, x, pair, False)
+        out[f"{name}_ms"] = [sm.cuda_ms(call, iters=10, warmup=2)
+                             for _ in range(reps)]
+        top = sm.device_busy(call, cpu=False, top=20)["top"]
+        out[f"{name}_launch_ms"] = {
+            t["kernel"].split("(")[0].split("::")[-1]: t["device_s"] * 1e3
+            for t in top if "ssd_bwd::" in t["kernel"]}
+        del x
+        torch.cuda.empty_cache()
+    return out
 
 
 def measure_grid(sm, dev, reps):
