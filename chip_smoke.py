@@ -63,12 +63,20 @@ launch counts set to 0 just before it and read just after:
     SSD scan's forward and backward kernels in every block, flash
     attention in the 4 applications of the shared block); xlstm-1.3b at
     full width and depth (1.19 B; mLSTM's pair and its backward kernel in
-    the 42 mLSTM blocks). Each with a gradient check against the plain
-    routes (`grad_check_routes`) and a dropped-gradient control, and
-    recovery from an injected failure at `smoke_config` (bit-equal). The
-    model-kernels phase holds the flash backward kernel against its plain
-    version at four shapes, and the two scan backward kernels at their
-    training shapes;
+    the 42 mLSTM blocks); granite-moe-3b-a800m at full width and depth
+    (3.30 B; flash attention and its backward kernel in every layer, the
+    experts' fixed-order backward, one microbatch's gradients bit-equal
+    across two runs). Each with a gradient check against the plain routes
+    (`grad_check_routes`) and a dropped-gradient control, and recovery from
+    an injected failure at `smoke_config` (bit-equal). The model-kernels
+    phase holds the flash backward kernel against its plain version at
+    four shapes, and the two scan backward kernels at their training
+    shapes. The dry-run (`launch.dryrun.lower_cell` on the one-card mesh,
+    on the meta device) prints what each trained cell's state should take
+    beside its measured peak;
+  * the examples' counterparts (`examples/*_torch.py`), each run on the
+    card with its defaults (serve_heterogeneous in the reference example's
+    smoke mode);
 
 and checks each result by the repository's own means. It prints the card's
 name and power limit, one JSON line describing every kernel (launches on
@@ -2571,9 +2579,13 @@ BWD_SHAPES = ((1, 4096, 16, 2, 128, 0), (1, 8192, 32, 32, 112, 4096),
 TRAIN_ARCH = "qwen2.5-3b"
 TRAIN_B, TRAIN_S, TRAIN_MICRO, TRAIN_STEPS = 4, 4096, 4, 6
 TRAIN_LR, TRAIN_WARMUP = 2e-6, 1
-# the first loss: ln V plus half the variance of the initial logits (rms-
-# normed hidden state against N(0, 0.02^2) tied embeddings or head: d *
-# 0.02^2), within TRAIN_LOSS0_TOL
+# the first loss's cross-entropy: ln V plus half the variance of the
+# initial logits (rms-normed hidden state against N(0, 0.02^2) tied
+# embeddings or head: d * 0.02^2), within TRAIN_LOSS0_TOL. The moe family's
+# loss also holds the load-balancing loss summed over its blocks (about
+# 0.18 a block at initialisation: granite-moe-3b-a800m's first loss is
+# 16.82 = 11.08 + 5.74, on an NVIDIA H100 80GB HBM3 at 700 W; PERF.md
+# section 6), which this expectation leaves out
 TRAIN_LOSS0_TOL = 0.3
 # one microbatch's gradients through the kernels against the plain
 # attention's, per leaf group (a layer's attention, MLP or norms; the
@@ -4760,16 +4772,55 @@ def train_control(cfg):
     return fn, n, block.format(n - n // 2)
 
 
-def grad_check_routes(cfg):
-    """(compute dtype, {reference name: (its contexts, blocks)}, the
+@contextlib.contextmanager
+def index_backward():
+    """The MoE experts' gather and combine as plain indexing (`x2[idx]`,
+    `rows[row[:, j]]` summed in float32), which autograd differentiates
+    with `index_put_(accumulate=True)`: the route before the fixed-order
+    Functions (`layers.dispatch_rows`, `combine_rows`), the same forward
+    values."""
+    import torch
+    from repro_torch.models import layers as L
+    real = L.dispatch_rows, L.combine_rows
+
+    def dispatch(x2, idx, row):
+        return x2[idx]
+
+    def combine(rows, row, src):
+        ext = torch.cat([rows, rows.new_zeros((1, rows.shape[1]))])
+        y = torch.zeros((row.shape[0], rows.shape[1]), device=rows.device,
+                        dtype=torch.promote_types(rows.dtype,
+                                                  torch.float32))
+        for j in range(row.shape[1]):
+            y += ext[row[:, j]].to(y.dtype)
+        return y
+    L.dispatch_rows, L.combine_rows = dispatch, combine
+    try:
+        yield
+    finally:
+        L.dispatch_rows, L.combine_rows = real
+
+
+def grad_check_routes(cfg, moe=None):
+    """(compute dtype, {reference name: (its contexts, blocks, gated)}, the
     kernels' route's contexts) of a train phase's gradient check; contexts
     as a function returning fresh context managers, blocks None for the
     phase's whole model or a depth to cut it to (its first blocks, with the
-    trained parameters). Each reference comes with its own dropped-gradient
-    control. The dense family: bf16, the kernels against the plain
-    attention. The hybrid and ssm families: float32, where rounding moves a
-    check little (at bf16 the plain route against itself at another chunk
-    reads 0.09 for zamba2-7b at 27 blocks and 1.4 for xlstm-1.3b,
+    trained parameters), gated False for a figure only reported. Each
+    reference comes with its own dropped-gradient control. The dense
+    family: bf16, the kernels against the plain attention. The moe family:
+    bf16, the kernels' route recording in `moe` (a dict) its routes
+    (`recording_moe_routes`; the forward's calls, one a block, come first)
+    and its router's choices, one a routing call, the recompute's included
+    ("choices"), against the plain attention routed to those choices
+    call by call (`choosing_experts`: a router near-tie that falls the
+    other way under the other attention's rounding would read as a
+    gradient error), against autograd's index backward for the experts'
+    gather and combine under the same kernel forwards (`index_backward`),
+    and, reported only, against the plain attention routing by itself. The
+    hybrid and ssm families: float32, where rounding moves a check little
+    (at bf16 the plain route against itself at another chunk reads 0.09
+    for zamba2-7b at 27 blocks and 1.4 for xlstm-1.3b,
     `tools/train_grad_noise.py`), attention plain on every side (the flash
     kernels take bf16 only): the kernels against their plain backward under
     the same kernel forwards (`plain_scan_backward`), and against the plain
@@ -4779,13 +4830,34 @@ def grad_check_routes(cfg):
     PERF.md section 7)."""
     if cfg.family == "dense":
         return (cfg.dtype, {"the plain attention": (lambda: (
-            plain_attention(),), None)}, lambda: ())
+            plain_attention(),), None, True)}, lambda: ())
+    if cfg.family == "moe":
+        from repro_torch.models.layers import top_k
+        moe = {} if moe is None else moe
+        routes, choices = moe.setdefault("routes", []), moe.setdefault(
+            "choices", [])
+
+        def record(i, probs):           # the router's own choice, kept
+            choices.append(top_k(probs, cfg.top_k)[1])
+
+        def pinned():
+            return choosing_experts(cfg, lambda i, probs: choices[i])
+        return (cfg.dtype, {
+            "the plain attention, routed as the kernels": (
+                lambda: (plain_attention(), pinned()), None, True),
+            "autograd's index backward for the experts": (
+                lambda: (index_backward(),), None, True),
+            "the plain attention, routed by itself": (
+                lambda: (plain_attention(),), None, False)},
+            lambda: (recording_moe_routes(routes),
+                     choosing_experts(cfg, record)))
     cut = (TRAIN_SSM_CUT_GROUPS * cfg.slstm_every if cfg.family == "ssm"
            else None)
     refs = {"the plain backward": (lambda: (plain_attention(),
-                                            plain_scan_backward()), None),
+                                            plain_scan_backward()), None,
+                                   True),
             "the plain scans" + (f", first {cut} blocks" if cut else ""): (
-                lambda: (plain_attention(), plain_scans()), cut)}
+                lambda: (plain_attention(), plain_scans()), cut, True)}
     return "float32", refs, lambda: (plain_attention(),)
 
 
@@ -4854,7 +4926,7 @@ def phase_train(dev, detail, smoke=False, arch=TRAIN_ARCH, layers=None,
             m = r[1]
             rec = {"step": r[0].step,
                    "since_start_s": time.perf_counter() - t0,
-                   "loss": m["loss"],
+                   "loss": m["loss"], "ce": m["ce"], "aux": m["aux"],
                    "grad_norm": m["grad_norm"], "lr": m["lr"],
                    "profiled": profiled, "s": s,
                    "tokens_per_s": TRAIN_B * TRAIN_S / s,
@@ -4866,7 +4938,9 @@ def phase_train(dev, detail, smoke=False, arch=TRAIN_ARCH, layers=None,
                                       if c and k not in want},
                    "top": busy.get("top")}
             records.append(rec)
-            print(f"  step {rec['step']}: loss {rec['loss']:.5f} grad norm "
+            print(f"  step {rec['step']}: loss {rec['loss']:.5f}"
+                  + (f" (ce {rec['ce']:.5f}, aux {rec['aux']:.5f})"
+                     if rec["aux"] else "") + " grad norm "
                   f"{rec['grad_norm']:.3f} lr {rec['lr']:.2e}; "
                   f"{rec['s']:.3f} s ({rec['tokens_per_s']:.0f} tok/s"
                   + (f"; under the profiler, device "
@@ -4891,6 +4965,7 @@ def phase_train(dev, detail, smoke=False, arch=TRAIN_ARCH, layers=None,
           if records else "  no step ran")
     n_params = sum(p.numel() for p in state.params.values())
     losses = [r["loss"] for r in records]
+    ces = [r["ce"] for r in records]
     loss0 = math.log(cfg.vocab_size) + cfg.d_model * 0.02 ** 2 / 2
     # the steps after the first (which warms the allocator and the
     # libraries) and before the profiled last one
@@ -4902,7 +4977,8 @@ def phase_train(dev, detail, smoke=False, arch=TRAIN_ARCH, layers=None,
     print(f"  {cfg.name} ({cfg.n_layers} blocks): {n_params:,} parameters; "
           f"{len(records)} steps of {TRAIN_B} x {TRAIN_S} in {TRAIN_MICRO} "
           f"microbatches in {train_s:.1f} s (init included); losses "
-          f"{[round(x, 4) for x in losses]} (first expected {loss0:.3f} +- "
+          f"{[round(x, 4) for x in losses]}, cross-entropy "
+          f"{[round(x, 4) for x in ces]} (first expected {loss0:.3f} +- "
           f"{TRAIN_LOSS0_TOL}); plain calls {plain}")
     if step_s:
         print(f"  steps 2-{TRAIN_STEPS - 1} without the profiler: median "
@@ -4917,7 +4993,9 @@ def phase_train(dev, detail, smoke=False, arch=TRAIN_ARCH, layers=None,
           for k, v in batch_for_step(dc, 0).items()}
     state.opt = {}                      # the moments: not needed from here
     torch.cuda.empty_cache()
-    check_dtype, refs, kernel_ctx = grad_check_routes(cfg)
+    moe = {}                            # the moe family's routes, choices
+    check_dtype, refs, kernel_ctx = grad_check_routes(cfg, moe)
+    routes = moe.get("routes", [])
     pc = compute_copy(state.params, getattr(torch, check_dtype))
     t1 = time.perf_counter()
 
@@ -4927,8 +5005,21 @@ def phase_train(dev, detail, smoke=False, arch=TRAIN_ARCH, layers=None,
                 st.enter_context(c)
             loss, _, g = loss_and_grads(m, p, mb)
         return float(loss), g
+    # the moe family: one microbatch's gradients taken again by the kernels'
+    # route and by the index backward's, the leaves that differ between
+    # the two runs of each
+    repeats = {}
+
+    def repeat(route, g, m, p, *ctx):
+        again = grads(m, p, *ctx)[1]
+        repeats[route] = [n for n in g if not torch.equal(g[n], again[n])]
+        del again
+        print(f"  {route}: one microbatch's gradients twice, "
+              + ("bit-equal in every leaf" if not repeats[route] else
+                 f"{len(repeats[route])} leaves differ, e.g. "
+                 f"{repeats[route][:4]}"), flush=True)
     checks, runs = {}, {}
-    for name, (ctx, blocks) in refs.items():
+    for name, (ctx, blocks, gated) in refs.items():
         ccfg = cfg.with_(dtype=check_dtype,
                          **({"n_layers": blocks} if blocks else {}))
         if blocks:      # the first blocks, with the trained parameters
@@ -4945,14 +5036,19 @@ def phase_train(dev, detail, smoke=False, arch=TRAIN_ARCH, layers=None,
                             grads(m, p, *kernel_ctx(), dropped_grad(
                                 fn, n_bwd // 2, dropped))[1],
                             bool(dropped))
+            if cfg.family == "moe":
+                repeat("fixed-order Functions", runs[blocks][0][1], m, p)
             torch.cuda.empty_cache()
         (loss_k, g_k), g_f, was_dropped = runs[blocks]
         loss_r, g_r = grads(m, p, *ctx())
+        if name == "autograd's index backward for the experts":
+            repeat("autograd's index backward", g_r, m, p, *ctx())
         rel, rel_f = group_rel_errs(g_k, g_r), group_rel_errs(g_f, g_r)
         del g_k, g_f, g_r
         torch.cuda.empty_cache()
         worst, worst_f = max(rel, key=rel.get), max(rel_f, key=rel_f.get)
         checks[name] = {
+            "gated": gated,
             "blocks": ccfg.n_layers, "loss_kernel": loss_k, "loss": loss_r,
             "rel": rel, "worst": worst, "control": fn.__name__,
             "dropped_group": drop_group, "dropped": was_dropped,
@@ -4961,7 +5057,8 @@ def phase_train(dev, detail, smoke=False, arch=TRAIN_ARCH, layers=None,
               f"microbatch at {check_dtype} compute, {ccfg.n_layers} "
               f"blocks, through the kernels (loss {loss_k:.6f}) against "
               f"{name} (loss {loss_r:.6f}): worst group ||d|| / ||ref|| "
-              f"{rel[worst]:.2e} ({worst}); limit {GRAD_REL_TOL}; "
+              f"{rel[worst]:.2e} ({worst}); "
+              f"{f'limit {GRAD_REL_TOL}' if gated else 'reported only'}; "
               f"{fn.__name__}'s gradient dropped once ({drop_group}): "
               f"{rel_f[worst_f]:.2e} ({worst_f})", flush=True)
     model.cfg = cfg
@@ -4969,6 +5066,14 @@ def phase_train(dev, detail, smoke=False, arch=TRAIN_ARCH, layers=None,
     torch.cuda.empty_cache()
     grad_s = time.perf_counter() - t1
     print(f"  gradient checks: {grad_s:.1f} s")
+    # the kernels' first forward's MoE calls, one a block in order
+    moe_dropped = [int(r["dropped"]) for r in routes[:cfg.n_layers]]
+    if moe_dropped:
+        t_mb = TRAIN_B // TRAIN_MICRO * TRAIN_S
+        print(f"  dropped choices per layer at capacity "
+              f"{tuple(routes[0]['top_i'].shape)[1]} an expert (of "
+              f"{t_mb * cfg.top_k}): {moe_dropped}")
+    moe.clear()
 
     # recovery at smoke_config: an uninterrupted run and one with a failure
     kw = dict(steps=RECOVERY_STEPS, batch=4, seq=256, microbatches=2,
@@ -5016,14 +5121,17 @@ def phase_train(dev, detail, smoke=False, arch=TRAIN_ARCH, layers=None,
         "plain_calls": plain, "launches_per_step_expected": want,
         "grad_check": {"dtype": check_dtype, "against": checks,
                        "seconds": grad_s},
+        **({"moe_dropped_per_layer": moe_dropped,
+            "repeat_leaves_differing": repeats} if moe_dropped else {}),
         "recovery": {"restarts": healed["restarts"],
                      "steps": healed["steps"], "bit_equal": same,
                      "launches": rec_launches, "seconds": rec_s}}
     faults = []
     if len(records) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
         faults.append(f"losses {losses}")
-    elif not abs(losses[0] - loss0) <= TRAIN_LOSS0_TOL:
-        faults.append(f"first loss {losses[0]:.4f}, expected {loss0:.4f}")
+    elif not abs(ces[0] - loss0) <= TRAIN_LOSS0_TOL:
+        faults.append(f"first cross-entropy {ces[0]:.4f}, expected "
+                      f"{loss0:.4f}")
     elif not losses[-1] < losses[0]:
         faults.append(f"last loss {losses[-1]:.4f} not below the first")
     for r in records:
@@ -5032,7 +5140,12 @@ def phase_train(dev, detail, smoke=False, arch=TRAIN_ARCH, layers=None,
                           f"{r['other_launches']}, expected {want}")
     if plain["attention"] or plain["ssd"]:
         faults.append(f"plain calls on the main path: {plain}")
+    if repeats.get("fixed-order Functions"):
+        faults.append("one microbatch's gradients differ between two runs "
+                      f"in {repeats['fixed-order Functions'][:4]}")
     for name, c in checks.items():
+        if not c["gated"]:
+            continue
         if not c["rel"][c["worst"]] <= GRAD_REL_TOL:
             faults.append(f"gradients off {name}'s in {c['worst']}: "
                           f"{c['rel'][c['worst']]:.3g}")
@@ -5050,6 +5163,117 @@ def phase_train(dev, detail, smoke=False, arch=TRAIN_ARCH, layers=None,
     return {**{k: sum(r["launches"][k] for r in records) for k in want},
             "per_step": {k: n[0] if len(n) == 1 else n
                          for k, n in measured.items()}}
+
+
+def phase_train_moe(dev, detail, smoke=False):
+    """granite-moe-3b-a800m at full width and depth (32 blocks of GQA
+    attention, 24 / 8 heads of 64, and 40 experts, top 8, of width 512;
+    d_model 1536): `phase_train`'s run, checks and recovery, through the
+    flash kernels and the experts' fixed-order backward (`layers.
+    dispatch_rows`, `combine_rows`), at capacity 1,024 an expert a
+    microbatch; also one microbatch's gradients twice, by the Functions
+    and by autograd's index backward, compared bit for bit."""
+    return phase_train(dev, detail, smoke, arch=MOE_ARCH, key="train_moe")
+
+
+TRAINED_CELLS = (("train", TRAIN_ARCH, None),
+                 ("train_hybrid", SERVE_ARCH, TRAIN_HYBRID_LAYERS),
+                 ("train_ssm", XLSTM_ARCH, None), ("train_moe", MOE_ARCH, None))
+
+
+def phase_dryrun(dev, detail):
+    """`launch.dryrun.lower_cell` on the one-card mesh (`make_debug_mesh`)
+    for each train phase's cell (its arch, depth and TRAIN_B x TRAIN_S in
+    TRAIN_MICRO microbatches), on the meta device: the per-device bytes of
+    the state it should take (masters, float32 gradients, moments, the
+    compute copy and one microbatch's gradients) and the reference's stash
+    estimate, beside the train phase's measured peak
+    (`max_memory_allocated`). Reported, not gated."""
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.launch.dryrun import lower_cell
+    from repro_torch.launch.mesh import make_debug_mesh
+    mesh = make_debug_mesh(devices=[dev])
+    shape = ShapeConfig("train_smoke", TRAIN_S, TRAIN_B, "train",
+                        microbatches=TRAIN_MICRO)
+    out = {}
+    for key, arch, layers in TRAINED_CELLS:
+        cfg = get_arch(arch)
+        cfg = cfg.with_(n_layers=layers) if layers else cfg
+        _, info = lower_cell(arch, shape.name, mesh, cfg=cfg, shape=shape,
+                             trace=False)
+        mem = info["per_device_bytes"]
+        steps = (detail.get(key) or {}).get("steps") or []
+        peak = max((r["peak_gb"] for r in steps), default=None)
+        out[key] = {"arch": cfg.name, "layers": cfg.n_layers,
+                    "per_device_bytes": mem,
+                    "stash_estimate": info["stash_estimate"],
+                    "measured_peak_gb": peak}
+        print(f"  {key} ({cfg.name}, {cfg.n_layers} blocks): state "
+              f"{mem['total'] / 1e9:.2f} GB predicted ("
+              + ", ".join(f"{k} {v / 1e9:.2f}" for k, v in mem.items()
+                          if k != "total")
+              + f"), stash estimate {info['stash_estimate'] / 1e9:.2f} GB; "
+              f"measured peak "
+              + (f"{peak:.2f} GB" if peak is not None else "not run"))
+    detail["dryrun"] = out
+    return out
+
+
+# the examples' counterparts and their arguments: their defaults, and the
+# reference example's own smoke mode for serve_heterogeneous (80 requests of
+# the trace, 2 measurement repetitions: at its defaults it took 66 s on an
+# NVIDIA H100 80GB HBM3 at 700 W beside the other three)
+EXAMPLES = {"quickstart_torch.py": (), "schedule_cluster_torch.py": (),
+            "serve_heterogeneous_torch.py": ("--smoke",),
+            "train_lm_torch.py": ()}
+EXAMPLES_TIMEOUT_S = 240
+
+
+def phase_examples(dev, detail):
+    """The examples' counterparts (`examples/*_torch.py`), each run with
+    the arguments of EXAMPLES (on the card; `--device cpu` for a CPU
+    rehearsal) in a process of its own, all four at once, with a fresh
+    temporary directory (train_lm's checkpoints): each must exit 0. Prints
+    each one's seconds from the start (EXAMPLES_TIMEOUT_S at most) and the
+    last lines of its output."""
+    import tempfile
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    extra = [] if dev.type == "cuda" else ["--device", "cpu"]
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        env["TMPDIR"] = tmp
+        t0 = time.perf_counter()
+        procs = {}
+        for name, args in EXAMPLES.items():
+            log = open(Path(tmp) / f"{name}.log", "w+")
+            procs[name] = (log, subprocess.Popen(
+                [sys.executable, str(ROOT / "examples" / name), *args,
+                 *extra], cwd=ROOT, env=env, stdout=log,
+                stderr=subprocess.STDOUT, text=True))
+        while len(res) < len(procs):
+            for name, (log, proc) in procs.items():
+                late = time.perf_counter() - t0 > EXAMPLES_TIMEOUT_S
+                if name in res or (proc.poll() is None and not late):
+                    continue
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                log.seek(0)
+                res[name] = {"rc": proc.returncode,
+                             "s": time.perf_counter() - t0,
+                             "tail": log.read().strip().splitlines()[-4:]}
+                log.close()
+            time.sleep(0.05)
+        wall = time.perf_counter() - t0
+    for name, r in res.items():
+        print(f"  {name}: rc {r['rc']}, {r['s']:.1f} s; "
+              + " | ".join(r["tail"]))
+    print(f"  all four at once: {wall:.1f} s")
+    detail["examples"] = {"runs": res, "wall_s": wall}
+    bad = [n for n, r in res.items() if r["rc"] != 0]
+    if bad:
+        raise AssertionError(f"examples failed: {bad}")
+    return res
 
 
 def phase_train_hybrid(dev, detail, smoke=False):
@@ -5226,6 +5450,11 @@ def main() -> int:
     hybrid_counts = run("train-hybrid", phase_train_hybrid, dev, detail)
     torch.cuda.empty_cache()
     ssm_counts = run("train-ssm", phase_train_ssm, dev, detail)
+    torch.cuda.empty_cache()
+    moe_counts = run("train-moe", phase_train_moe, dev, detail)
+    torch.cuda.empty_cache()
+    dry = run("dryrun", phase_dryrun, dev, detail)
+    examples = run("examples", phase_examples, dev, detail)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_detail.json").write_text(
@@ -5234,19 +5463,22 @@ def main() -> int:
             or solve_entry is None or serve_launches is None \
             or xlstm_launches is None or rms_launches is None \
             or train_counts is None or hybrid_counts is None \
-            or ssm_counts is None or None in family_launches.values():
+            or ssm_counts is None or moe_counts is None or dry is None \
+            or examples is None or None in family_launches.values():
         _fail(f"phases failed: {failed}")
     entry["launches"] = launches["block_move_gains"]
     solve_entry["launches"] = launches["grin_solve"]
     flash_by_phase = {"serve": serve_launches["flash_attention"], **{
         name: n["flash_attention"] for name, n in family_launches.items()},
         "train": train_counts["flash_attention"],
-        "train-hybrid": hybrid_counts["flash_attention"]}
+        "train-hybrid": hybrid_counts["flash_attention"],
+        "train-moe": moe_counts["flash_attention"]}
     by_phase = {
         "flash_attention": flash_by_phase,
         "flash_attention_bwd": {
             "train": train_counts["flash_attention_bwd"],
-            "train-hybrid": hybrid_counts["flash_attention_bwd"]},
+            "train-hybrid": hybrid_counts["flash_attention_bwd"],
+            "train-moe": moe_counts["flash_attention_bwd"]},
         "ssd_scan": {"serve": serve_launches["ssd_scan"],
                      "train-hybrid": hybrid_counts["ssd_scan"]},
         "ssd_scan_wide": {"serve-xlstm": xlstm_launches["ssd_scan_wide"]},

@@ -27,6 +27,10 @@ with the rows' log-sum-exp, backward `flash_attention_bwd_cuda`),
 `models.layers.rmsnorm`), so on a CUDA tensor under grad it raises: a
 ctypes kernel returns a tensor without a `grad_fn`, and a backward through
 it would leave every gradient upstream of it silently zero.
+
+Meta tensors (`launch.dryrun` runs the models on the meta device to size
+a cell without allocating it) take `_MetaShapes`: outputs of the plain
+version's shapes and dtypes, computed and launched nowhere.
 """
 from __future__ import annotations
 
@@ -48,6 +52,34 @@ def _on_card(x: torch.Tensor) -> bool:
     if x.device.type == "cpu":
         return False
     raise ValueError(f"unsupported device {x.device}: cuda | cpu")
+
+
+class _MetaShapes(torch.autograd.Function):
+    """A wrapper's outputs on the meta device (`launch.dryrun` runs the
+    models there): empty tensors of the plain version's output shapes and
+    dtypes, and in the backward empty gradients of the inputs' shapes. It
+    computes nothing and launches nothing; its inputs are saved for the
+    backward, as the kernels' Functions save theirs, so the dry-run counts
+    what a step keeps between its forward and its backward."""
+
+    @staticmethod
+    def forward(ctx, outs, *inputs):
+        ctx.ins = [(t.shape, t.dtype) if isinstance(t, torch.Tensor)
+                   else None for t in inputs]
+        ctx.save_for_backward(*(t for t in inputs
+                                if isinstance(t, torch.Tensor)))
+        res = tuple(torch.empty(s, dtype=d, device="meta") for s, d in outs)
+        return res if len(res) > 1 else res[0]
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, *(None if m is None else
+                        torch.empty(m[0], dtype=m[1], device="meta")
+                        for m in ctx.ins))
+
+
+def _on_meta(x: torch.Tensor) -> bool:
+    return x.device.type == "meta"
 
 
 def _needs_grad(*tensors) -> bool:
@@ -99,6 +131,9 @@ def flash_attention(q, k, v, *, causal=True, window=0,
     takes bfloat16 only (the serving engine's dtype) and raises on
     float32; under grad it is `_FlashAttention` (kernel forward with LSE,
     kernel backward), else the forward kernel alone."""
+    if _on_meta(q):
+        return _MetaShapes.apply(((q.shape[:-1] + v.shape[-1:], q.dtype),),
+                                 q, k, v)
     if not _on_card(q):
         return chunked_attention(q, k, v, causal=causal, window=window,
                                  chunk_q=block_q, chunk_k=block_k)
@@ -198,6 +233,10 @@ def ssd_scan(q, k, v, log_a, beta, *, chunk=256):
     both. Under grad on the card it is `_SSDScan`: the same forward kernel,
     and `ssd_scan_bwd_cuda` (or `ssd_scan_wide_bwd_cuda`) in the
     backward, one counted launch each."""
+    if _on_meta(q):
+        b, _, h, dk = q.shape
+        return _MetaShapes.apply(((v.shape, v.dtype), ((b, h, dk, v.shape[-1]),
+                                  torch.float32)), q, k, v, log_a, beta)
     if not _on_card(q):
         return linear_scan_chunked(q, k, v, log_a, beta, chunk=chunk)
     name = ssd_kernel_for(q.shape[-1], v.shape[-1])
@@ -222,6 +261,12 @@ def mlstm_scan(q, k, v, log_a, beta, *, chunk=256):
     decays and causal scores once for both and never stores the ones.
     Under grad on the card it is `_MLSTMScan`: that kernel, and
     `mlstm_scan_bwd_cuda` in the backward, one call for both scans."""
+    if _on_meta(q):
+        b, s, h, dk = q.shape
+        return _MetaShapes.apply((
+            (v.shape, v.dtype), ((b, h, dk, v.shape[-1]), torch.float32),
+            ((b, s, h, 1), v.dtype), ((b, h, dk, 1), torch.float32)),
+            q, k, v, log_a, beta)
     if not _on_card(q):
         return _ssdw.mlstm_scan_plain(q, k, v, log_a, beta, chunk=chunk)
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
@@ -233,6 +278,8 @@ def mlstm_scan(q, k, v, log_a, beta, *, chunk=256):
 
 def rmsnorm(x, w, *, eps=1e-5):
     """x: (..., D); w: (D,)."""
+    if _on_meta(x):
+        return _MetaShapes.apply(((x.shape, x.dtype),), x, w)
     if not _on_card(x):
         return rmsnorm_ref(x, w, eps)
     _no_backward("rmsnorm", x, w)

@@ -5,11 +5,14 @@ synthetic Zipfian corpus (`train.data`): the microbatched AdamW step
 (`train.train_step`), checkpoints every `--ckpt-every` steps and restart on
 a fault (`train.fault_tolerance.run_with_recovery`). `--smoke` (the
 default) trains the reduced same-family config, `--full` the registry's.
-Runs on the card unless `--device cpu` is given. On the card the dense,
-hybrid and ssm families train through their kernels and the kernels'
-backward kernels (flash attention, the SSD scan, mLSTM's pair); the moe
-family's routed experts have no deterministic backward yet (ROADMAP A3).
-`train(...)` is the same run as a function.
+Runs on the card unless `--device cpu` is given. On the card every family
+trains through its kernels and the kernels' backward kernels (flash
+attention, the SSD scan, mLSTM's pair); the moe family's routed experts
+through their fixed-order backward (`models.layers.dispatch_rows`,
+`combine_rows`), so two runs give the same gradients. The run is bound to
+a one-device mesh (`parallel.use_mesh(launch.mesh.make_debug_mesh(...))`),
+as the reference's launcher binds its mesh. `train(...)` is the same run
+as a function.
 """
 from __future__ import annotations
 
@@ -22,7 +25,10 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_arch, smoke_config
+from repro_torch.launch.mesh import make_debug_mesh
 from repro_torch.models.model import Model, count_params
+from repro_torch.parallel.sharding import use_mesh
+from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.data import DataConfig, DataPipeline
 from repro_torch.train.fault_tolerance import run_with_recovery
 from repro_torch.train.optimizer import OptimizerConfig
@@ -61,18 +67,21 @@ def train(arch: str, *, steps: int = 100, batch: int = 8, seq: int = 128,
           microbatches: int = 1, smoke: bool = True, layers: int | None = None,
           ckpt_dir: str | None = None, ckpt_every: int = 50, device=None,
           seed: int = 0, opt: OptimizerConfig | None = None,
-          step_wrapper=None, log=print) -> dict:
+          step_wrapper=None, log=print, config=None,
+          resume: bool = False) -> dict:
     """Train `arch` (`smoke_config` of it unless `smoke=False`, cut to
-    `layers` blocks when given) for `steps` steps of `batch` x `seq` tokens
-    in `microbatches` microbatches, from parameters drawn from a
-    `torch.Generator` seeded `seed`; `opt` defaults to the reference
-    launcher's AdamW (warmup over 10 steps, decay over `steps`).
+    `layers` blocks when given; `config`, when given, is the config to
+    train in place of the registry's) for `steps` steps of `batch` x `seq`
+    tokens in `microbatches` microbatches, from parameters drawn from a
+    `torch.Generator` seeded `seed`, or with `resume` from the latest
+    checkpoint in `ckpt_dir` where there is one; `opt` defaults to the
+    reference launcher's AdamW (warmup over 10 steps, decay over `steps`).
     `step_wrapper`, if given, wraps the logged step function (the card
     smoke measures and injects faults there). Returns {"cfg", "model",
     "state", "steps", "restarts", "history"}: history one dict per step
     run, with its loss, grad_norm, lr and seconds."""
     dev = resolve_device(device)
-    cfg = get_arch(arch)
+    cfg = config or get_arch(arch)
     if layers:
         cfg = cfg.with_(n_layers=layers)
     if smoke:
@@ -99,13 +108,20 @@ def train(arch: str, *, steps: int = 100, batch: int = 8, seq: int = 128,
                 f"({m['s']:.2f}s/step)")
         return s, m
 
-    batches = Batches(dc, dev)
     ckpt_dir = ckpt_dir or DEFAULT_CKPT_DIR
+    start = 0
+    if resume and ckpt.latest_step(ckpt_dir) is not None:
+        state, start = ckpt.restore(ckpt_dir, state)
+        log(f"[train] resumed from the checkpoint at step {start}")
+    batches = Batches(dc, dev, start=start)
+    mesh = make_debug_mesh(devices=[dev])
+    log(f"[train] mesh: {mesh.shape}")
     try:
-        state, n, restarts = run_with_recovery(
-            step_wrapper(logged_step) if step_wrapper else logged_step,
-            state, batches, ckpt_dir=ckpt_dir, ckpt_every=ckpt_every,
-            max_steps=steps)
+        with use_mesh(mesh):
+            state, n, restarts = run_with_recovery(
+                step_wrapper(logged_step) if step_wrapper else logged_step,
+                state, batches, ckpt_dir=ckpt_dir, ckpt_every=ckpt_every,
+                max_steps=steps)
     finally:
         batches.close()
     log(f"[train] done: {n} steps, {restarts} restarts; checkpoints at "

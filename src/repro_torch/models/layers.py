@@ -294,6 +294,77 @@ def moe_route(p: MoE, x, cfg: ModelConfig) -> dict:
             "dropped": (gate_vals > 0).sum() - keep.sum(), "aux": aux}
 
 
+def _sum_rows(src, row):
+    """out[t] = sum over j of src[row[t, j]], in j order, accumulated in
+    float32 (or src's dtype when wider), with a zero row appended to src
+    for the indices equal to len(src). Gathers and adds only: no index_put_,
+    scatter-add or atomics, so every run sums in the same order."""
+    ext = torch.cat([src, src.new_zeros((1, src.shape[1]))])
+    out = torch.zeros((row.shape[0], src.shape[1]), device=src.device,
+                      dtype=torch.promote_types(src.dtype, f32))
+    for j in range(row.shape[1]):
+        out += ext[row[:, j]]
+    return out
+
+
+class _ExpertDispatch(torch.autograd.Function):
+    """xin = x[idx]: the experts' slots gathered from the tokens' rows (T,
+    D) -> (E * cap, D). Backward: dx[t] is the sum of dxin at token t's
+    kept slots `row[t]` (the inverse of the selection; a dropped choice
+    points at a zero row), over its k choices in choice order, in float32,
+    then cast. A slot not kept has gate 0, so its dxin is zero and leaving
+    it out changes no sum: the reference's `xin * keep` does the same.
+    Autograd's backward of the gather would instead add every slot into its
+    token with `index_put_(accumulate=True)`, in whatever order that kernel
+    takes."""
+
+    @staticmethod
+    def forward(ctx, x, idx, row):
+        ctx.save_for_backward(row)
+        return x.index_select(0, idx)
+
+    @staticmethod
+    def backward(ctx, dxin):
+        (row,) = ctx.saved_tensors
+        return _sum_rows(dxin, row).to(dxin.dtype), None, None
+
+
+class _ExpertCombine(torch.autograd.Function):
+    """y[t] = sum over token t's k choices of the expert rows `row[t]` (E
+    * cap, D), in choice order, in float32 (or wider): the combine.
+    Backward: each kept slot is read by one token only, its `src` (T for a
+    slot not kept, which reads a zero row of dy), so its gradient is that
+    token's dy row, gathered once; nothing is accumulated, and the shared
+    zero row the dropped choices read has no gradient to keep."""
+
+    @staticmethod
+    def forward(ctx, rows, row, src):
+        ctx.save_for_backward(src)
+        ctx.rows_dtype = rows.dtype
+        return _sum_rows(rows, row)
+
+    @staticmethod
+    def backward(ctx, dy):
+        (src,) = ctx.saved_tensors
+        ext = torch.cat([dy, dy.new_zeros((1, dy.shape[1]))])
+        return ext.index_select(0, src).to(ctx.rows_dtype), None, None
+
+
+def dispatch_rows(x2, idx, row):
+    """The experts' input rows x2[idx] (x2 (T, D), idx (E * cap,)), with a
+    fixed-order backward (`_ExpertDispatch`, through the inverse map
+    `row` (T, k))."""
+    return _ExpertDispatch.apply(x2, idx, row)
+
+
+def combine_rows(rows, row, src):
+    """sum_j rows[row[:, j]] in float32 (rows (E * cap, D), a row index of
+    E * cap reading zeros), with a gather for its backward
+    (`_ExpertCombine`; `src` (E * cap,) the token each slot is read by, or
+    T)."""
+    return _ExpertCombine.apply(rows, row, src)
+
+
 def moe_experts(p: MoE, x, cfg: ModelConfig, route: dict):
     """The experts' output for x (B, S, D) under `route`: each expert's
     `cap` tokens gathered, SwiGLU over `w_in`, `w_out`, scaled by the
@@ -303,26 +374,28 @@ def moe_experts(p: MoE, x, cfg: ModelConfig, route: dict):
     dropped choice reads a zero row), so a row not kept is computed but
     never read, and the k rows are summed in choice order in float32. A
     scatter-add on the card orders its atomic adds anew in every run; this
-    sum is the same in every run."""
+    sum is the same in every run. Under grad the gather and the combine
+    are autograd Functions (`dispatch_rows`, `combine_rows`) whose
+    backwards are gathers and fixed-order sums over the same inverse map,
+    so the gradients are the same in every run too."""
     b, s, d = x.shape
     e, dt = cfg.n_experts, _dtype(cfg)
     t = b * s
     top_w, top_i, keep = route["top_w"], route["top_i"], route["keep"]
     cap = top_i.shape[1]
-    xin = x.reshape(t, d)[top_i.reshape(-1)].reshape(e, cap, d)
-    g, u = torch.bmm(xin, p.w_in.to(dt)).chunk(2, dim=-1)
-    y_e = torch.bmm(F.silu(g) * u, p.w_out.to(dt))
-    y_e = y_e * top_w[..., None].to(dt)                          # (E, cap, D)
     slots = torch.arange(cap, device=x.device).expand(e, cap)
     slot = torch.full((e, t), -1, dtype=torch.long, device=x.device)
     slot.scatter_(1, top_i, torch.where(keep, slots, -1))        # (E, T)
     gate_idx = route["gate_idx"]
     sl = slot.t().gather(1, gate_idx)                            # (T, k)
     row = torch.where(sl >= 0, gate_idx * cap + sl, e * cap)
-    rows = torch.cat([y_e.reshape(e * cap, d), y_e.new_zeros((1, d))])
-    y = torch.zeros((t, d), dtype=f32, device=x.device)
-    for j in range(gate_idx.shape[1]):
-        y += rows[row[:, j]].float()
+    xin = dispatch_rows(x.reshape(t, d), top_i.reshape(-1),
+                        row).reshape(e, cap, d)
+    g, u = torch.bmm(xin, p.w_in.to(dt)).chunk(2, dim=-1)
+    y_e = torch.bmm(F.silu(g) * u, p.w_out.to(dt))
+    y_e = y_e * top_w[..., None].to(dt)                          # (E, cap, D)
+    src = torch.where(keep, top_i, t).reshape(-1)
+    y = combine_rows(y_e.reshape(e * cap, d), row, src)
     return y.to(dt).reshape(b, s, d)
 
 

@@ -1,6 +1,5 @@
-"""Fault tolerance: the checkpoint/restart loop and straggler mitigation
-(the reference's `train/fault_tolerance.py`; its `ElasticMeshManager`,
-which re-meshes a multi-device run, comes with `parallel/`).
+"""Fault tolerance: the checkpoint/restart loop, elastic re-meshing and
+straggler mitigation (the reference's `train/fault_tolerance.py`).
 
 1. **Checkpoint/restart** — `run_with_recovery` wraps the step loop: any
    exception triggers restore-from-latest and replay (the data pipeline is
@@ -9,16 +8,26 @@ which re-meshes a multi-device run, comes with `parallel/`).
    place, so a fault inside it (`PartialUpdateError`) is replayed only
    from a checkpoint; with none it is raised.
 
-2. **Straggler mitigation** — per-pool observed step-rates feed an EWMA into
+2. **Elastic scaling** — `ElasticMeshManager` rebuilds the mesh when the
+   healthy-device set changes (an injectable device-list provider; the CUDA
+   cards by default) and re-shards live state onto it. The port runs on one
+   card: on a mesh of one device re-sharding moves each tensor there, and
+   on a larger mesh it raises.
+
+3. **Straggler mitigation** — per-pool observed step-rates feed an EWMA into
    the paper's scheduler (repro_torch.sched): a slow pool's mu column drops,
    GrIn re-solves, and load migrates away. `StragglerTracker` is that EWMA.
 """
 from __future__ import annotations
 
+import dataclasses
 import logging
 from typing import Callable
 
 import numpy as np
+import torch
+
+from repro_torch.parallel.sharding import Mesh
 
 log = logging.getLogger("repro_torch.ft")
 
@@ -82,6 +91,43 @@ def run_with_recovery(step_fn: Callable, state, data_iter,
     if pending is not None:
         pending.join()
     return state, step, restarts
+
+
+def cuda_devices() -> list:
+    """The CUDA cards there are, as devices."""
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+@dataclasses.dataclass
+class ElasticMeshManager:
+    """Rebuild the mesh and re-shard state when the device set changes."""
+
+    axis_names: tuple
+    device_provider: Callable = cuda_devices   # injectable for failure tests
+
+    def current_mesh(self) -> Mesh:
+        devs = tuple(self.device_provider())
+        n = len(devs)
+        # factor n into (data, model): keep model as square as possible
+        model = next(m for m in (16, 8, 4, 2, 1) if n % m == 0)
+        return Mesh(tuple(self.axis_names[-2:]), (n // model, model), devs)
+
+    def reshard(self, tree, spec_tree, mesh: Mesh):
+        """`tree` (dicts and lists of tensors) on `mesh`: on one device each
+        tensor moved to it; sharding over several is not ported."""
+        if mesh.size != 1 or len(mesh.devices) != 1:
+            raise NotImplementedError(
+                f"reshard onto a mesh of {mesh.size} devices "
+                f"({len(mesh.devices)} attached): the port runs on one card")
+        dev = torch.device(mesh.devices[0])
+
+        def move(node, spec):
+            if isinstance(node, dict):
+                return {k: move(v, spec[k]) for k, v in node.items()}
+            if isinstance(node, (list, tuple)):
+                return type(node)(move(v, s) for v, s in zip(node, spec))
+            return node.to(dev) if isinstance(node, torch.Tensor) else node
+        return move(tree, spec_tree)
 
 
 class StragglerTracker:

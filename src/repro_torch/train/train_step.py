@@ -97,8 +97,10 @@ def split_micro(batch: dict, n: int) -> list[dict]:
 
 def make_train_step(model, opt_cfg: OptimizerConfig, microbatches: int = 1,
                     zero_stage: int = 2):
-    """train_step(state, batch) -> (state, metrics {"loss", "grad_norm",
-    "lr"}), updating `state` in place."""
+    """train_step(state, batch) -> (state, metrics {"loss", "ce", "aux",
+    "grad_norm", "lr"}), updating `state` in place: "ce" and "aux" are the
+    loss's cross-entropy and MoE load-balancing parts (0 outside the moe
+    family), each a mean over the microbatches as "loss" is."""
     if zero_stage != 2:
         raise ValueError(f"zero_stage={zero_stage}: on one card only 2 (a "
                          f"compute copy cast once a step) has a meaning")
@@ -106,9 +108,11 @@ def make_train_step(model, opt_cfg: OptimizerConfig, microbatches: int = 1,
 
     def train_step(state: TrainState, batch: dict):
         params_c = compute_copy(state.params, dtype)
-        g_sum, l_sum = None, 0.0
+        g_sum, l_sum, parts = None, 0.0, {"ce": 0.0, "aux": 0.0}
         for mb in split_micro(batch, microbatches):
-            loss, _, grads = loss_and_grads(model, params_c, mb)
+            loss, m, grads = loss_and_grads(model, params_c, mb)
+            for k in parts:
+                parts[k] = parts[k] + m[k]
             if g_sum is None:
                 g_sum = {n: g.float() for n, g in grads.items()}
             else:
@@ -123,6 +127,8 @@ def make_train_step(model, opt_cfg: OptimizerConfig, microbatches: int = 1,
         opt_metrics = apply_updates(state.params, g_sum, state.opt, opt_cfg)
         del g_sum
         state.step += 1
-        return state, {"loss": float(l_sum / microbatches), **opt_metrics}
+        return state, {"loss": float(l_sum / microbatches),
+                       **{k: float(v / microbatches)
+                          for k, v in parts.items()}, **opt_metrics}
 
     return train_step

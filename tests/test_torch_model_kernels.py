@@ -188,8 +188,9 @@ def test_rmsnorm_matches_reference(shape, dtype):
 
 
 def test_ops_dispatch_on_device():
-    """A CPU tensor takes the plain route; the CUDA wrappers refuse CPU
-    tensors, so nothing reaches a kernel by accident."""
+    """A CPU tensor takes the plain route and a meta tensor (the
+    dry-run's) the plain version's output shape; the CUDA wrappers refuse
+    CPU and meta tensors, so nothing reaches a kernel by accident."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import rmsnorm as RN
     from repro_torch.kernels import ssd_scan as SSD
@@ -203,6 +204,8 @@ def test_ops_dispatch_on_device():
     ops.ssd_scan(x, x, x, la, la)
     ops.ssd_scan(wide, wide, wide[..., :1], la, la)
     ops.rmsnorm(x, torch.zeros(32))
+    meta = ops.rmsnorm(x.to("meta"), torch.zeros(32, device="meta"))
+    assert meta.device.type == "meta" and meta.shape == x.shape
     assert (FA.launches["flash_attention"], SSD.launches["ssd_scan"],
             SSDW.launches["ssd_scan_wide"], RN.launches["rmsnorm"]) == before
     with pytest.raises(ValueError, match="CUDA"):
@@ -213,5 +216,5 @@ def test_ops_dispatch_on_device():
         SSDW.ssd_scan_wide_cuda(x, x, x, la, la)
     with pytest.raises(ValueError, match="CUDA"):
         RN.rmsnorm_cuda(x[0, 0], torch.zeros(32))
-    with pytest.raises(ValueError, match="unsupported device"):
-        ops.rmsnorm(x.to("meta"), torch.zeros(32))
+    with pytest.raises(ValueError, match="CUDA"):
+        RN.rmsnorm_cuda(x[0, 0].to("meta"), torch.zeros(32, device="meta"))

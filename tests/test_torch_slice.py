@@ -281,3 +281,37 @@ def test_slice_end_to_end_against_reference():
     np.testing.assert_allclose(wp["pool_lost"], wr["pool_lost"], rtol=1e-5)
     np.testing.assert_allclose(wp["base_energy"], wr["base_energy"],
                                rtol=1e-5)
+
+
+def test_smoke_main_reads_only_bound_names():
+    """Every name `chip_smoke.main` reads is bound in it, at module level
+    or as a builtin: a phase result read in the final checks but never
+    assigned would fail the smoke only after all its phases ran."""
+    import builtins
+    tree = ast.parse(SMOKE.read_text())
+    module = {n.name for n in tree.body
+              if isinstance(n, (ast.FunctionDef, ast.ClassDef))}
+    for node in tree.body:
+        for sub in ast.walk(node) if not isinstance(
+                node, (ast.FunctionDef, ast.ClassDef)) else ():
+            if isinstance(sub, ast.Name) and isinstance(sub.ctx, ast.Store):
+                module.add(sub.id)
+            elif isinstance(sub, ast.alias):
+                module.add((sub.asname or sub.name).split(".")[0])
+    main = next(n for n in tree.body
+                if isinstance(n, ast.FunctionDef) and n.name == "main")
+    bound, read = set(), set()
+    for sub in ast.walk(main):
+        if isinstance(sub, ast.Name):
+            (bound if isinstance(sub.ctx, ast.Store) else read).add(sub.id)
+        elif isinstance(sub, ast.alias):
+            bound.add((sub.asname or sub.name).split(".")[0])
+        elif isinstance(sub, (ast.FunctionDef, ast.Lambda)):
+            bound.update(a.arg for a in sub.args.args + sub.args.kwonlyargs)
+            if isinstance(sub, ast.FunctionDef):
+                bound.add(sub.name)
+            for a in (sub.args.vararg, sub.args.kwarg):
+                if a is not None:
+                    bound.add(a.arg)
+    unbound = read - bound - module - set(dir(builtins))
+    assert not unbound, sorted(unbound)

@@ -9,7 +9,8 @@ runs each named phase in order with the smoke's own function, constants
 and checks, and prints the card's name and power limit, each phase's
 output, verdict and seconds. The phases that need no shared engine or
 process pool can be named: model-kernels, serve-xlstm, serve-moe,
-serve-audio, serve-vlm, ops-rmsnorm, train, train-hybrid, train-ssm.
+serve-audio, serve-vlm, ops-rmsnorm, train, train-hybrid, train-ssm,
+train-moe, dryrun (after the train phases it reads), examples.
 Details go to `chiprun_out/smoke_phases_detail.json`. Exits 1 if a phase
 fails. Imports nothing of JAX.
 """
@@ -31,7 +32,9 @@ PHASES = {"model-kernels": "phase_model_kernels",
           "serve-xlstm": "phase_serve_xlstm", "serve-moe": "phase_serve_moe",
           "serve-audio": "phase_serve_audio", "serve-vlm": "phase_serve_vlm",
           "ops-rmsnorm": "phase_ops_rmsnorm", "train": "phase_train",
-          "train-hybrid": "phase_train_hybrid", "train-ssm": "phase_train_ssm"}
+          "train-hybrid": "phase_train_hybrid", "train-ssm": "phase_train_ssm",
+          "train-moe": "phase_train_moe", "dryrun": "phase_dryrun",
+          "examples": "phase_examples"}
 
 
 def main(argv=None) -> int:

@@ -18,6 +18,15 @@ forwards with the scans' plain backward (`chip_smoke.plain_scan_backward`). Prin
 what the check can tell apart at that dtype. Attention takes its plain
 route on every side at float32 (the flash kernels take bf16 only).
 Writes `chiprun_out/train_grad_noise_<arch>.json`. Imports nothing of JAX.
+
+For the attention families (dense, moe; `--arch granite-moe-3b-a800m`)
+the routes are the plain attention at the model's chunk (1024) and at
+another (512: the same softmax, other rounding), the flash kernels, and
+the kernels with one layer's flash gradient dropped; for the moe family
+each routed to the plain route's expert choices call by call
+(`chip_smoke.choosing_experts`), and the chunk-512 plain route also by
+its own router. At float32 the plain routes only (the flash kernels take
+bf16).
 """
 from __future__ import annotations
 
@@ -68,6 +77,10 @@ def main(argv=None) -> int:
           for k, v in batch_for_step(dc, 0).items()}
     fn, n_bwd, group = cs.train_control(cfg)
     out = {"arch": cfg.name, "layers": cfg.n_layers, "dropped": group}
+    if cfg.family in ("dense", "moe"):
+        out.update(attention_noise(cs, cfg, model, params, mb, args.dtypes,
+                                   fn, n_bwd))
+        args.dtypes = []
     for dtype in args.dtypes:
         model.cfg = cfg.with_(dtype=dtype)
         pc = compute_copy(params, getattr(torch, dtype))
@@ -128,6 +141,66 @@ def main(argv=None) -> int:
     (path / f"train_grad_noise_{cfg.name}.json").write_text(
         json.dumps(out, indent=1))
     return 0
+
+
+def attention_noise(cs, cfg, model, params, mb, dtypes, fn, n_bwd) -> dict:
+    """The attention families' rows (see the module's docstring)."""
+    import torch
+    from repro_torch.models.layers import top_k
+    from repro_torch.train.train_step import compute_copy, loss_and_grads
+    out = {}
+    for dtype in dtypes:
+        pc = compute_copy(params, getattr(torch, dtype))
+        choices = []
+
+        def record(i, probs):
+            choices.append(top_k(probs, cfg.top_k)[1])
+
+        def pinned():
+            return (cs.choosing_experts(cfg, lambda i, probs: choices[i]),
+                    ) if cfg.family == "moe" else ()
+
+        def grads(*ctx, chunk=cfg.attn_chunk_q):
+            model.cfg = cfg.with_(dtype=dtype, attn_chunk_q=chunk,
+                                  attn_chunk_k=chunk)
+            t = time.perf_counter()
+            with contextlib.ExitStack() as st:
+                for c in ctx:
+                    st.enter_context(c)
+                loss, _, g = loss_and_grads(model, pc, mb)
+            torch.cuda.synchronize()
+            return float(loss), g, time.perf_counter() - t
+        first = ((cs.choosing_experts(cfg, record),) if cfg.family == "moe"
+                 else ())
+        lp, gp, sp = grads(cs.plain_attention(), *first)
+        rows = {"plain": {"loss": lp, "s": sp}}
+        routes = [("plain chunk 512", lambda: (cs.plain_attention(),
+                                               *pinned()), 512)]
+        if cfg.family == "moe":
+            routes.append(("plain chunk 512, routed by itself",
+                           lambda: (cs.plain_attention(),), 512))
+        if dtype == "bfloat16":
+            routes += [("kernels", pinned, cfg.attn_chunk_q),
+                       ("kernels, one flash gradient dropped", lambda: (
+                           *pinned(), cs.dropped_grad(fn, n_bwd // 2, {})),
+                        cfg.attn_chunk_q)]
+        for name, ctx, chunk in routes:
+            loss, g, sec = grads(*ctx(), chunk=chunk)
+            rel = cs.group_rel_errs(g, gp)
+            del g
+            worst = sorted(rel.items(), key=lambda kv: -kv[1])
+            rows[name] = {"loss": loss, "s": sec, "worst": worst[:6],
+                          "median": worst[len(worst) // 2][1]}
+            print(f"{cfg.name} ({cfg.n_layers} blocks) {dtype} {name}: "
+                  f"loss {loss:.6f} (plain {lp:.6f}); worst groups "
+                  f"{[(k, round(v, 5)) for k, v in worst[:4]]}, median "
+                  f"{rows[name]['median']:.2e}; {sec:.1f} s", flush=True)
+            torch.cuda.empty_cache()
+        out[dtype] = rows
+        del gp, pc
+        model.cfg = cfg
+        torch.cuda.empty_cache()
+    return out
 
 
 if __name__ == "__main__":
