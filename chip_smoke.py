@@ -38,7 +38,7 @@ launch counts set to 0 just before it and read just after:
     price);
   * serving — zamba2-7b at full width and depth (81 Mamba2 layers, a shared
     attention block applied 13 times, d_model 3584; random weights from a
-    seed) in a `ServeEngine`: 4 prompts of 8192 tokens and 64 greedy decode
+    seed) in a `ServeEngine`: 4 prompts of 8192 tokens and 32 greedy decode
     steps (flash-attention and SSD-scan kernels), a decode-vs-forward check,
     then CAB against LB over two pools of that engine in virtual time and
     `serve --traffic` on it (the bundled trace through GrIn-P with SLO
@@ -54,7 +54,7 @@ launch counts set to 0 just before it and read just after:
     flash kernel once per attention layer per prefill), each with a
     decode-vs-forward check against a negative control;
   * `ops.rmsnorm`, the RMSNorm kernel's only entry point;
-  * training — through `launch.train.train`, 6 AdamW steps of 4 x 4096
+  * training — through `launch.train.train`, 4 AdamW steps of 4 x 4096
     tokens in 4 microbatches each, every block recomputed in the
     backward, from a random initialisation (a seed): qwen2.5-3b at full
     width and depth (36 blocks, d_model 2048, 3.09 B parameters; flash
@@ -63,17 +63,27 @@ launch counts set to 0 just before it and read just after:
     SSD scan's forward and backward kernels in every block, flash
     attention in the 4 applications of the shared block); xlstm-1.3b at
     full width and depth (1.19 B; mLSTM's pair and its backward kernel in
-    the 42 mLSTM blocks); granite-moe-3b-a800m at full width and depth
-    (3.30 B; flash attention and its backward kernel in every layer, the
-    experts' fixed-order backward, one microbatch's gradients bit-equal
-    across two runs). Each with a gradient check against the plain routes
+    the 42 mLSTM blocks); granite-moe-3b-a800m at full width cut to 16
+    of its 32 blocks (1.69 B; flash attention and its backward kernel in
+    every layer, the experts' fixed-order backward, one microbatch's
+    gradients bit-equal across two runs). Each with a gradient check
+    against the plain routes
     (`grad_check_routes`) and a dropped-gradient control, and recovery from
     an injected failure at `smoke_config` (bit-equal). The model-kernels
     phase holds the flash backward kernel against its plain version at
     four shapes, and the two scan backward kernels at their training
-    shapes. The dry-run (`launch.dryrun.lower_cell` on the one-card mesh,
-    on the meta device) prints what each trained cell's state should take
-    beside its measured peak;
+    shapes. Then training sharded (the train-sharded phase): 4 ranks, each
+    a process of its own on the one card, as a (data 2, model 2) mesh
+    over gloo (CUDA tensors staged through pinned host buffers), train
+    qwen2.5-3b and granite-moe-3b-a800m at full width cut to 4 blocks for
+    one step of 4 x 4096 tokens (fsdp x tp masters, the ZeRO-2 compute
+    copy, tensor-parallel attention and MLP, each data shard's experts
+    routed alone), held to the same step on one rank (loss, gradients per
+    leaf group, a control with one row-parallel sum left out), each
+    rank's flash launches on its own heads. The dry-run
+    (`launch.dryrun.lower_cell` on the one-card mesh, on the meta device)
+    prints what each trained cell's state should take beside its
+    measured peak;
   * the examples' counterparts (`examples/*_torch.py`), each run on the
     card with its defaults (serve_heterogeneous in the reference example's
     smoke mode);
@@ -2575,9 +2585,10 @@ BWD_SHAPES = ((1, 4096, 16, 2, 128, 0), (1, 8192, 32, 32, 112, 4096),
 # the train phases (qwen2.5-3b at full width and depth; the hybrid's and
 # ssm's below): global batch TRAIN_B x TRAIN_S in TRAIN_MICRO microbatches,
 # TRAIN_STEPS steps of AdamW at TRAIN_LR (warmup TRAIN_WARMUP steps, cosine
-# decay over the run)
+# decay over the run): 4 since the train-sharded phase was added (6 before;
+# step 1 warms up, 2-3 are timed, 4 runs under the profiler)
 TRAIN_ARCH = "qwen2.5-3b"
-TRAIN_B, TRAIN_S, TRAIN_MICRO, TRAIN_STEPS = 4, 4096, 4, 6
+TRAIN_B, TRAIN_S, TRAIN_MICRO, TRAIN_STEPS = 4, 4096, 4, 4
 TRAIN_LR, TRAIN_WARMUP = 2e-6, 1
 # the first loss's cross-entropy: ln V plus half the variance of the
 # initial logits (rms-normed hidden state against N(0, 0.02^2) tied
@@ -2614,7 +2625,9 @@ TRAIN_SSM_CUT_GROUPS = 1
 # 2 microbatches, a checkpoint every 3, a failure injected at call 5
 RECOVERY_STEPS, RECOVERY_FAIL_AT = 8, 5
 SERVE_ARCH = "zamba2-7b"
-SERVE_B, SERVE_S, SERVE_STEPS = 4, 8192, 64
+# the serve phases' greedy decode steps: 32 since the train-sharded phase
+# was added (64 before; the decodes are host-bound, ~60-120 ms a step)
+SERVE_B, SERVE_S, SERVE_STEPS = 4, 8192, 32
 # the serve-traffic phase replays the bundled trace's first 120 of its 240
 # requests (cut to make room for the moe, audio and vlm phases within the
 # smoke's 1,200 s: its replay took 98-148 s at 240)
@@ -3867,7 +3880,7 @@ def serve_runs(dev, engine, prompt=None):
 
 def phase_serve(dev, state, detail, cfg=None):
     """zamba2-7b at full width and depth in a ServeEngine: 4 requests of
-    8192-token prompts and 64 greedy decode steps through `generate` (the
+    8192-token prompts and 32 greedy decode steps through `generate` (the
     counted path), then timed prefill and decode runs, profiles, and the
     decode-vs-forward check on 4 requests of 4600 tokens, with a forward
     that leaves the window out as its negative control. `cfg` replaces the
@@ -4002,7 +4015,7 @@ def counting_plain_routes(counter: dict):
 def phase_serve_xlstm(dev, detail, cfg=None):
     """xlstm-1.3b at full width and depth (48 blocks: 6 groups of 7 mLSTM
     blocks and one sLSTM block; d_model 2048, 4 heads of 512) in a
-    ServeEngine: 4 requests of 8192-token prompts and 64 greedy decode steps
+    ServeEngine: 4 requests of 8192-token prompts and 32 greedy decode steps
     through `generate` (the counted path: 42 launches of the wide kernel's
     pair per prefill, memory and normaliser in one call per mLSTM block,
     no other SSD launch and no plain SSD call), then timed prefill and
@@ -4268,7 +4281,7 @@ def moe_layer_checks(model, fw, cfg, s):
 def phase_serve_moe(dev, detail, cfg=None):
     """granite-moe-3b-a800m at full width and depth (32 blocks of GQA
     attention (24 / 8 heads of 64) and 40 experts, top 8; d_model 1536) in
-    a ServeEngine: 4 requests of 8192 tokens and 64 greedy steps through
+    a ServeEngine: 4 requests of 8192 tokens and 32 greedy steps through
     `generate` (the counted path: 32 flash launches per prefill, no other
     model kernel), timed prefill and decode runs and profiles, the tokens
     the prefill's capacity drops in each layer, then decode-vs-forward on
@@ -4434,7 +4447,7 @@ def phase_serve_moe(dev, detail, cfg=None):
 def phase_serve_audio(dev, detail, cfg=None):
     """musicgen-medium at full width and depth (48 blocks, 24 heads of 64,
     d_model 1536, 4 codebooks) in a ServeEngine: 4 prompts of 1500 frames x
-    4 codebooks (30 s of EnCodec at 50 Hz) and 64 greedy steps of one token
+    4 codebooks (30 s of EnCodec at 50 Hz) and 32 greedy steps of one token
     per codebook through `generate` (48 flash launches per prefill), timed
     runs and profiles, then decode-vs-forward on 8 x 1024 frames against a
     decode whose codebooks are shifted by one (the negative control).
@@ -4464,7 +4477,7 @@ def phase_serve_audio(dev, detail, cfg=None):
 def phase_serve_vlm(dev, detail, cfg=None):
     """phi-3-vision-4.2b at full width and depth (32 blocks, 32 heads of
     96, d_model 3072) in a ServeEngine: 4 requests of 256 image patches
-    (random embeddings through `patch_proj`) + 8192 tokens and 64 greedy
+    (random embeddings through `patch_proj`) + 8192 tokens and 32 greedy
     steps through `generate` (32 flash launches per prefill, 8448
     positions each), timed runs and profiles, then decode-vs-forward on 8
     x (256 + 1024) against a forward without the patches (the negative
@@ -4491,10 +4504,17 @@ def phase_serve_vlm(dev, detail, cfg=None):
                           control, "forward without the patches")
 
 
+# the serve-sched phase's completions a policy after its warmup: 30 after
+# 5 since the train-sharded phase was added (60 after 10 before: 83-94 s
+# of phase on a slow host; its X is reported, not gated)
+SERVE_SCHED_COMPLETIONS, SERVE_SCHED_WARMUP = 30, 5
+
+
 def phase_serve_sched(dev, state, detail):
     """CAB against LB over two pools of the full-width engine in virtual
     time (the reference launcher's --heterogeneous experiment): 1 x 1024
-    prompts, measured 2 x 2 rates, 60 completions after 10 warmup."""
+    prompts, measured 2 x 2 rates, SERVE_SCHED_COMPLETIONS completions
+    after SERVE_SCHED_WARMUP warmup."""
     import numpy as np
     import torch
     from repro_torch.core import classify_2x2
@@ -4516,8 +4536,9 @@ def phase_serve_sched(dev, state, detail):
     for name in ("cab", "lb"):
         sched = SchedulerCore(get_policy(name), mu, device=dev)
         t0 = time.perf_counter()
-        m = VirtualTimeCluster(fns).run_closed(sched, types,
-                                               n_completions=60, warmup=10)
+        m = VirtualTimeCluster(fns).run_closed(
+            sched, types, n_completions=SERVE_SCHED_COMPLETIONS,
+            warmup=SERVE_SCHED_WARMUP)
         xs[sched.name] = {"X": m.throughput, "mean_response_s":
                           m.mean_response_time,
                           "per_pool_tasks": m.per_pool_tasks.tolist(),
@@ -5165,20 +5186,28 @@ def phase_train(dev, detail, smoke=False, arch=TRAIN_ARCH, layers=None,
                          for k, n in measured.items()}}
 
 
+# the train-moe phase: granite-moe-3b-a800m at full width cut to this many
+# of its 32 blocks since the train-sharded phase was added (full depth
+# before: 43.7 s of phase on a slow host, PERF.md section 5)
+TRAIN_MOE_LAYERS = 16
+
+
 def phase_train_moe(dev, detail, smoke=False):
-    """granite-moe-3b-a800m at full width and depth (32 blocks of GQA
-    attention, 24 / 8 heads of 64, and 40 experts, top 8, of width 512;
-    d_model 1536): `phase_train`'s run, checks and recovery, through the
-    flash kernels and the experts' fixed-order backward (`layers.
-    dispatch_rows`, `combine_rows`), at capacity 1,024 an expert a
-    microbatch; also one microbatch's gradients twice, by the Functions
+    """granite-moe-3b-a800m at full width cut to TRAIN_MOE_LAYERS blocks
+    (of 32; GQA attention, 24 / 8 heads of 64, and 40 experts, top 8, of
+    width 512; d_model 1536): `phase_train`'s run, checks and recovery,
+    through the flash kernels and the experts' fixed-order backward
+    (`layers.dispatch_rows`, `combine_rows`), at capacity 1,024 an expert
+    a microbatch; also one microbatch's gradients twice, by the Functions
     and by autograd's index backward, compared bit for bit."""
-    return phase_train(dev, detail, smoke, arch=MOE_ARCH, key="train_moe")
+    return phase_train(dev, detail, smoke, arch=MOE_ARCH, key="train_moe",
+                       layers=None if smoke else TRAIN_MOE_LAYERS)
 
 
 TRAINED_CELLS = (("train", TRAIN_ARCH, None),
                  ("train_hybrid", SERVE_ARCH, TRAIN_HYBRID_LAYERS),
-                 ("train_ssm", XLSTM_ARCH, None), ("train_moe", MOE_ARCH, None))
+                 ("train_ssm", XLSTM_ARCH, None),
+                 ("train_moe", MOE_ARCH, TRAIN_MOE_LAYERS))
 
 
 def phase_dryrun(dev, detail):
@@ -5295,6 +5324,615 @@ def phase_train_ssm(dev, detail, smoke=False):
                        lr=TRAIN_SSM_LR)
 
 
+# the train-sharded phase: SHARDED_RANKS processes on the one card as a
+# (data 2, model 2) mesh over gloo (NCCL refuses two ranks on one device),
+# CUDA tensors staged through pinned host buffers; qwen2.5-3b and
+# granite-moe-3b-a800m at full width cut to SHARDED_LAYERS blocks (of 36
+# and 32); one step of SHARDED_B x SHARDED_S tokens in SHARDED_MICRO
+# microbatches, held to the same step on one rank
+SHARDED_RANKS, SHARDED_LAYERS = 4, 4
+SHARDED_ARCHS = (TRAIN_ARCH, MOE_ARCH)
+SHARDED_B, SHARDED_S, SHARDED_MICRO = 4, 4096, 2
+# the first loss against the one-rank run's: bf16 partial sums meet in
+# another order across ranks
+SHARDED_LOSS_REL = 5e-3
+SHARDED_TIMEOUT_S = 240
+# each rank's flash (q heads, kv heads) at model 2
+SHARDED_HEADS = {TRAIN_ARCH: (8, 1), MOE_ARCH: (12, 4)}
+# granite-moe's router scores on each shard's rows against the one-rank
+# run's on the same rows (||d|| / ||ref|| a routing call), as the
+# gradients are held: a shard routing other rows reads ~1.4
+SHARDED_SCORE_REL = GRAD_REL_TOL
+
+
+@contextlib.contextmanager
+def dropped_row_sum(block: str, layer: int):
+    """The negative control of the sharded check: the output of the
+    `layer`-th `block` ("apply_mlp" or "apply_attention" of `models.layers`,
+    in the order the model first calls them) left as this rank's partial
+    sum, its model-axis sum (`layers.row_parallel_sum`) skipped, in the
+    forward and the recompute alike."""
+    from repro_torch.models import layers as L
+    real_block, real_sum = getattr(L, block), L.row_parallel_sum
+    seen, skip = [], {"on": False}
+
+    def wrapped(p, *args, **kw):
+        if p not in seen:
+            seen.append(p)
+        skip["on"] = seen.index(p) == layer
+        try:
+            return real_block(p, *args, **kw)
+        finally:
+            skip["on"] = False
+
+    def row_sum(y):
+        return y if skip["on"] else real_sum(y)
+    setattr(L, block, wrapped)
+    L.row_parallel_sum = row_sum
+    try:
+        yield
+    finally:
+        setattr(L, block, real_block)
+        L.row_parallel_sum = real_sum
+
+
+@contextlib.contextmanager
+def flash_heads(seen: set):
+    """Record each flash forward and backward launch's (q heads, kv heads)
+    in `seen` (the kernels' wrappers still count their launches)."""
+    from repro_torch.kernels import flash_attention as FA
+    real_f, real_b = FA.flash_attention_cuda, FA.flash_attention_bwd_cuda
+
+    def fwd(q, k, v, **kw):
+        seen.add(("fwd", q.shape[2], k.shape[2]))
+        return real_f(q, k, v, **kw)
+
+    def bwd(q, k, v, *a, **kw):
+        seen.add(("bwd", q.shape[2], k.shape[2]))
+        return real_b(q, k, v, *a, **kw)
+    FA.flash_attention_cuda, FA.flash_attention_bwd_cuda = fwd, bwd
+    try:
+        yield
+    finally:
+        FA.flash_attention_cuda, FA.flash_attention_bwd_cuda = real_f, real_b
+
+
+@contextlib.contextmanager
+def pinned_routing(record=None, replay=None, checks=None):
+    """The MoE router's two decisions in each `moe_route` call (its `top_k`
+    calls: each token's k experts, then each expert's capacity of tokens),
+    in call order, recorded in `record` (a dict of lists: "idx", their
+    indices; "scores" and "dropped", each call's router scores and dropped
+    choices) or replayed: the i-th decision
+    takes the indices and scores `replay(i)` gives, its values gathered
+    from its own inputs. The train-sharded check's one-rank reference
+    routes as the shards routed, so a decision that the ranks' other sums
+    tip the other way (a near-tie of experts, or of tokens at an expert's
+    capacity) reads as no gradient error. With `replay`, `checks` (a list)
+    gets each replayed decision held to this run's own top_k on its own
+    inputs (`routing_gap`), so the shards' decisions are checked and not
+    only copied."""
+    import torch
+    from repro_torch.models import layers as L
+    real, real_route, calls, scores = L.top_k, L.moe_route, [0], [None]
+
+    def route(p, x, cfg):               # the router's scores, as moe_route
+        with torch.no_grad():
+            scores[0] = (x.reshape(-1, x.shape[-1])
+                         @ p.router.to(x.dtype)).float()
+        r = real_route(p, x, cfg)
+        if record is not None:
+            record["scores"].append(scores[0].cpu())
+            record["dropped"].append(int(r["dropped"]))
+        return r
+
+    def pinned(x, k):
+        i = calls[0]
+        calls[0] += 1
+        if replay is not None:
+            idx, z_other = (t.to(x.device) for t in replay(i))
+            if checks is not None:
+                with torch.no_grad():
+                    checks.append(routing_gap(x.detach(), real(x, k)[1],
+                                              idx, scores[0], z_other,
+                                              experts=i % 2 == 0))
+            return x.gather(-1, idx), idx
+        vals, idx = real(x, k)
+        if record is not None:
+            record["idx"].append(idx.cpu())
+        return vals, idx
+    L.top_k = pinned
+    if checks is not None or record is not None:
+        L.moe_route = route
+    try:
+        yield
+    finally:
+        L.top_k, L.moe_route = real, real_route
+
+
+def routing_gap(v, own, idx, z, z_other, experts: bool) -> dict:
+    """One routing decision over the rows of v, taken as `idx` (another
+    run's, on its router scores `z_other`) against `own`, this run's top_k
+    of v (on its scores z, (tokens, experts)). `experts`: v holds each
+    token's expert probabilities (rows tokens, entries experts); else
+    each expert's tokens' gates (rows experts, entries tokens). Returns
+    the scores' difference ||z_other - z|| / ||z||; the rows whose chosen
+    set differs; and of those the ones that the two runs' scores do not
+    explain: where the largest entry left out exceeds the smallest taken,
+    in log(v) (the scores' units), by more than the two runs' score
+    difference can reorder (2 m_t for a token t's experts, 2 (m_t + m_u)
+    for tokens t, u at an expert's capacity, m_t = max over t's experts of
+    |z_other - z|: a gate is renormalised over its token's experts) plus
+    MOE_TIE_SPACINGS bf16 spacings of the scores (this run's rounding). A
+    decision of another shape (another capacity) differs in every row."""
+    import torch
+    rows = v.shape[0]
+    drift = z_other - z
+    out = {"rows": rows, "differ": rows, "beyond": rows,
+           "gap_spacings": float("inf"),
+           "score_rel": float(drift.norm() / z.norm())}
+    if own.shape != idx.shape:
+        return out
+    differ = (own.sort(-1).values != idx.sort(-1).values).any(-1)
+    out["differ"] = int(differ.sum())
+    if idx.shape[-1] >= v.shape[-1]:
+        out.update(beyond=0, gap_spacings=0.0)
+        return out
+    i_in = idx.gather(-1, v.gather(-1, idx).argmin(-1, keepdim=True))
+    i_out = v.scatter(-1, idx, -1.0).argmax(-1, keepdim=True)
+    v_in, v_out = v.gather(-1, i_in), v.gather(-1, i_out)
+    m = drift.abs().amax(-1)                               # (tokens,)
+    zr = z if experts else z.t()
+    if experts:
+        slack = 2 * m[:, None]
+    else:
+        slack = 2 * (m[i_in] + m[i_out])
+    spacing = bf16_spacing(torch.maximum(zr.gather(-1, i_in).abs(),
+                                         zr.gather(-1, i_out).abs()))
+    gap = torch.where(v_out > v_in,
+                      (v_out.log() - v_in.log() - slack) / spacing,
+                      torch.zeros_like(v_in)).squeeze(-1)
+    beyond = differ & (gap > MOE_TIE_SPACINGS)
+    out.update(beyond=int(beyond.sum()), gap_spacings=float(gap.max()))
+    return out
+
+
+@contextlib.contextmanager
+def step_parts(parts: dict):
+    """Host seconds of the train step's parts, each ended by a device
+    synchronise, added up in `parts`: the sharded compute copy, each
+    microbatch's loss and gradients, the gradients' reduction to the
+    masters, the update."""
+    import torch
+    from repro_torch.train import train_step as TS
+    names = ("sharded_compute_copy", "loss_and_grads", "sharded_grads",
+             "apply_updates")
+    real = {n: getattr(TS, n) for n in names}
+
+    def timed(name):
+        def run(*args, **kw):
+            t = time.perf_counter()
+            out = real[name](*args, **kw)
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            parts[name] = parts.get(name, 0.0) + time.perf_counter() - t
+            return out
+        return run
+    for n in names:
+        setattr(TS, n, timed(n))
+    try:
+        yield
+    finally:
+        for n in names:
+            setattr(TS, n, real[n])
+
+
+def sharded_cell(arch: str, smoke: bool):
+    """(cfg, B, S, microbatches) of the train-sharded phase for `arch`."""
+    from repro_torch.configs import get_arch, smoke_config
+    cfg = get_arch(arch).with_(n_layers=SHARDED_LAYERS)
+    if smoke:       # a CPU rehearsal at float32, where the sums' order shows
+        return (smoke_config(cfg).with_(dtype="float32"), 4, 64,
+                SHARDED_MICRO)
+    return cfg, SHARDED_B, SHARDED_S, SHARDED_MICRO
+
+
+def sharded_arch(arch: str, smoke: bool, world: dict, mesh) -> dict:
+    """One rank's part of the train-sharded phase for `arch` (every rank
+    runs it): the sharded step through `launch.train.train` (launches,
+    flash heads, peak memory, collective bytes, seconds), the same step
+    with the control's sum left out, rank 0's one-rank step from the same
+    seed and batch (for the moe family the per-shard dispatch, routed as
+    the shards routed with each choice held to its own top_k, and beside
+    it the per-shard dispatch on its own routing and the global
+    dispatch), and the
+    gradients gathered leaf by leaf to rank 0 and compared per leaf
+    group. Returns rank 0's verdict (the others' figures in it)."""
+    import tempfile
+
+    import torch
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import train as T
+    from repro_torch.launch.dryrun import lower_cell
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import Model
+    from repro_torch.parallel import collectives as C
+    from repro_torch.parallel import sharding as S
+    from repro_torch.train.data import DataConfig, batch_for_step
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.train_step import init_train_state, make_train_step
+    cfg, B, Sq, M = sharded_cell(arch, smoke)
+    dev = world["device"]
+    on_card = dev.type == "cuda"
+    rank0 = world["rank"] == 0
+    opt = OptimizerConfig(lr=TRAIN_LR, warmup_steps=1, decay_steps=1)
+    moe = cfg.family == "moe"
+    kw = dict(steps=1, batch=B, seq=Sq, microbatches=M, smoke=False,
+              config=cfg, device=dev, opt=opt, ckpt_every=2,
+              log=lambda *a: None)
+
+    def run(*ctx):
+        grads, choices = {}, {"idx": [], "scores": [], "dropped": []}
+        with tempfile.TemporaryDirectory() as d, \
+                contextlib.ExitStack() as st:
+            for c in ctx:
+                st.enter_context(c)
+            if moe:
+                st.enter_context(pinned_routing(record=choices))
+            res = T.train(arch, ckpt_dir=d, grad_hook=grads.update, **kw)
+        h = res["history"][0]
+        del res
+        return h, grads, choices, choices.pop("dropped")
+
+    # the main path: counts from 0 just before, read just after
+    heads, plain, parts = set(), {"ssd": 0, "attention": 0}, {}
+    reset_all_launches()
+    C.reset_traffic()
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with counting_plain_routes(plain), flash_heads(heads), \
+            step_parts(parts):
+        hist, grads, choices, dropped = run()
+    if on_card:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = all_launches()
+    mine = {"rank": world["rank"], "coords": mesh.coords,
+            "loss": hist["loss"], "step_s": hist["s"], "train_s": wall,
+            "peak_gb": (torch.cuda.max_memory_allocated() / 1e9
+                        if on_card else None),
+            "launches": {k: c for k, c in n.items() if c},
+            "heads": sorted(heads), "plain": plain,
+            "traffic": {k: dict(v) for k, v in C.traffic.items()},
+            "parts_s": parts,
+            "dropped": dropped[:cfg.n_layers]}
+    # the moe family's experts are whole on every rank: its row-parallel
+    # product is attention's output projection
+    control = dropped_row_sum("apply_attention" if moe else "apply_mlp",
+                              cfg.n_layers // 2)
+    t1 = time.perf_counter()
+    hist_c, grads_c, _, _ = run(control)
+    mine["control_loss"] = hist_c["loss"]
+    mine["control_s"] = time.perf_counter() - t1
+    if on_card:
+        torch.cuda.empty_cache()
+    by_shard = C.all_gather_object(choices if mesh.coords["model"] == 0
+                                   else None, mesh)
+    del choices
+    ranks = C.all_gather_object(mine, mesh)
+
+    ref, t2 = {}, time.perf_counter()
+    if rank0:                            # the one-rank step
+        dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=Sq,
+                        global_batch=B, n_codebooks=cfg.n_codebooks,
+                        n_patches=cfg.n_patches, d_model=cfg.d_model)
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in batch_for_step(dc, 0).items()}
+        shards = [c for c in by_shard if c is not None]
+
+        def one_rank(micro, *ctx):
+            g = {}
+            with contextlib.ExitStack() as st:
+                for c in ctx:
+                    st.enter_context(c)
+                model = Model(cfg, device=dev)
+                state = init_train_state(
+                    model, torch.Generator(device=dev).manual_seed(0), opt)
+                _, met = make_train_step(model, opt, microbatches=micro,
+                                         grad_hook=g.update)(state, batch)
+            del model, state
+            return met["loss"], g
+        # each data shard's rows of each microbatch a microbatch of its own:
+        # the same step, its per-row bf16 gradients summed in float32 as
+        # the mesh sums them (with a microbatch's rows together, ln_f alone
+        # moves 2.86e-2 by rounding: tools/sharded_grad_floor.py), and for
+        # the moe family each shard routed alone, the auxes averaged
+        n_sh = mesh.shape["data"]
+        ctx, checks = (), []
+        if moe:     # routed as the shards routed, decision by decision,
+            per = len(shards[0]["idx"]) // M  # each held to its own top_k
+
+            def replay(i):
+                j, within = divmod(i, per)
+                mb, d = divmod(j, n_sh)
+                c = mb * per + within
+                return shards[d]["idx"][c], shards[d]["scores"][c // 2]
+            ctx = (pinned_routing(replay=replay, checks=checks),)
+        ref["loss"], ref["grads"] = one_rank(M * n_sh, *ctx)
+        if moe:
+            ref["routing"] = {k: sum(c[k] for c in checks)
+                              for k in ("rows", "differ", "beyond")}
+            ref["routing"].update(
+                calls=len(checks),
+                gap_spacings=max(c["gap_spacings"] for c in checks),
+                score_rel=max(c["score_rel"] for c in checks))
+            # per shard on its own routing; the global dispatch: a
+            # microbatch's rows routed together
+            ref["free_loss"], ref["free_grads"] = one_rank(M * n_sh)
+            ref["global_loss"], g_glob = one_rank(M)
+            ref["global_rel"] = group_rel_errs(g_glob, ref["grads"])
+            del g_glob
+        if on_card:
+            torch.cuda.empty_cache()
+
+    ref_s, t3 = time.perf_counter() - t2, time.perf_counter()
+    # the references' pieces scattered from rank 0 leaf by leaf; each rank
+    # sums its pieces' squared differences per leaf group (a piece that
+    # several ranks hold counted on one of them), then over the mesh:
+    # the step and the control against the reference, and for the moe
+    # family the step against the per-shard run on its own routing
+    with S.use_mesh(mesh):
+        specs = S.param_pspec_tree(Model(cfg, device="meta"))
+    groups = sorted(leaf_groups(specs))
+    group_of = {n: g for g, names in leaf_groups(specs).items()
+                for n in names}
+    keys = ("grads", "free_grads") if moe else ("grads",)
+    sums = torch.zeros((5, len(groups)), dtype=torch.float64, device=dev)
+    for name in specs:
+        mine_, ctl = grads.pop(name), grads_c.pop(name)
+        owner = all(mesh.coords[a] == 0 for a in mesh.axis_names
+                    if a not in S.spec_axes(specs[name]))
+        g = groups.index(group_of[name])
+        for key in keys:
+            parts = ([S.local_slice(ref[key][name], specs[name],
+                                    dataclasses.replace(mesh, rank=r))
+                      for r in mesh.ranks] if rank0 else None)
+            piece = C.scatter(parts, mine_, mesh, mesh.ranks[0]).double()
+            del parts
+            if owner and key == "grads":
+                sums[0, g] += (mine_.double() - piece).square().sum()
+                sums[1, g] += (ctl.double() - piece).square().sum()
+                sums[2, g] += piece.square().sum()
+            elif owner:
+                sums[3, g] += (mine_.double() - piece).square().sum()
+                sums[4, g] += piece.square().sum()
+            del piece
+        del mine_, ctl
+    sums = C.all_reduce(sums, mesh, None).cpu()
+    compare_s = time.perf_counter() - t3
+    if not rank0:
+        return {}
+    rel = {k: {g: (float(sums[i, j]) / float(sums[n, j])) ** 0.5
+               if float(sums[n, j]) > 0 else float(float(sums[i, j]) > 0)
+               for j, g in enumerate(groups)}
+           for i, n, k in ((0, 2, "main"), (1, 2, "control"),
+                           (3, 4, "free"))}
+    shape = ShapeConfig("train_sharded", Sq, B, "train", microbatches=M)
+    _, info = lower_cell(cfg.name, shape.name, S.Mesh(mesh.axis_names,
+                                                      mesh.axis_sizes),
+                         cfg=cfg, shape=shape, sharding_mode="2d",
+                         zero_stage=2, trace=False)
+    return {"arch": cfg.name, "layers": cfg.n_layers, "B": B, "S": Sq,
+            "microbatches": M, "transport": world["transport"],
+            "mesh": mesh.shape, "ranks": ranks,
+            "loss_ref": ref["loss"], "rel": rel["main"],
+            "rel_control": rel["control"],
+            "global_loss": ref.get("global_loss"),
+            "global_rel": ref.get("global_rel"),
+            "free_loss": ref.get("free_loss"),
+            "rel_free": rel["free"] if moe else None,
+            "routing": ref.get("routing"),
+            "predicted_bytes": info["per_device_bytes"],
+            "seconds": {"main": wall, "control": mine["control_s"],
+                        "one_rank": ref_s, "compare": compare_s}}
+
+
+def sharded_rank(out: str, smoke: bool) -> int:
+    """A rank of the train-sharded phase (`chip_smoke.py --rank-of
+    train-sharded DIR full|smoke`, started by `phase_train_sharded` with
+    RANK, WORLD_SIZE, LOCAL_RANK set): joins the world over a file://
+    store in DIR, runs `sharded_arch` for each of SHARDED_ARCHS, and rank
+    0 writes DIR/result.json. The kernels are built by the parent; a rank
+    only loads them."""
+    t0 = time.perf_counter()
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.parallel import collectives as C
+    marks = {"import torch": time.perf_counter() - t0}
+    import torch._dynamo  # noqa: F401  (the recompute's first call needs it)
+    marks["import torch._dynamo"] = time.perf_counter() - t0
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if smoke:
+        torch.set_num_threads(1)
+    world = C.init_world("cpu" if smoke else "cuda",
+                         init_method=f"file://{out}/store")
+    try:
+        mesh = make_debug_mesh()
+        marks["world joined, mesh bound"] = time.perf_counter() - t0
+        res = {arch: sharded_arch(arch, smoke, world, mesh)
+               for arch in SHARDED_ARCHS}
+        marks["done"] = time.perf_counter() - t0
+        if world["rank"] == 0:
+            res["marks"] = marks
+            (Path(out) / "result.json").write_text(json.dumps(res,
+                                                              default=str))
+    finally:
+        C.leave_world()
+    return 0
+
+
+def phase_train_sharded(dev, detail, smoke=False):
+    """Training sharded over a (data 2, model 2) mesh of SHARDED_RANKS
+    ranks on the one card (gloo; NCCL refuses two ranks on one device, so
+    CUDA tensors are staged through pinned host buffers), each a process
+    of its own started here after the kernels are built: for qwen2.5-3b
+    (GQA 16 / 2) and granite-moe-3b-a800m (GQA 24 / 8, 40 experts top 8)
+    at full width cut to SHARDED_LAYERS blocks, one step of SHARDED_B x
+    SHARDED_S tokens in SHARDED_MICRO microbatches at cfg.dtype through
+    `launch.train.train` (fsdp x tp masters, the ZeRO-2 compute copy,
+    tensor-parallel attention and MLP, the per-shard MoE dispatch), held
+    to the same step on one rank: the first loss within SHARDED_LOSS_REL,
+    the gradients within GRAD_REL_TOL per leaf group, and beyond it with
+    one row-parallel layer's model-axis sum left out (the control). For
+    granite-moe the one-rank reference is the per-shard dispatch routed as
+    the shards routed: the shards' router scores must be the reference's
+    on the same rows within SHARDED_SCORE_REL, and each replayed choice
+    the reference's own top_k on its own inputs but where the two runs'
+    scores reorder it (`routing_gap`); the gaps of the per-shard dispatch
+    on its own routing and of the global dispatch are printed beside
+    it.
+    Each rank's flash launches must run its own heads (8 of 16 q heads and
+    1 of 2 kv heads for qwen, 12 of 24 and 4 of 8 for granite-moe) and no
+    plain attention. Printed: each rank's peak beside `lower_cell`'s
+    per-device prediction, the bytes each collective moved, the
+    transport, the seconds. `smoke` rehearses it on the CPU at
+    `smoke_config` (gloo, no kernels)."""
+    import tempfile
+    t0 = time.perf_counter()
+    procs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                   WORLD_SIZE=str(SHARDED_RANKS),
+                   LOCAL_WORLD_SIZE=str(SHARDED_RANKS))
+        logs = [open(Path(tmp) / f"rank{r}.log", "w+")
+                for r in range(SHARDED_RANKS)]
+        try:
+            for r in range(SHARDED_RANKS):
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(ROOT / "chip_smoke.py"),
+                     "--rank-of", "train-sharded", tmp,
+                     "smoke" if smoke else "full"], cwd=ROOT,
+                    env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+                    stdout=logs[r], stderr=subprocess.STDOUT, text=True))
+            while any(p.poll() is None for p in procs):
+                failed = any(p.poll() not in (None, 0) for p in procs)
+                if failed or time.perf_counter() - t0 > SHARDED_TIMEOUT_S:
+                    break
+                time.sleep(0.1)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        tails = []
+        for r, log in enumerate(logs):
+            log.seek(0)
+            tails.append(log.read().strip().splitlines())
+            log.close()
+        rcs = [p.returncode for p in procs]
+        result = Path(tmp) / "result.json"
+        res = json.loads(result.read_text()) if result.exists() else None
+    wall = time.perf_counter() - t0
+    print("\n".join(f"  {ln}" for ln in tails[0][-40:]))
+    if rcs != [0] * SHARDED_RANKS or res is None:
+        for r, t in enumerate(tails):
+            print(f"  rank {r} (rc {rcs[r]}): " + " | ".join(t[-12:]))
+        raise AssertionError(f"the ranks failed: {rcs}")
+    faults, counts = [], {"flash_attention": 0, "flash_attention_bwd": 0}
+    marks = res.pop("marks")
+    print("  rank 0 from its start: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in marks.items()))
+    for arch, r in res.items():
+        worst = max(r["rel"], key=r["rel"].get)
+        worst_c = max(r["rel_control"], key=r["rel_control"].get)
+        rel_loss = abs(r["ranks"][0]["loss"] - r["loss_ref"]) / abs(
+            r["loss_ref"])
+        mem = r["predicted_bytes"]
+        print(f"  {r['arch']}: " + ", ".join(
+            f"{k} {v:.1f} s" for k, v in r["seconds"].items()))
+        print(f"  {r['arch']} ({r['layers']} blocks) on {r['mesh']} over "
+              f"{r['transport']}: loss {r['ranks'][0]['loss']:.6f}, one "
+              f"rank {r['loss_ref']:.6f} (rel {rel_loss:.2e}, limit "
+              f"{SHARDED_LOSS_REL}); gradients: worst group "
+              f"{r['rel'][worst]:.2e} ({worst}; limit {GRAD_REL_TOL}); "
+              f"control (a model-axis sum left out): loss "
+              f"{r['ranks'][0]['control_loss']:.6f}, worst group "
+              f"{r['rel_control'][worst_c]:.2e} ({worst_c})")
+        if r["global_loss"] is not None:
+            wg = max(r["global_rel"], key=r["global_rel"].get)
+            wf = max(r["rel_free"], key=r["rel_free"].get)
+            rt = r["routing"]
+            print(f"    the shards' routing against the one-rank "
+                  f"reference's own on its own inputs: router scores "
+                  f"within {rt['score_rel']:.2e} (worst call; limit "
+                  f"{SHARDED_SCORE_REL}); {rt['differ']} of {rt['rows']} "
+                  f"rows of {rt['calls']} decisions choose otherwise, "
+                  f"{rt['beyond']} of them beyond what the two runs' scores "
+                  f"reorder (largest excess {rt['gap_spacings']:.2f} bf16 "
+                  f"spacings; limit {MOE_TIE_SPACINGS}); per shard on its "
+                  f"own routing (not pinned): loss {r['free_loss']:.6f}, "
+                  f"worst group {r['rel_free'][wf]:.2e} ({wf})")
+            print(f"    the global dispatch on one rank, against the "
+                  f"per-shard one: loss {r['global_loss']:.6f}, worst "
+                  f"group {r['global_rel'][wg]:.2e} ({wg}); dropped "
+                  f"choices per shard, layer by layer: "
+                  + "; ".join(f"shard {k['coords']['data']}: {k['dropped']}"
+                              for k in r["ranks"]
+                              if k["coords"]["model"] == 0))
+            if rt["beyond"] or not rt["score_rel"] <= SHARDED_SCORE_REL:
+                faults.append(f"{arch}: the shards' routing: scores off by "
+                              f"{rt['score_rel']:.3g}, {rt['beyond']} "
+                              f"choices beyond what the scores reorder")
+        print(f"    predicted per device (lower_cell, 2d, ZeRO-2): "
+              f"{mem['total'] / 1e9:.2f} GB ("
+              + ", ".join(f"{k} {v / 1e9:.2f}" for k, v in mem.items()
+                          if k != "total") + ")")
+        for k in r["ranks"]:
+            print(f"    rank {k['rank']} {k['coords']}: step "
+                  f"{k['step_s']:.2f} s ({k['train_s']:.2f} s with set-up)"
+                  f", peak "
+                  + (f"{k['peak_gb']:.2f} GB" if k["peak_gb"] is not None
+                     else "n/a")
+                  + f"; launches {k['launches']}; flash heads {k['heads']}"
+                  f"; bytes received "
+                  + ", ".join(f"{op} {t['bytes'] / 1e6:.1f} MB in "
+                              f"{t['calls']} ({t['s']:.2f} s)" for op, t in
+                              sorted(k["traffic"].items()))
+                  + "; step parts " + ", ".join(
+                      f"{n} {v:.2f} s" for n, v in k["parts_s"].items()))
+        if not rel_loss <= SHARDED_LOSS_REL:
+            faults.append(f"{arch}: loss off the one-rank run's by "
+                          f"{rel_loss:.3g}")
+        if not r["rel"][worst] <= GRAD_REL_TOL:
+            faults.append(f"{arch}: gradients off in {worst}: "
+                          f"{r['rel'][worst]:.3g}")
+        if r["rel_control"][worst_c] <= GRAD_REL_TOL:
+            faults.append(f"{arch}: the check passes the control")
+        want = 2 * SHARDED_LAYERS * SHARDED_MICRO
+        q, kv = SHARDED_HEADS[arch]
+        for k in r["ranks"]:
+            if not smoke and (
+                    k["plain"]["attention"]
+                    or k["launches"].get("flash_attention") != want
+                    or k["launches"].get("flash_attention_bwd") != want // 2
+                    or k["heads"] != [["bwd", q, kv], ["fwd", q, kv]]):
+                faults.append(f"{arch} rank {k['rank']}: launches "
+                              f"{k['launches']}, heads {k['heads']}, plain "
+                              f"{k['plain']}")
+            for name in counts:
+                counts[name] += k["launches"].get(name, 0)
+    print(f"  the phase: {wall:.1f} s")
+    detail["train_sharded"] = {"archs": res, "seconds": wall,
+                               "rank0_marks": marks, "launches": counts}
+    if faults:
+        raise AssertionError("; ".join(faults))
+    return counts
+
+
 # ------------------------------------------------------------------- main
 
 def build_kernels() -> float:
@@ -5337,6 +5975,8 @@ def build_kernels() -> float:
 
 
 def main() -> int:
+    if sys.argv[1:3] == ["--rank-of", "train-sharded"]:
+        return sharded_rank(sys.argv[3], sys.argv[4] == "smoke")
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         _fail("src/repro_torch not found beside chip_smoke.py: run it from "
               "the root of a checkout")
@@ -5453,6 +6093,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe_counts = run("train-moe", phase_train_moe, dev, detail)
     torch.cuda.empty_cache()
+    # the ranks are processes of their own on the card: nothing of the
+    # earlier phases' is kept here but the built kernels
+    sharded_counts = run("train-sharded", phase_train_sharded, dev, detail)
     dry = run("dryrun", phase_dryrun, dev, detail)
     examples = run("examples", phase_examples, dev, detail)
     out_dir = ROOT / "chiprun_out"
@@ -5464,6 +6107,7 @@ def main() -> int:
             or xlstm_launches is None or rms_launches is None \
             or train_counts is None or hybrid_counts is None \
             or ssm_counts is None or moe_counts is None or dry is None \
+            or sharded_counts is None \
             or examples is None or None in family_launches.values():
         _fail(f"phases failed: {failed}")
     entry["launches"] = launches["block_move_gains"]
@@ -5472,13 +6116,15 @@ def main() -> int:
         name: n["flash_attention"] for name, n in family_launches.items()},
         "train": train_counts["flash_attention"],
         "train-hybrid": hybrid_counts["flash_attention"],
-        "train-moe": moe_counts["flash_attention"]}
+        "train-moe": moe_counts["flash_attention"],
+        "train-sharded": sharded_counts["flash_attention"]}
     by_phase = {
         "flash_attention": flash_by_phase,
         "flash_attention_bwd": {
             "train": train_counts["flash_attention_bwd"],
             "train-hybrid": hybrid_counts["flash_attention_bwd"],
-            "train-moe": moe_counts["flash_attention_bwd"]},
+            "train-moe": moe_counts["flash_attention_bwd"],
+            "train-sharded": sharded_counts["flash_attention_bwd"]},
         "ssd_scan": {"serve": serve_launches["ssd_scan"],
                      "train-hybrid": hybrid_counts["ssd_scan"]},
         "ssd_scan_wide": {"serve-xlstm": xlstm_launches["ssd_scan_wide"]},

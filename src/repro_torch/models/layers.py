@@ -14,9 +14,15 @@ Conventions, as in the reference package:
                       which returns new cache arrays, decode updates the
                       cache tensors in place (no copy of the KV ring per
                       step) and returns the same dict.
-  * the reference's sharding annotations (`parallel.sharding.constrain`)
-    have no counterpart: on one card they are no-ops, and the MoE block's
-    `shard_map` dispatch is its local one.
+  * on a mesh of ranks (`parallel.sharding.live`) the blocks hold and
+    compute this rank's piece, as the reference's sharding annotations
+    place them: attention's q heads over "model" (its kv heads split the
+    same way where they divide, else each rank keeps the kv heads its q
+    heads read), the MLP column- then row-parallel, each closed by a
+    fixed-order sum over "model" (`row_parallel_sum`); the MoE block routes
+    each data shard's tokens alone (the reference's `shard_map`
+    dispatch). `attention_heads` and `qkv_columns` say which heads and
+    columns a rank holds. Without one, everything is whole.
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.attention import decode_attention
 from repro_torch.models.linear_scan import linear_scan_step
+from repro_torch.parallel import sharding as S
 
 f32 = torch.float32
 
@@ -67,6 +74,43 @@ def dense_init(p: torch.Tensor, generator: torch.Generator, scale=None):
             else 1.0 / math.sqrt(fan_in))
 
 
+class _EmbeddingRows(torch.autograd.Function):
+    """w[tok] (rows of the table w (V, D) for tokens of any shape). Backward:
+    each looked-up row's gradients summed in float32 (or wider) in a fixed
+    order (the tokens sorted, `index_put_` with accumulate into a float32
+    buffer of the distinct rows), rounded once to w's dtype. Autograd's
+    index backward adds them in w's dtype one by one, which in bf16 loses
+    the small terms of a frequent token (a Zipfian corpus's commonest
+    tokens take thousands of positions a microbatch)."""
+
+    @staticmethod
+    def forward(ctx, w, tok):
+        ctx.save_for_backward(tok)
+        ctx.rows = w.shape[0]
+        return w[tok]
+
+    @staticmethod
+    def backward(ctx, g):
+        (tok,) = ctx.saved_tensors
+        d = g.shape[-1]
+        if g.device.type == "meta":     # the dry-run: shapes only
+            return g.new_zeros((ctx.rows, d)), None
+        rows, inv = torch.unique(tok.reshape(-1).long(),
+                                 return_inverse=True)
+        acc = torch.zeros((rows.numel(), d), device=g.device,
+                          dtype=torch.promote_types(g.dtype, f32))
+        acc.index_put_((inv,), g.reshape(-1, d).to(acc.dtype),
+                       accumulate=True)
+        dw = g.new_zeros((ctx.rows, d))
+        dw.index_copy_(0, rows, acc.to(g.dtype))
+        return dw, None
+
+
+def embedding_rows(w, tok):
+    """w[tok], with a float32 fixed-order backward (`_EmbeddingRows`)."""
+    return _EmbeddingRows.apply(w, tok)
+
+
 def rmsnorm(x, w, eps):
     xf = x.float()
     y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
@@ -86,6 +130,56 @@ def rope(x, positions, theta):
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
                      dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------- tensor parallelism
+
+def tp_rank() -> tuple[int, int]:
+    """(the model axis's size, this rank's index on it) on the ambient mesh
+    of ranks, or (1, 0)."""
+    mesh = S.current_mesh()
+    if not S.live(mesh) or mesh.shape.get("model", 1) == 1:
+        return 1, 0
+    return mesh.shape["model"], mesh.coords["model"]
+
+
+def attention_heads(cfg: ModelConfig, tp: int, m: int) -> tuple:
+    """(first q head, q heads, first kv head, kv heads) of model rank m of
+    tp: the q heads split evenly; the kv heads split the same way where tp
+    divides them, else the kv heads this rank's q heads read (kept on each
+    rank that reads them). Raises where the q heads do not divide, or where
+    the rank's q heads would not read its kv heads in equal groups."""
+    h, kv = cfg.n_heads, cfg.n_kv_heads
+    if tp == 1:
+        return 0, h, 0, kv
+    if h % tp:
+        raise NotImplementedError(f"{cfg.name}: {h} attention heads over a "
+                                  f"model axis of {tp}")
+    hl, g = h // tp, h // kv
+    if kv % tp == 0:
+        return m * hl, hl, m * (kv // tp), kv // tp
+    if g % hl and hl % g:
+        raise NotImplementedError(f"{cfg.name}: {hl} q heads a rank in "
+                                  f"groups of {g}")
+    q0 = m * hl
+    return q0, hl, q0 // g, max(hl // g, 1)
+
+
+def qkv_columns(cfg: ModelConfig, tp: int, m: int) -> torch.Tensor:
+    """The columns of `wqkv` (and `bqkv`) model rank m of tp computes with:
+    its q heads', then its k heads', then its v heads' (`attention_heads`)."""
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    q0, hl, k0, kl = attention_heads(cfg, tp, m)
+    return torch.cat([torch.arange(q0 * hd, (q0 + hl) * hd),
+                      h * hd + torch.arange(k0 * hd, (k0 + kl) * hd),
+                      (h + kv) * hd + torch.arange(k0 * hd, (k0 + kl) * hd)])
+
+
+def row_parallel_sum(y):
+    """A row-parallel product's partial sums added over "model" in the
+    ranks' order (float32): the whole product on every rank of the axis
+    (identity in the backward)."""
+    return S.reduce_from(y, "tp")
 
 
 # ---------------------------------------------------------------- attention
@@ -122,9 +216,21 @@ def apply_attention(p: Attention, x, cfg: ModelConfig, *, positions,
 
     cache (decode or prefill-output): {"k","v": (B, Sc, KV, hd),
     "kpos": (Sc,) int32, "idx": write count}.
+
+    On a mesh of ranks with a model axis, `p` holds this rank's columns of
+    `wqkv` (`qkv_columns`) and rows of `wo`: the rank computes its heads
+    (`attention_heads`) and the output's partial sum, added over "model"
+    (`row_parallel_sum`).
     """
     b, s, d = x.shape
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    hd = cfg.resolved_head_dim
+    tp, m = tp_rank()
+    _, h, _, kv = attention_heads(cfg, tp, m)
+    if tp > 1:
+        if mode == "decode" or want_cache:
+            raise NotImplementedError("serving on a mesh of ranks is not "
+                                      "ported: no local caches")
+        x = S.copy_to(x, "tp")
     dt = _dtype(cfg)
     qkv = x @ p.wqkv.to(dt)
     if p.bqkv is not None:
@@ -167,6 +273,8 @@ def apply_attention(p: Attention, x, cfg: ModelConfig, *, positions,
                 "idx": s,
             }
     y = out.reshape(b, s, h * hd) @ p.wo.to(dt)
+    if tp > 1:
+        y = row_parallel_sum(y)
     return y, new_cache
 
 
@@ -210,13 +318,20 @@ def init_mlp(cfg: ModelConfig, generator, device=None) -> MLP:
 
 
 def apply_mlp(p: MLP, x, cfg: ModelConfig):
+    """On a mesh of ranks where `p` holds a piece of d_ff (`wg`, `wu` by
+    columns, `wd` by rows): column-parallel, then row-parallel with the
+    partial sums added over "model" (`row_parallel_sum`)."""
     dt = _dtype(cfg)
+    split = p.wd.shape[0] != cfg.d_ff
+    if split:
+        x = S.copy_to(x, "tp")
     u = x @ p.wu.to(dt)
     if p.wg is not None:                            # SwiGLU (3 matrices)
         h = F.silu(x @ p.wg.to(dt)) * u
     else:                                           # GeLU (2 matrices)
         h = F.gelu(u, approximate="tanh")           # jax.nn.gelu's default
-    return h @ p.wd.to(dt)
+    y = h @ p.wd.to(dt)
+    return row_parallel_sum(y) if split else y
 
 
 # ---------------------------------------------------------------- MoE
@@ -399,12 +514,34 @@ def moe_experts(p: MoE, x, cfg: ModelConfig, route: dict):
     return y.to(dt).reshape(b, s, d)
 
 
-def apply_moe(p: MoE, x, cfg: ModelConfig):
-    """Top-k routed experts on one device (the reference's
-    `_apply_moe_local`; its `shard_map` dispatch has no counterpart on one
-    card). Returns (y, aux)."""
+def _moe_local(p: MoE, x, cfg: ModelConfig):
     route = moe_route(p, x, cfg)
     return moe_experts(p, x, cfg, route), route["aux"]
+
+
+def apply_moe(p: MoE, x, cfg: ModelConfig):
+    """Top-k routed experts (the reference's `apply_moe`). Returns (y,
+    aux). Without a mesh of ranks, the reference's `_apply_moe_local` on
+    the whole x. On one, the reference's `shard_map` dispatch: this rank's
+    data shard of the tokens routed and filled to capacity alone
+    (`moe_route`, `moe_experts`), with the expert weights whole (the train
+    step's compute copy holds them so), and the aux loss averaged over the
+    data axis; the model ranks of a data shard compute the same. The
+    reference's exception: a one-token step whose experts divide over the
+    model axis takes the global path, every data shard's tokens routed
+    together."""
+    mesh = S.current_mesh()
+    if S.live(mesh):
+        tp = mesh.shape.get("model", 1)
+        n_dp = S.logical_size("dp", mesh)
+        if x.shape[1] == 1 and cfg.n_experts % tp == 0:
+            xg = S.constrain(x, None, None, None, src=("dp", None, None))
+            y, aux = _moe_local(p, xg, cfg)
+            return S.constrain(y, "dp", None, None,
+                               src=(None, None, None)), aux
+        y, aux = _moe_local(p, x, cfg)
+        return y, S.reduce_from(aux, "dp") / n_dp
+    return _moe_local(p, x, cfg)
 
 
 # ---------------------------------------------------------------- Mamba2

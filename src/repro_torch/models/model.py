@@ -43,6 +43,19 @@ every block of a full-sequence pass and every loss chunk is recomputed in
 the backward (`torch.utils.checkpoint`, the reference's per-block
 `jax.checkpoint`), so a block's activations and one chunk's float32
 logits live at a time.
+
+On a mesh of ranks (`parallel.sharding.live`) the dense and moe families
+run sharded as the reference places them (the other four raise,
+`check_mesh`): each rank holds its data shard's rows and its pieces of the
+weights, the layers split over "model" (`models.layers`), the embedding
+and the logits over the vocabulary where it divides (a lookup in this
+rank's rows summed over "model"; the cross-entropy from this rank's piece
+of the logits, its max, sum of exponentials and target logit reduced over
+"model", `_vocab_parallel_nll`; `forward` gathers the pieces), and the
+loss's mean taken over every data shard's positions (`reduce_from` over "dp": each rank's gradients are
+its share of the global loss's). `init(generator, sink=...)` draws the
+parameters a block at a time for the train step to keep only its pieces;
+`compute_views` says which of them the compute copy regroups or gathers.
 """
 from __future__ import annotations
 
@@ -55,9 +68,47 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.parallel import collectives as C
+from repro_torch.parallel import sharding as S
 
 _FAMILIES = ("dense", "moe", "audio", "vlm", "hybrid", "ssm")
 _ATTENTION_STACKS = ("dense", "moe", "audio", "vlm")
+# the families that run on a mesh of ranks; the others raise there
+MESH_FAMILIES = ("dense", "moe")
+
+
+def check_mesh(cfg: ModelConfig, mesh=None) -> None:
+    """Raise NotImplementedError, naming the family, where `cfg`'s family
+    is to run on a mesh of several ranks and is not ported there."""
+    mesh = mesh or S.current_mesh()
+    if S.live(mesh) and cfg.family not in MESH_FAMILIES:
+        raise NotImplementedError(
+            f"the {cfg.family} family ({cfg.name}) on a mesh of "
+            f"{mesh.size} ranks is not ported: only "
+            f"{' and '.join(MESH_FAMILIES)} run sharded")
+
+
+def compute_views(cfg: ModelConfig, shapes: dict, mesh) -> dict:
+    """{parameter name: view} of the parameters whose compute copy on a
+    mesh of ranks is not the TP-only piece of `compute_param_specs`:
+    ("columns", index) for attention's `wqkv` and `bqkv`, whose pieces by
+    columns do not follow the heads (the rank's q, k and v heads' columns,
+    `layers.qkv_columns`, gathered over "model"), and ("whole", dim) for
+    the experts' `w_in` and `w_out`, which the MoE block uses whole (the
+    reference's `shard_map` takes them replicated). Empty off a mesh of
+    ranks or with a model axis of one."""
+    tp = mesh.shape.get("model", 1) if S.live(mesh) else 1
+    if tp == 1:
+        return {}
+    cols = L.qkv_columns(cfg, tp, mesh.coords["model"])
+    out = {}
+    for name in shapes:
+        leaf = name.split(".")[-1]
+        if leaf in ("wqkv", "bqkv"):
+            out[name] = ("columns", cols)
+        elif leaf in ("w_in", "w_out"):
+            out[name] = ("whole", 0)
+    return out
 
 
 class DenseBlock(nn.Module):
@@ -203,27 +254,58 @@ class Model(nn.Module):
         return self.embed.device
 
     # ---------------- init ----------------
-    @torch.no_grad()
-    def init(self, generator: torch.Generator) -> "Model":
-        """Fill every parameter from `generator` with the reference's
-        initial distributions (embeddings and heads N(0, 0.02^2), dense
-        weights N(0, 1/fan_in), the MoE router N(0, 0.02^2), norms 0,
-        Mamba2's A_log / Dskip / dt_bias fixed; the mLSTM gates and sLSTM
-        gate weights N(0, 0.02^2))."""
+    def _blocks(self) -> list:
+        """(name prefix, block) in the order `init` draws them."""
         cfg = self.cfg
+        if cfg.family in _ATTENTION_STACKS:
+            return [(f"layers.{i}", b) for i, b in enumerate(self.layers)]
+        if cfg.family == "ssm":
+            return ([(f"mlstm.{i}", b) for i, b in enumerate(self.mlstm)]
+                    + [(f"slstm.{i}", b) for i, b in enumerate(self.slstm)])
+        return ([(f"mamba.{i}", b) for i, b in enumerate(self.mamba)]
+                + [("shared", self.shared)])
+
+    @torch.no_grad()
+    def _init_top(self, generator: torch.Generator) -> None:
         for head in (self.embed, self.lm_head, self.heads):
             if head is not None:
                 L.normal_(head, generator, 0.02)
         if self.patch_proj is not None:
             L.dense_init(self.patch_proj, generator)
-        if cfg.family in _ATTENTION_STACKS:
-            blocks = self.layers
-        elif cfg.family == "ssm":
-            blocks = [*self.mlstm, *self.slstm]
-        else:
-            blocks = [*self.mamba, self.shared]
-        for blk in blocks:
-            blk.init(cfg, generator)
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator, sink=None) -> "Model":
+        """Fill every parameter from `generator` with the reference's
+        initial distributions (embeddings and heads N(0, 0.02^2), dense
+        weights N(0, 1/fan_in), the MoE router N(0, 0.02^2), norms 0,
+        Mamba2's A_log / Dskip / dt_bias fixed; the mLSTM gates and sLSTM
+        gate weights N(0, 0.02^2)).
+
+        With `sink`, a function of (name, tensor), the model itself is left
+        as it is (it may be on the meta device): the parameters are made
+        whole on the generator's device, the top-level ones first, then a
+        block at a time, each handed to `sink` and dropped. The values are
+        those `init` would fill in, drawn in the same order."""
+        cfg = self.cfg
+        if sink is None:
+            self._init_top(generator)
+            for _, blk in self._blocks():
+                blk.init(cfg, generator)
+            return self
+        dev = generator.device
+        top = Model(cfg.with_(n_layers=0), device=dev)
+        top._init_top(generator)
+        for name, p in top.named_parameters():
+            if "." not in name:
+                sink(name, p)
+        del top
+        for prefix, blk in self._blocks():
+            fresh = (DenseBlock(cfg, dev, moe=hasattr(blk, "moe"))
+                     if isinstance(blk, DenseBlock) else type(blk)(cfg, dev))
+            fresh.init(cfg, generator)
+            for name, p in fresh.named_parameters():
+                sink(f"{prefix}.{name}", p)
+            del fresh
         return self
 
     # ---------------- embedding / head ----------------
@@ -236,21 +318,37 @@ class Model(nn.Module):
             for k in range(1, cfg.n_codebooks):
                 x = x + self.embed[k][tok[:, k]]
             x = x.to(dt)
+        elif self.embed.shape[0] != cfg.vocab_size:   # rows over "model"
+            x = _vocab_parallel_lookup(self.embed, tok).to(dt)
         else:
-            x = self.embed[tok].to(dt)
+            x = L.embedding_rows(self.embed, tok).to(dt)
         if self.patch_proj is not None and "patch_embeds" in batch:
             pe = batch["patch_embeds"].to(dt) @ self.patch_proj.to(dt)
             x = torch.cat([pe, x], dim=1)
         return x
 
-    def _head(self, x):
+    def _head_piece(self, x):
+        """(logits in cfg.dtype, split): the whole logits, or on a mesh of
+        ranks where the vocabulary is split over "model" this rank's piece
+        of them (split True)."""
         cfg = self.cfg
         dt = L._dtype(cfg)
         x = L.rmsnorm(x, self.ln_f, cfg.norm_eps)
         if self.heads is not None:                 # (B, S, K, V)
-            return torch.einsum("bsd,kdv->bskv", x, self.heads.to(dt)).float()
+            return torch.einsum("bsd,kdv->bskv", x, self.heads.to(dt)), False
         w = self.embed.T if self.lm_head is None else self.lm_head
-        return (x @ w.to(dt)).float()
+        if w.shape[-1] != cfg.vocab_size:     # this rank's vocabulary piece
+            return S.copy_to(x, "tp") @ w.to(dt), True
+        return x @ w.to(dt), False
+
+    def _head(self, x):
+        """float32 logits over the whole vocabulary (a split one's pieces
+        gathered over "model")."""
+        logits, split = self._head_piece(x)
+        if split:
+            logits = S.constrain(logits, "dp", None, None,
+                                 src=("dp", None, "tp"))
+        return logits.float()
 
     # ---------------- stack application ----------------
     def _run_stack(self, x, *, positions, mode, caches, want_cache):
@@ -316,6 +414,7 @@ class Model(nn.Module):
         "patch_embeds" (B, n_patches, d)). Returns fp32 logits (B, S, V)
         (audio (B, S, K, V); vlm over the patches and the tokens), and with
         `with_aux` also the summed load-balancing loss: (logits, aux)."""
+        check_mesh(self.cfg)
         x = self._embed(batch)
         positions = torch.arange(x.shape[1], device=x.device)
         x, _, aux = self._run_stack(x, positions=positions, mode="full",
@@ -331,6 +430,7 @@ class Model(nn.Module):
         positions at a time unless it is 0 or the family is audio (the
         reference's `loss` and `_loss_chunked`)."""
         cfg = self.cfg
+        check_mesh(cfg)
         if cfg.loss_chunk and cfg.family != "audio":
             return self._loss_chunked(batch)
         logits, aux = self.forward(batch, with_aux=True)
@@ -345,12 +445,17 @@ class Model(nn.Module):
             nll = _nll(logits, targets)
             mask = batch.get("loss_mask")
             mask = torch.ones_like(nll) if mask is None else mask.float()
-        ce = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+        ce = _mean_over_shards((nll * mask).sum(), mask)
         return ce + aux, {"ce": ce, "aux": aux}
 
     def _loss_chunk_nll(self, x, targets, mask):
-        """Masked nll summed over one chunk of positions."""
-        return (_nll(self._head(x), targets) * mask).sum()
+        """Masked nll summed over one chunk of positions (with the
+        vocabulary split over "model", from this rank's piece of the
+        logits: `_vocab_parallel_nll`)."""
+        logits, split = self._head_piece(x)
+        nll = (_vocab_parallel_nll(logits.float(), targets) if split
+               else _nll(logits.float(), targets))
+        return (nll * mask).sum()
 
     def _loss_chunked(self, batch: dict):
         """`loss` over sequence chunks of `cfg.loss_chunk` positions: each
@@ -374,10 +479,11 @@ class Model(nn.Module):
             nll_sum = nll_sum + _call(
                 remat, self._loss_chunk_nll, x[:, i:i + c],
                 targets[:, i:i + c], mask[:, i:i + c])
-        ce = nll_sum / torch.clamp(mask.sum(), min=1.0)
+        ce = _mean_over_shards(nll_sum, mask)
         return ce + aux, {"ce": ce, "aux": aux}
 
     def init_cache(self, batch: int, cache_len: int) -> dict:
+        _no_serving_on_a_mesh()
         cfg, dev = self.cfg, self.device
         if cfg.family in _ATTENTION_STACKS:
             return {"attn": [L.attention_cache_spec(cfg, batch, cache_len, 0,
@@ -403,6 +509,7 @@ class Model(nn.Module):
         slots (kpos = -1) so subsequent decode steps have room to append
         (the ssm family's recurrent states need no room). A vlm prefill
         with patches fills n_patches + S positions."""
+        _no_serving_on_a_mesh()
         x = self._embed(batch)
         positions = torch.arange(x.shape[1], device=x.device)
         x, caches, _ = self._run_stack(x, positions=positions, mode="full",
@@ -418,10 +525,62 @@ class Model(nn.Module):
         """tokens: (B, 1) (audio (B, K, 1)); pos: number of positions
         already processed. Returns (logits_for_new_token, cache); the cache
         is updated in place."""
+        _no_serving_on_a_mesh()
         x = self._embed({"tokens": tokens})
         x, cache, _ = self._run_stack(x, positions=pos, mode="decode",
                                       caches=cache, want_cache=False)
         return self._head(x), cache
+
+
+def _no_serving_on_a_mesh() -> None:
+    if S.live(S.current_mesh()):
+        raise NotImplementedError("serving on a mesh of ranks is not "
+                                  "ported: the caches are whole")
+
+
+def _vocab_parallel_lookup(w, tok):
+    """The embedding rows of `tok` where this rank holds rows
+    [m V / tp, (m + 1) V / tp) of the table `w` (its piece over "model"):
+    its own rows looked up, zeros for the others, summed over "model" (in
+    float32: one nonzero term, so the row exactly)."""
+    rows = w.shape[0]
+    local = tok.long() - L.tp_rank()[1] * rows
+    inside = (local >= 0) & (local < rows)
+    x = torch.where(inside[..., None],
+                    L.embedding_rows(w, local.clamp(0, rows - 1)), 0.0)
+    return S.reduce_from(x, "tp")
+
+
+def _vocab_parallel_nll(logits, targets):
+    """-log softmax(logits)[target] where `logits` (float32) is this rank's
+    piece [m V / tp, (m + 1) V / tp) of the vocabulary: the max over the
+    vocabulary (a shift, out of the gradient), the sum of exponentials and
+    the target's logit each reduced over "model" (fixed order), so no
+    rank holds the whole logits; log(sum) - (logit - max) as `_nll`
+    computes it."""
+    mesh, axes = S.mesh_axes("tp")
+    rows = logits.shape[-1]
+    m = C.all_reduce_max(logits.detach().amax(-1), mesh, axes)
+    z = logits - m[..., None]
+    sumexp = S.reduce_from(torch.exp(z).sum(-1), "tp")
+    local = targets.long() - L.tp_rank()[1] * rows
+    inside = (local >= 0) & (local < rows)
+    zt = z.gather(-1, local.clamp(0, rows - 1)[..., None])[..., 0]
+    zt = S.reduce_from(torch.where(inside, zt, 0.0), "tp")
+    return torch.log(sumexp) - zt
+
+
+def _mean_over_shards(nll_sum, mask):
+    """nll_sum / the positions' weight, over every data shard's positions
+    on a mesh of ranks: this rank's share summed over "dp" (identity in
+    the backward, so each rank's gradients are its share's)."""
+    den = mask.sum()
+    mesh = S.current_mesh()
+    if S.live(mesh) and S.logical_size("dp", mesh) > 1:
+        mesh, axes = S.mesh_axes("dp", mesh)
+        den = C.all_reduce(den.detach(), mesh, axes)
+        return S.reduce_from(nll_sum / torch.clamp(den, min=1.0), "dp")
+    return nll_sum / torch.clamp(den, min=1.0)
 
 
 def _pad_attention_caches(caches, cache_len: int, window: int):

@@ -1,18 +1,26 @@
 """Sharding and mesh utilities (the reference's `parallel/`): the logical-
-axis rules, partition specs of the parameters, and a mesh stand-in. This
-round runs on one card, where every spec divides by one; the specs size
-the dry-run's cells and say how a multi-card run would shard."""
-from repro_torch.parallel.sharding import (Mesh, RULES_MULTI_POD,
+axis rules, partition specs of the parameters, a mesh stand-in, and on a
+mesh of ranks the local pieces, re-layouts and the compute copy
+(`sharding`) over the fixed-order collectives (`collectives`)."""
+from repro_torch.parallel.sharding import (Mesh,
+                                           RULES_MULTI_POD,
                                            RULES_PREFILL_MULTI,
                                            RULES_PREFILL_SINGLE,
                                            RULES_PURE_DP_MULTI,
                                            RULES_PURE_DP_SINGLE,
                                            RULES_SINGLE_POD, Spec,
+                                           cast_and_reshard_compute_params,
                                            compute_param_specs, constrain,
-                                           current_mesh, even_spec,
+                                           copy_to, current_mesh, even_spec,
+                                           gather_params, gather_whole,
+                                           live, local_slice,
                                            logical_to_spec,
+                                           named_sharding_tree,
                                            param_logical_axes,
-                                           param_pspec_tree, rules_for_mesh,
-                                           shard_count, use_mesh)
+                                           param_pspec_tree,
+                                           reduce_from,
+                                           reduce_grads_to_masters,
+                                           rules_for_mesh, shard_count,
+                                           use_mesh)
 
 __all__ = [s for s in dir() if not s.startswith("_")]

@@ -12,6 +12,13 @@ The port's training state is updated in place, so `save` copies every leaf
 to host memory before it returns, also when `async_` (the writer thread
 then only writes files), and `restore` copies the stored values into the
 template's own tensors (the masters stay the model's parameters).
+
+A `TrainState` on a mesh of ranks holds pieces: `save` gathers every
+piece whole (every rank takes part) and rank 0 writes the same files as a
+one-device run, as the reference gathers sharded arrays to the host;
+`restore` reads the whole arrays on every rank and copies in this rank's
+pieces by the state's specs. So a sharded run's checkpoint restores on one
+device, and a one-device checkpoint restores sharded.
 """
 from __future__ import annotations
 
@@ -23,6 +30,8 @@ import threading
 import numpy as np
 import torch
 
+from repro_torch.parallel import collectives as C
+from repro_torch.parallel import sharding as S
 from repro_torch.train.train_step import TrainState
 
 
@@ -67,9 +76,40 @@ def _structure(tree) -> str:
     return f"{type(tree).__name__}({inner})"
 
 
+def _sharded(tree) -> bool:
+    return isinstance(tree, TrainState) and S.live(tree.mesh)
+
+
+def _specs(state: TrainState) -> dict:
+    with S.use_mesh(state.mesh):
+        return S.param_pspec_tree(state.shapes)
+
+
+def _whole(state: TrainState) -> TrainState:
+    """The state with every piece gathered whole (a collective)."""
+    mesh, shapes = state.mesh, state.shapes
+    opt = {k: (S.gather_params(v, shapes, mesh) if isinstance(v, dict)
+               else v) for k, v in state.opt.items()}
+    return TrainState(S.gather_params(state.params, shapes, mesh), opt,
+                      state.step)
+
+
+def barrier(tree) -> None:
+    """Wait for every rank of a sharded state's mesh (nothing otherwise)."""
+    if _sharded(tree):
+        C.barrier(tree.mesh)
+
+
 def save(directory: str, step: int, tree, keep: int = 3,
          async_: bool = False) -> threading.Thread | None:
-    """Write checkpoint for `step`. Returns the writer thread if async."""
+    """Write checkpoint for `step`. Returns the writer thread if async. A
+    sharded state is gathered whole first (every rank calls this); rank 0
+    writes, the others return None."""
+    if _sharded(tree):
+        whole = _whole(tree)
+        if tree.mesh.rank != tree.mesh.ranks[0]:
+            return None
+        tree = whole
     flat = _flatten(tree)               # host copies, before any later step
     structure = _structure(tree)
 
@@ -112,11 +152,13 @@ def latest_step(directory: str) -> int | None:
     return max(steps) if steps else None
 
 
-def _rebuild(node, data, path=()):
+def _rebuild(node, data, path=(), cut=None):
     kids = _children(node)
     if kids is None:
         key = "/".join(str(p) for p in path)
         arr = data[key]
+        if cut is not None and isinstance(node, torch.Tensor):
+            arr = cut(path, arr)
         if isinstance(node, torch.Tensor):
             if tuple(arr.shape) != tuple(node.shape):
                 raise ValueError(f"{key}: stored {arr.shape}, template "
@@ -125,9 +167,9 @@ def _rebuild(node, data, path=()):
                 node.copy_(torch.from_numpy(arr))
             return node
         return type(node)(arr.item())
-    out = {k: _rebuild(c, data, path + (k,)) for k, c in kids}
+    out = {k: _rebuild(c, data, path + (k,), cut) for k, c in kids}
     if isinstance(node, TrainState):
-        return TrainState(out[0], out[1], out[2])
+        return TrainState(out[0], out[1], out[2], node.mesh, node.shapes)
     if isinstance(node, dict):
         return {k: out[k] for k in node}
     return type(node)(out[i] for i in range(len(node)))
@@ -135,11 +177,22 @@ def _rebuild(node, data, path=()):
 
 def restore(directory: str, template, step: int | None = None):
     """Restore into the structure of `template` (shapes must match):
-    tensors are filled in place, other leaves made anew. Returns (tree,
-    step)."""
+    tensors are filled in place, other leaves made anew. A sharded
+    `TrainState` template takes this rank's pieces of the stored whole
+    arrays. Returns (tree, step)."""
     step = step if step is not None else latest_step(directory)
     if step is None:
         raise FileNotFoundError(f"no checkpoints under {directory}")
     path = os.path.join(directory, f"step_{step:08d}")
+    cut = None
+    if _sharded(template):
+        specs, mesh = _specs(template), template.mesh
+
+        def cut(at, arr):       # "0/<param>", "1/m/<param>", "1/v/<param>"
+            name = at[-1]
+            if at[0] in (0, 1) and name in specs:
+                return S.local_slice(torch.from_numpy(arr), specs[name],
+                                     mesh).numpy()
+            return arr
     with np.load(os.path.join(path, "arrays.npz")) as data:
-        return _rebuild(template, data), step
+        return _rebuild(template, data, cut=cut), step

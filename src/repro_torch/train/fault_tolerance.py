@@ -9,10 +9,11 @@ straggler mitigation (the reference's `train/fault_tolerance.py`).
    from a checkpoint; with none it is raised.
 
 2. **Elastic scaling** — `ElasticMeshManager` rebuilds the mesh when the
-   healthy-device set changes (an injectable device-list provider; the CUDA
-   cards by default) and re-shards live state onto it. The port runs on one
-   card: on a mesh of one device re-sharding moves each tensor there, and
-   on a larger mesh it raises.
+   healthy set changes (an injectable provider: the live ranks of the
+   world by default, or devices, the CUDA cards outside a world) and
+   re-shards state onto it: on a mesh of ranks (a new process group over
+   the survivors) each rank takes its pieces; on a mesh of one device each
+   tensor is moved there.
 
 3. **Straggler mitigation** — per-pool observed step-rates feed an EWMA into
    the paper's scheduler (repro_torch.sched): a slow pool's mu column drops,
@@ -27,6 +28,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch.parallel import collectives as C
+from repro_torch.parallel import sharding as S
 from repro_torch.parallel.sharding import Mesh
 
 log = logging.getLogger("repro_torch.ft")
@@ -80,6 +83,7 @@ def run_with_recovery(step_fn: Callable, state, data_iter,
             if pending is not None:
                 pending.join()
                 pending = None
+            ckpt.barrier(state)     # rank 0's files are written for all
             if restarts > max_restarts:
                 raise
             latest = ckpt.latest_step(ckpt_dir)
@@ -98,36 +102,84 @@ def cuda_devices() -> list:
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
+def live_units() -> list:
+    """The default provider: the ranks of the world when this process is
+    one of a world (`parallel.collectives.init_world`), else the CUDA
+    cards."""
+    world = C.world()
+    if world["rank"] is not None:
+        return list(range(world["size"]))
+    return cuda_devices()
+
+
 @dataclasses.dataclass
 class ElasticMeshManager:
-    """Rebuild the mesh and re-shard state when the device set changes."""
+    """Rebuild the mesh and re-shard state when the healthy set changes."""
 
     axis_names: tuple
-    device_provider: Callable = cuda_devices   # injectable for failure tests
+    device_provider: Callable = live_units   # injectable for failure tests
 
     def current_mesh(self) -> Mesh:
-        devs = tuple(self.device_provider())
-        n = len(devs)
+        """The mesh over what the provider returns, factored as the
+        reference factors it (model as large as 16, 8, 4, 2 or 1 divides):
+        over ranks (ints) a mesh of ranks with its process groups, made by
+        those ranks only; over devices a mesh of devices."""
+        from repro_torch.launch.mesh import mesh_over_ranks
+        units = tuple(self.device_provider())
+        n = len(units)
         # factor n into (data, model): keep model as square as possible
         model = next(m for m in (16, 8, 4, 2, 1) if n % m == 0)
-        return Mesh(tuple(self.axis_names[-2:]), (n // model, model), devs)
+        names, sizes = tuple(self.axis_names[-2:]), (n // model, model)
+        if units and all(isinstance(u, int) for u in units):
+            return mesh_over_ranks(units, names, sizes)
+        return Mesh(names, sizes, units)
 
-    def reshard(self, tree, spec_tree, mesh: Mesh):
-        """`tree` (dicts and lists of tensors) on `mesh`: on one device each
-        tensor moved to it; sharding over several is not ported."""
-        if mesh.size != 1 or len(mesh.devices) != 1:
-            raise NotImplementedError(
-                f"reshard onto a mesh of {mesh.size} devices "
-                f"({len(mesh.devices)} attached): the port runs on one card")
-        dev = torch.device(mesh.devices[0])
+    def reshard(self, tree, spec_tree, mesh: Mesh, *, src=None):
+        """`tree` (dicts and lists of tensors and numbers) placed on `mesh`
+        by `spec_tree` (a matching tree of `Spec`s). Its tensors are whole
+        on this rank (restored from a checkpoint, say), or with `src` (a
+        (mesh, spec tree) pair) this rank's pieces on the mesh `src`, each
+        gathered whole over it first (every rank of `src` takes part: a
+        planned shrink, where the leaving ranks still answer). On a mesh of
+        ranks each rank keeps its pieces (None on a rank outside it); on a
+        mesh of one device each tensor is moved there. A mesh of several
+        devices and no ranks holds no state: it raises."""
+        if src is not None:
+            tree = _gather_tree(tree, src[1], src[0])
+        if mesh.ranks and mesh.rank is None:
+            return None                 # not one of the mesh's ranks
+        if S.live(mesh):
+            return _map(tree, spec_tree,
+                        lambda x, s: S.local_slice(x, s, mesh).clone())
+        if mesh.size != 1:
+            raise ValueError(f"reshard onto {mesh.shape} with no ranks: a "
+                             f"mesh of devices and no processes holds no "
+                             f"state")
+        if mesh.rank is not None:       # a mesh of one rank: its device
+            dev = C.world()["device"]
+        elif len(mesh.devices) == 1:
+            dev = torch.device(mesh.devices[0])
+        else:
+            raise ValueError(f"reshard onto a mesh of one with "
+                             f"{len(mesh.devices)} devices attached")
+        return _map(tree, spec_tree, lambda x, s: x.to(dev))
 
-        def move(node, spec):
-            if isinstance(node, dict):
-                return {k: move(v, spec[k]) for k, v in node.items()}
-            if isinstance(node, (list, tuple)):
-                return type(node)(move(v, s) for v, s in zip(node, spec))
-            return node.to(dev) if isinstance(node, torch.Tensor) else node
-        return move(tree, spec_tree)
+
+def _map(node, spec, fn):
+    """fn(tensor, spec) over a tree of dicts, lists and tuples."""
+    if isinstance(node, dict):
+        return {k: _map(v, spec[k], fn) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_map(v, s, fn) for v, s in zip(node, spec))
+    return fn(node, spec) if isinstance(node, torch.Tensor) else node
+
+
+def _gather_tree(tree, spec_tree, mesh):
+    """Every piece of `tree` (laid out by `spec_tree` on the mesh of ranks
+    `mesh`) gathered whole; a rank outside `mesh` gets the tree back."""
+    if not S.live(mesh):
+        return tree
+    return _map(tree, spec_tree, lambda x, s: S.gather_whole(x, s, mesh))
 
 
 class StragglerTracker:

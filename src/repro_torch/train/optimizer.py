@@ -74,21 +74,25 @@ def dequantize_int8(q, scale):
 
 
 def apply_updates(params: dict, grads: dict, state: dict,
-                  cfg: OptimizerConfig) -> dict:
+                  cfg: OptimizerConfig, reduce_sq=None) -> dict:
     """One AdamW step on `params` (a dict of float tensors, updated in
     place) with `grads` (same keys, any float dtype; read, not kept) and
     `state` (from `init_opt_state`, updated in place). Returns the metrics
-    {"grad_norm", "lr"} as Python floats. A fault inside it is raised as
+    {"grad_norm", "lr"} as Python floats. `reduce_sq`, if given, makes the
+    global norm's square from the leaves' sums of squares ({name: 0-dim
+    float32}; on a mesh of ranks, where the leaves are pieces, it sums
+    over the mesh: `train.train_step.grad_sq_over_mesh`); by default they
+    are added in order. A fault inside it is raised as
     `PartialUpdateError`: some leaves may be updated and others not."""
     try:
-        return _apply_updates(params, grads, state, cfg)
+        return _apply_updates(params, grads, state, cfg, reduce_sq)
     except Exception as e:
         raise PartialUpdateError(
             f"the optimizer update failed part way: {e!r}") from e
 
 
 @torch.no_grad()
-def _apply_updates(params, grads, state, cfg):
+def _apply_updates(params, grads, state, cfg, reduce_sq=None):
     step = state["step"] + 1
     gf = {}
     for n, g in grads.items():
@@ -101,10 +105,13 @@ def _apply_updates(params, grads, state, cfg):
             g = dequantize_int8(q, s)
             torch.sub(tot, g, out=e)
         gf[n] = g
-    sq = torch.zeros((), dtype=torch.float32,
-                     device=next(iter(gf.values())).device)
-    for g in gf.values():
-        sq = sq + torch.sum(torch.square(g))
+    if reduce_sq is None:
+        sq = torch.zeros((), dtype=torch.float32,
+                         device=next(iter(gf.values())).device)
+        for g in gf.values():
+            sq = sq + torch.sum(torch.square(g))
+    else:
+        sq = reduce_sq({n: torch.sum(torch.square(g)) for n, g in gf.items()})
     gnorm = float(torch.sqrt(sq))
     f = np.float32
     scale = (min(f(1.0), f(cfg.grad_clip) / max(f(gnorm), f(1e-12)))

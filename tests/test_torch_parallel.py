@@ -141,7 +141,10 @@ def test_even_spec_drops_nondividing_axes():
 def test_logical_axes_and_constrain():
     """`param_logical_axes` against the reference's on stacked and unstacked
     ranks, `logical_to_spec` under each rule table, and `constrain`: x as
-    it is without a mesh and on one device, an error on several."""
+    it is without a mesh, on one device, on a mesh of devices with no
+    ranks (the dry-run's, which only sizes) and where x is laid out as
+    asked already; on a mesh of ranks a re-layout from `src`, here the
+    rows of this rank's data shard (a slice: no collective)."""
     for name in ("embed", "lm_head", "heads", "router", "w_in", "w_out",
                  "wqkv", "wo", "conv_w", "A_log", "ln_inner", "ln1"):
         for ndim in (1, 2, 3, 4):
@@ -154,14 +157,22 @@ def test_logical_axes_and_constrain():
             with PSH.use_mesh(None, getattr(PSH, rules)):
                 assert tuple(PSH.logical_to_spec(
                     ("dp", None, "tp", "fsdp", "sp"))) == tuple(ref)
-    x = torch.ones(3)
+    x = torch.arange(8.0)
     assert PSH.constrain(x, "dp") is x
     with PSH.use_mesh(PM.make_debug_mesh(1)):
         assert PSH.current_mesh().size == 1
         assert PSH.constrain(x, "dp") is x
+        assert PSH.constrain(x, "dp", src=(None,)) is x
     with PSH.use_mesh(PM.make_debug_mesh(4)):
-        with pytest.raises(NotImplementedError, match="one card"):
-            PSH.constrain(x, "dp")
+        assert PSH.current_mesh().ranks == ()
+        assert PSH.constrain(x, "dp", src=(None,)) is x
+    ranks = PSH.Mesh(("data", "model"), (2, 2), ranks=(0, 1, 2, 3), rank=3)
+    with PSH.use_mesh(ranks):
+        assert PSH.live(PSH.current_mesh())
+        assert PSH.constrain(x, "dp") is x
+        assert torch.equal(PSH.constrain(x, "dp", src=(None,)), x[4:])
+        assert torch.equal(PSH.constrain(x, "tp", src=(None,)), x[4:])
+        assert PSH.constrain(x, None, src=(None,)) is x
     assert PSH.current_mesh() is None
 
 
@@ -277,18 +288,29 @@ def test_elastic_mesh_factorisation_matches_reference(monkeypatch, n):
 
 
 def test_elastic_reshard_on_one_device():
+    """On a mesh of one device each tensor is moved there; on a mesh of
+    ranks (here, this process as rank 1 of a (2, 1) mesh) each rank keeps
+    its pieces of the whole tensors; a process outside a mesh of ranks
+    gets None; a mesh of devices with no ranks holds no state."""
     mgr = PFT.ElasticMeshManager(("data", "model"),
                                  device_provider=lambda: ["cpu"])
     mesh = mgr.current_mesh()
-    tree = {"w": torch.ones(4, 2), "opt": {"m": [torch.zeros(3)]}, "step": 7}
+    tree = {"w": torch.arange(8.0).reshape(4, 2),
+            "opt": {"m": [torch.zeros(3)]}, "step": 7}
     specs = {"w": PSH.Spec("data", None), "opt": {"m": [PSH.Spec(None)]},
              "step": PSH.Spec()}
     out = mgr.reshard(tree, specs, mesh)
     assert torch.equal(out["w"], tree["w"]) and out["step"] == 7
     assert out["opt"]["m"][0].device == torch.device("cpu")
+    ranks = PSH.Mesh(("data", "model"), (2, 1), ranks=(0, 1), rank=1)
+    out = mgr.reshard(tree, specs, ranks)
+    assert torch.equal(out["w"], tree["w"][2:]) and out["step"] == 7
+    assert torch.equal(out["opt"]["m"][0], tree["opt"]["m"][0])
+    outside = PSH.Mesh(("data", "model"), (2, 1), ranks=(4, 5))
+    assert mgr.reshard(tree, specs, outside) is None
     two = PFT.ElasticMeshManager(("data", "model"),
                                  device_provider=lambda: ["cpu", "cpu"])
-    with pytest.raises(NotImplementedError, match="one card"):
+    with pytest.raises(ValueError, match="no ranks"):
         two.reshard(tree, specs, two.current_mesh())
     if not torch.cuda.is_available():
         assert PFT.ElasticMeshManager(("data", "model")).device_provider() \
@@ -330,10 +352,14 @@ def test_train_step_under_a_mesh_is_bit_equal():
 def test_new_modules_and_examples_import_neither_jax_nor_the_reference():
     code = ("import sys\n"
             "import repro_torch.parallel, repro_torch.parallel.sharding\n"
+            "import repro_torch.parallel.collectives\n"
+            "import repro_torch.launch.train\n"
             "import repro_torch.launch.mesh, repro_torch.launch.shapes\n"
             "import repro_torch.launch.dryrun\n"
             "import repro_torch.train.fault_tolerance\n"
             "import runpy\n"
+            "runpy.run_path('tests/torch_sharded_ranks.py',\n"
+            "               run_name='not_main')\n"
             "for name in ('quickstart', 'schedule_cluster',\n"
             "             'serve_heterogeneous', 'train_lm'):\n"
             "    runpy.run_path(f'examples/{name}_torch.py',\n"

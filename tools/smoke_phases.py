@@ -10,7 +10,9 @@ and checks, and prints the card's name and power limit, each phase's
 output, verdict and seconds. The phases that need no shared engine or
 process pool can be named: model-kernels, serve-xlstm, serve-moe,
 serve-audio, serve-vlm, ops-rmsnorm, train, train-hybrid, train-ssm,
-train-moe, dryrun (after the train phases it reads), examples.
+train-moe, train-sharded (its ranks are processes of their own, each
+loading the kernels built here), dryrun (after the train phases it
+reads), examples.
 Details go to `chiprun_out/smoke_phases_detail.json`. Exits 1 if a phase
 fails. Imports nothing of JAX.
 """
@@ -33,7 +35,8 @@ PHASES = {"model-kernels": "phase_model_kernels",
           "serve-audio": "phase_serve_audio", "serve-vlm": "phase_serve_vlm",
           "ops-rmsnorm": "phase_ops_rmsnorm", "train": "phase_train",
           "train-hybrid": "phase_train_hybrid", "train-ssm": "phase_train_ssm",
-          "train-moe": "phase_train_moe", "dryrun": "phase_dryrun",
+          "train-moe": "phase_train_moe",
+          "train-sharded": "phase_train_sharded", "dryrun": "phase_dryrun",
           "examples": "phase_examples"}
 
 
