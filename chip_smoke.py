@@ -193,6 +193,14 @@ def device_busy(fn, cpu: bool = True, top: int = 6) -> dict:
                     for k, (us, n) in most if us > 0]}
 
 
+def profile_sees_device(dev) -> bool:
+    """Whether `device_busy` records the device time of one small kernel
+    on the card."""
+    import torch
+    x = torch.ones(1 << 20, device=dev)
+    return device_busy(lambda: x.mul_(2.0), cpu=False)["device_s"] is not None
+
+
 def host_run(job):
     """One run of the port's host event core: job = (SimConfig, policy).
     The loop, its routing and its target solves are host float64 code;
@@ -3185,24 +3193,25 @@ def print_wide_ssd(row) -> None:
           f"{ {k: round(v, 3) for k, v in row['phase_ms'].items()} }")
 
 
-def measure_fwd_train(dev, pair):
+def measure_fwd_train(dev, pair, heads=None):
     """A forward scan kernel at the shape its training path launches it:
     `ssd_scan_cuda` at one zamba2-7b microbatch (1, TRAIN_S, 112, 64, 64,
     chunk 256, Mamba2's inputs), or the pair `mlstm_scan_cuda` at one
     xlstm-1.3b microbatch (1, TRAIN_S, 4, 512, 512 + the normaliser, slow
-    decay): y and the state against the plain version (SSD_Y_TOL,
-    SSD_STATE_TOL), the kernel's and the plain version's ms, the bound."""
+    decay), or at `heads` in place of 112 or 4 (a rank's on a mesh): y and
+    the state against the plain version (SSD_Y_TOL, SSD_STATE_TOL), the
+    kernel's and the plain version's ms, the bound."""
     import torch
     from repro_torch.kernels import ssd_scan as SSD
     from repro_torch.kernels import ssd_scan_wide as SSDW
     chunk = 256
     if pair:
-        b, s, h, dk, dv = 1, TRAIN_S, XLSTM_H, XLSTM_D, XLSTM_D
+        b, s, h, dk, dv = 1, TRAIN_S, heads or XLSTM_H, XLSTM_D, XLSTM_D
         args = mlstm_scan_inputs(dev, 230, b, s, h, dk, dv, SLOW_FORGET_BIAS)
         kern, plain = SSDW.mlstm_scan_cuda, SSDW.mlstm_scan_plain
         bound, by, nbytes, ops = mlstm_bound(b, s, h, dk, dv, chunk)
     else:
-        b, s, h, dk, dv = 1, TRAIN_S, 112, 64, 64
+        b, s, h, dk, dv = 1, TRAIN_S, heads or 112, 64, 64
         args = ssd_inputs(dev, 220, b, s, h, dk)
         kern, plain = SSD.ssd_scan_cuda, SSD.ssd_scan_plain
         bound, by, nbytes, ops = ssd_bound(b, s, h, dk, dv, chunk, True)
@@ -3287,7 +3296,7 @@ def grad_errs(got, want) -> dict:
     return {n: grad_err(g, w) for n, g, w in zip(SSD_BWD_GRADS, got, want)}
 
 
-def measure_ssd_bwd(dev, pair):
+def measure_ssd_bwd(dev, pair, heads=None, biases=FORGET_BIASES):
     """A scan backward kernel at its training path's shape: Mamba2's
     (`ssd_scan_bwd_cuda`, zamba2's (1, 4096, 112, 64, 64) with q and k
     shared by the heads) or mLSTM's pair (`mlstm_scan_bwd_cuda`, xlstm's
@@ -3299,16 +3308,17 @@ def measure_ssd_bwd(dev, pair):
     reverse carry cut between chunks, which must read above the tolerance.
     Then the kernel's, each launch's (`ssd_scan_bwd.kernel_launches`; a
     name no profiled kernel matches is listed as missing) and the plain
-    version's ms and the bound. Returns the row; `ssd_bwd_faults` says
-    whether it holds."""
+    version's ms and the bound. `heads` in place of 112 or 4 (a rank's on
+    a mesh), `biases` in place of FORGET_BIASES. Returns the row;
+    `ssd_bwd_faults` says whether it holds."""
     import torch
     from repro_torch.kernels import ssd_scan_bwd as SB
-    b, s, h, dk, dv = ((1, TRAIN_S, XLSTM_H, XLSTM_D, XLSTM_D) if pair
-                       else (1, TRAIN_S, 112, 64, 64))
+    b, s, h, dk, dv = ((1, TRAIN_S, heads or XLSTM_H, XLSTM_D, XLSTM_D)
+                       if pair else (1, TRAIN_S, heads or 112, 64, 64))
     kern = SB.mlstm_scan_bwd_cuda if pair else SB.ssd_scan_bwd_cuda
     plain = SB.mlstm_scan_bwd_plain if pair else SB.ssd_scan_bwd_plain
     checks = []
-    for bias in FORGET_BIASES:
+    for bias in biases:
         x = ssd_bwd_inputs(dev, 700 + 10 * pair, b, s, h, dk, dv, bias,
                            not pair)
         for final in (False, True):
@@ -3342,10 +3352,9 @@ def measure_ssd_bwd(dev, pair):
                  warmup=2)
     top = device_busy(lambda: ssd_bwd_call(kern, x, pair, False),
                       cpu=False, top=20)["top"]
-    named = SB.kernel_launches(dk, dv, pair)
     hits = {name: [t["device_s"] * 1e3 for t in top
                    if f"ssd_bwd::bwd_{name}" in t["kernel"]]
-            for name in named}
+            for name in SB.kernel_launches(dk, dv, pair)}
     launch_ms = {name: sum(v) for name, v in hits.items() if v}
     missing = [name for name, v in hits.items() if not v]
     plain_ms = cuda_ms(lambda: ssd_bwd_call(plain, x, pair, False), iters=2,
@@ -4504,10 +4513,11 @@ def phase_serve_vlm(dev, detail, cfg=None):
                           control, "forward without the patches")
 
 
-# the serve-sched phase's completions a policy after its warmup: 30 after
-# 5 since the train-sharded phase was added (60 after 10 before: 83-94 s
-# of phase on a slow host; its X is reported, not gated)
-SERVE_SCHED_COMPLETIONS, SERVE_SCHED_WARMUP = 30, 5
+# the serve-sched phase's completions a policy after its warmup: 15 after
+# 5 since the train-sharded phase took all six families (30 after 5 since
+# it was added, 37.4 s of phase; 60 after 10 before: 83-94 s on a slow
+# host; its X is reported, not gated)
+SERVE_SCHED_COMPLETIONS, SERVE_SCHED_WARMUP = 15, 5
 
 
 def phase_serve_sched(dev, state, detail):
@@ -4761,11 +4771,11 @@ def group_rel_errs(got: dict, want: dict) -> dict:
     return out
 
 
-def train_launches(cfg) -> dict:
-    """The model kernels' launches in one train step of TRAIN_MICRO
+def train_launches(cfg, micro: int = TRAIN_MICRO) -> dict:
+    """The model kernels' launches in one train step of `micro`
     microbatches: a block's forward kernel twice a microbatch (the forward
     and its recompute in the backward), its backward kernel once."""
-    m = TRAIN_MICRO
+    m = micro
     if cfg.family == "hybrid":
         att = cfg.n_layers // cfg.attn_every
         return {"ssd_scan": 2 * cfg.n_layers * m,
@@ -5326,19 +5336,55 @@ def phase_train_ssm(dev, detail, smoke=False):
 
 # the train-sharded phase: SHARDED_RANKS processes on the one card as a
 # (data 2, model 2) mesh over gloo (NCCL refuses two ranks on one device),
-# CUDA tensors staged through pinned host buffers; qwen2.5-3b and
-# granite-moe-3b-a800m at full width cut to SHARDED_LAYERS blocks (of 36
-# and 32); one step of SHARDED_B x SHARDED_S tokens in SHARDED_MICRO
+# CUDA tensors staged through pinned host buffers; the six families at
+# full width cut to SHARDED_LAYERS blocks (qwen2.5-3b 4 of 36,
+# granite-moe-3b-a800m 4 of 32, musicgen-medium 4 of 48, phi-3-vision-4.2b
+# 4 of 32, zamba2-7b 7 of 81: one group of 6 Mamba2 blocks, the shared
+# block once, one trailing block; xlstm-1.3b 8 of 48: one group of 7 mLSTM
+# and 1 sLSTM); one step of SHARDED_B x SHARDED_S tokens in SHARDED_MICRO
 # microbatches, held to the same step on one rank
-SHARDED_RANKS, SHARDED_LAYERS = 4, 4
-SHARDED_ARCHS = (TRAIN_ARCH, MOE_ARCH)
+SHARDED_RANKS = 4
+SHARDED_ARCHS = (TRAIN_ARCH, MOE_ARCH, AUDIO_ARCH, VLM_ARCH, SERVE_ARCH,
+                 XLSTM_ARCH)
+SHARDED_LAYERS = {TRAIN_ARCH: 4, MOE_ARCH: 4, AUDIO_ARCH: 4, VLM_ARCH: 4,
+                  SERVE_ARCH: 7, XLSTM_ARCH: 8}
 SHARDED_B, SHARDED_S, SHARDED_MICRO = 4, 4096, 2
 # the first loss against the one-rank run's: bf16 partial sums meet in
 # another order across ranks
 SHARDED_LOSS_REL = 5e-3
-SHARDED_TIMEOUT_S = 240
-# each rank's flash (q heads, kv heads) at model 2
-SHARDED_HEADS = {TRAIN_ARCH: (8, 1), MOE_ARCH: (12, 4)}
+SHARDED_TIMEOUT_S = 480
+# each rank's heads at model 2, by kernel: flash (q heads, kv heads), the
+# SSD scan's and mLSTM's pair's heads
+SHARDED_HEADS = {TRAIN_ARCH: {"flash": (8, 1)},
+                 MOE_ARCH: {"flash": (12, 4)},
+                 AUDIO_ARCH: {"flash": (12, 12)},
+                 VLM_ARCH: {"flash": (16, 16)},
+                 SERVE_ARCH: {"flash": (16, 16), "ssd": (56,)},
+                 XLSTM_ARCH: {"pair": (2,)}}
+# the families whose gradient check runs at float32 (the sharded step
+# and its control again, and the one-rank step, at float32; attention
+# plain on both sides, the flash kernels taking bf16 only): their bf16
+# rounding alone reaches GRAD_REL_TOL. One rank's bf16 gradients lie 4.8e-2
+# (zamba2-7b at 7 blocks, mamba.0.ln) and 1.25 (xlstm-1.3b at 8, embed)
+# from its float32 ones with the plain scans, and the bf16 kernels 2.55e-2
+# and 0.85 from the bf16 plain scans (tools/sharded_grad_floor.py
+# --against-float32; on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md section
+# 6); the sharded bf16 step read 3.36e-2 and 1.15 from one rank's. The
+# float32 checks read 1.34e-3 and 4.71e-3 because the scan kernels round
+# their operands to bf16 at float32 inputs too (2.40e-3 and 5.74e-3
+# against the plain float32 scans on one rank). The main path, whose
+# launches are counted, runs in bf16 for every family, its first loss held
+# to one rank's bf16 run's
+SHARDED_CHECK_F32 = (SERVE_ARCH, XLSTM_ARCH)
+# of those, the families whose bf16 main path's gradients are held too: per
+# leaf group no farther from one rank's float32 gradients than one rank's
+# bf16 ones are, plus GRAD_REL_TOL (zamba2-7b's four bf16 routes, the
+# kernels, at twice the microbatches, the plain scans and the sharded step,
+# lie within 2.0e-3 of each other in that distance). Not xlstm-1.3b: its
+# routes' distances spread by up to 2.2 (up to 1.26 through the kernels,
+# 3.31 through the plain scans), so no margin there tells a fault from
+# rounding; its bf16 gradients are printed
+SHARDED_BF16_GRADS = (SERVE_ARCH,)
 # granite-moe's router scores on each shard's rows against the one-rank
 # run's on the same rows (||d|| / ||ref|| a routing call), as the
 # gradients are held: a shard routing other rows reads ~1.4
@@ -5346,14 +5392,16 @@ SHARDED_SCORE_REL = GRAD_REL_TOL
 
 
 @contextlib.contextmanager
-def dropped_row_sum(block: str, layer: int):
-    """The negative control of the sharded check: the output of the
-    `layer`-th `block` ("apply_mlp" or "apply_attention" of `models.layers`,
-    in the order the model first calls them) left as this rank's partial
-    sum, its model-axis sum (`layers.row_parallel_sum`) skipped, in the
-    forward and the recompute alike."""
+def dropped_row_sum(block: str, layer: int, sum_name="row_parallel_sum"):
+    """The negative control of the sharded check: in the `layer`-th
+    `block` ("apply_mlp", "apply_attention", "apply_mlstm" or "apply_mamba"
+    of `models.layers`, in the order the model first calls them) the
+    model-axis sum `sum_name` of `models.layers` left as this rank's part
+    (the row-parallel output's, `row_parallel_sum`, or Mamba2's gated
+    norm's sum of squares, `norm_sum_over_model`), in the forward and the
+    recompute alike."""
     from repro_torch.models import layers as L
-    real_block, real_sum = getattr(L, block), L.row_parallel_sum
+    real_block, real_sum = getattr(L, block), getattr(L, sum_name)
     seen, skip = [], {"on": False}
 
     def wrapped(p, *args, **kw):
@@ -5368,33 +5416,78 @@ def dropped_row_sum(block: str, layer: int):
     def row_sum(y):
         return y if skip["on"] else real_sum(y)
     setattr(L, block, wrapped)
-    L.row_parallel_sum = row_sum
+    setattr(L, sum_name, row_sum)
     try:
         yield
     finally:
         setattr(L, block, real_block)
-        L.row_parallel_sum = real_sum
+        setattr(L, sum_name, real_sum)
+
+
+def sharded_control(cfg):
+    """The sharded check's control for `cfg`'s family, in its middle
+    block: a row-parallel layer's model-axis sum left out (the MLP's; the
+    moe family's attention output, its experts being whole; mLSTM's
+    output for the ssm family), or for the hybrid family the gated norm's
+    sum of squares over "model" (`dropped_row_sum`)."""
+    if cfg.family == "hybrid":
+        return dropped_row_sum("apply_mamba", cfg.n_layers // 2,
+                               "norm_sum_over_model")
+    if cfg.family == "ssm":
+        return dropped_row_sum("apply_mlstm", (cfg.slstm_every - 1) // 2)
+    return dropped_row_sum("apply_attention" if cfg.family == "moe"
+                           else "apply_mlp", cfg.n_layers // 2)
 
 
 @contextlib.contextmanager
-def flash_heads(seen: set):
-    """Record each flash forward and backward launch's (q heads, kv heads)
-    in `seen` (the kernels' wrappers still count their launches)."""
+def kernel_heads(seen: set):
+    """Record each model kernel launch's heads in `seen`: flash forward and
+    backward as ("fwd" / "bwd", q heads, kv heads), the SSD scan and
+    mLSTM's pair as ("ssd" / "ssd_bwd" / "pair" / "pair_bwd", heads) (the
+    kernels' wrappers still count their launches)."""
     from repro_torch.kernels import flash_attention as FA
-    real_f, real_b = FA.flash_attention_cuda, FA.flash_attention_bwd_cuda
+    from repro_torch.kernels import ssd_scan as SSD
+    from repro_torch.kernels import ssd_scan_bwd as SB
+    from repro_torch.kernels import ssd_scan_wide as SSDW
+    swaps = [(FA, "flash_attention_cuda", lambda q, k, v: ("fwd", q.shape[2],
+                                                          k.shape[2])),
+             (FA, "flash_attention_bwd_cuda",
+              lambda q, k, v: ("bwd", q.shape[2], k.shape[2])),
+             (SSD, "ssd_scan_cuda", lambda q, k, v: ("ssd", v.shape[2])),
+             (SB, "ssd_scan_bwd_cuda", lambda q, k, v: ("ssd_bwd",
+                                                        v.shape[2])),
+             (SSDW, "mlstm_scan_cuda", lambda q, k, v: ("pair", v.shape[2])),
+             (SB, "mlstm_scan_bwd_cuda", lambda q, k, v: ("pair_bwd",
+                                                          v.shape[2]))]
+    real = [getattr(mod, name) for mod, name, _ in swaps]
 
-    def fwd(q, k, v, **kw):
-        seen.add(("fwd", q.shape[2], k.shape[2]))
-        return real_f(q, k, v, **kw)
-
-    def bwd(q, k, v, *a, **kw):
-        seen.add(("bwd", q.shape[2], k.shape[2]))
-        return real_b(q, k, v, *a, **kw)
-    FA.flash_attention_cuda, FA.flash_attention_bwd_cuda = fwd, bwd
+    def recording(fn, key):
+        def run(q, k, v, *a, **kw):
+            seen.add(key(q, k, v))
+            return fn(q, k, v, *a, **kw)
+        return run
+    for (mod, name, key), fn in zip(swaps, real):
+        setattr(mod, name, recording(fn, key))
     try:
         yield
     finally:
-        FA.flash_attention_cuda, FA.flash_attention_bwd_cuda = real_f, real_b
+        for (mod, name, _), fn in zip(swaps, real):
+            setattr(mod, name, fn)
+
+
+def sharded_expected(cfg, arch: str) -> tuple[dict, list]:
+    """({kernel: launches a rank}, sorted heads records) of the main path's
+    step for `arch` at `cfg`'s depth: `train_launches` at SHARDED_MICRO
+    microbatches, each launch on the rank's SHARDED_HEADS."""
+    want, heads = train_launches(cfg, SHARDED_MICRO), []
+    h = SHARDED_HEADS[arch]
+    if "flash" in h:
+        heads += [["bwd", *h["flash"]], ["fwd", *h["flash"]]]
+    if "ssd" in h:
+        heads += [["ssd", *h["ssd"]], ["ssd_bwd", *h["ssd"]]]
+    if "pair" in h:
+        heads += [["pair", *h["pair"]], ["pair_bwd", *h["pair"]]]
+    return want, sorted(heads)
 
 
 @contextlib.contextmanager
@@ -5527,10 +5620,129 @@ def step_parts(parts: dict):
             setattr(TS, n, real[n])
 
 
+# the kernels at a rank's shapes in the train-sharded phase (model 2), one
+# microbatch row: flash (B, S, q heads, kv heads, dh, window) for
+# musicgen-medium, phi-3-vision-4.2b (256 patches + 4096 tokens) and
+# zamba2-7b's shared block; the SSD scan's heads (56 of zamba2-7b's 112)
+# and the pair's (2 of xlstm-1.3b's 4)
+SHARDED_FLASH_SHAPES = {AUDIO_ARCH: (1, SHARDED_S, 12, 12, 64, 0),
+                        VLM_ARCH: (1, 256 + SHARDED_S, 16, 16, 96, 0),
+                        SERVE_ARCH: (1, SHARDED_S, 16, 16, 112, 4096)}
+SHARDED_SCAN_HEADS = {"ssd": 56, "pair": 2}
+
+
+def sharded_kernel_rows(dev) -> tuple[dict, list]:
+    """({kernel: [rows]}, faults): each model kernel the train-sharded
+    phase launches for the four families it added, at a rank's shapes
+    (SHARDED_FLASH_SHAPES, SHARDED_SCAN_HEADS), against its plain version
+    on the same inputs: flash forward (`_close_rows` at ATTN_TOL) with
+    SDPA's time, its backward (`measure_flash_bwd`), the SSD scan and the
+    pair forward (`measure_fwd_train`) and backward (`measure_ssd_bwd` at
+    slow decay, each launch's name and ms from its profile); each with its
+    ms, the plain version's and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as FA
+    rows = {n: [] for n in ("flash_attention", "flash_attention_bwd",
+                            "ssd_scan", "ssd_scan_bwd", "mlstm_scan",
+                            "mlstm_scan_bwd")}
+    faults = []
+    for i, (arch, (b, s, h, kv, dh, win)) in enumerate(
+            SHARDED_FLASH_SHAPES.items()):
+        q, k, v = _attn_inputs(dev, 900 + i, b, s, h, kv, dh)
+        got = FA.flash_attention_cuda(q, k, v, window=win)
+        err, rel, ok = _close_rows(got, FA.flash_attention_plain(
+            q, k, v, window=win), ATTN_TOL)
+        del got
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        mask = None
+        if win:
+            ones = torch.ones((s, s), dtype=torch.bool, device=dev)
+            mask = torch.tril(ones) & ~torch.tril(ones, diagonal=-win)
+            del ones
+        ms = cuda_ms(lambda: FA.flash_attention_cuda(q, k, v, window=win),
+                     iters=10, warmup=2)
+        plain_ms = cuda_ms(lambda: FA.flash_attention_plain(
+            q, k, v, window=win), iters=2, warmup=1)
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=mask is None),
+            iters=10, warmup=2)
+        bound, by, _, ops = attention_bound(b, s, h, kv, dh, win)
+        rows["flash_attention"].append({
+            "arch": arch, "B": b, "S": s, "H": h, "KV": kv, "dh": dh,
+            "window": win, "max_abs_err": err, "max_err_over_row_rms": rel,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bound, "bound_by": by, "bound_share": bound / ms})
+        if not ok:
+            faults.append(f"flash at {arch}'s rank shape off by {rel:.3g} "
+                          f"of a row's rms")
+        del q, k, v, qt, kt, vt, mask
+        bw = measure_flash_bwd(dev, 910 + i, b, s, h, kv, dh, win)
+        rows["flash_attention_bwd"].append({"arch": arch, **{
+            n: bw[n] for n in ("B", "S", "H", "KV", "dh", "window",
+                               "max_abs_err", "errs", "ms", "launch_ms",
+                               "plain_ms", "library_ms", "bound_ms",
+                               "bound_by", "bound_share")}})
+        faults += [f"flash bwd at {arch}'s rank shape: {f}"
+                   for f in flash_bwd_faults(bw)]
+        torch.cuda.empty_cache()
+    for pair, (fwd, bwd) in ((False, ("ssd_scan", "ssd_scan_bwd")),
+                             (True, ("mlstm_scan", "mlstm_scan_bwd"))):
+        heads = SHARDED_SCAN_HEADS["pair" if pair else "ssd"]
+        f = measure_fwd_train(dev, pair, heads=heads)
+        rows[fwd].append(f)
+        if not f["ok"]:
+            faults.append(f"{fwd} at a rank's {heads} heads off: y "
+                          f"{f['y_err']:.3g}, state {f['state_err']:.3g}")
+        bw = measure_ssd_bwd(dev, pair, heads=heads,
+                             biases=(SLOW_FORGET_BIAS,))
+        rows[bwd].append({n: bw[n] for n in (
+            "H", "dk", "dv", "max_abs_err", "max_err", "ms", "launch_ms",
+            "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "bound_share")})
+        faults += [f"{bwd} at a rank's {heads} heads: {x}"
+                   for x in ssd_bwd_faults(bw)]
+        torch.cuda.empty_cache()
+    return rows, faults
+
+
+def print_sharded_kernel_rows(rows: dict) -> None:
+    for name, rs in rows.items():
+        for r in rs:
+            shape = (f"({r['B']}, {r['S']}, {r['H']} / {r['KV']}, "
+                     f"{r['dh']}) window {r['window']}" if "KV" in r else
+                     f"{r['H']} heads of {r['dk']} x {r['dv']}")
+            print(f"  {name} at a rank's {shape}"
+                  + (f" ({r['arch']})" if "arch" in r else "")
+                  + f": max abs err {r['max_abs_err']:.3g}, ms "
+                  f"{r['ms']:.3f}, plain {r['plain_ms']:.2f}, bound "
+                  f"{r['bound_ms']:.3f} ({r['bound_by']}; "
+                  f"{r['bound_share']:.2f} of it)"
+                  + (f", SDPA {r['library_ms']:.3f}"
+                     if r.get("library_ms") is not None else "")
+                  + (f", each launch's ms from the profile "
+                     f"{ {k: round(v, 3) for k, v in r['launch_ms'].items()} }"
+                     if "launch_ms" in r else ""))
+
+
+def phase_sharded_kernels(dev, detail):
+    """The train-sharded phase's kernels at a rank's shapes
+    (`sharded_kernel_rows`), printed; raises on a fault. The smoke runs it
+    right after model-kernels: later in a full smoke a profile in this
+    process records no device events (PERF.md section 6), and these rows
+    name each backward launch from one."""
+    rows, faults = sharded_kernel_rows(dev)
+    print_sharded_kernel_rows(rows)
+    detail["kernels_at_rank_shapes"] = rows
+    if faults:
+        raise AssertionError("; ".join(faults))
+    return rows
+
+
 def sharded_cell(arch: str, smoke: bool):
     """(cfg, B, S, microbatches) of the train-sharded phase for `arch`."""
     from repro_torch.configs import get_arch, smoke_config
-    cfg = get_arch(arch).with_(n_layers=SHARDED_LAYERS)
+    cfg = get_arch(arch).with_(n_layers=SHARDED_LAYERS[arch])
     if smoke:       # a CPU rehearsal at float32, where the sums' order shows
         return (smoke_config(cfg).with_(dtype="float32"), 4, 64,
                 SHARDED_MICRO)
@@ -5540,14 +5752,20 @@ def sharded_cell(arch: str, smoke: bool):
 def sharded_arch(arch: str, smoke: bool, world: dict, mesh) -> dict:
     """One rank's part of the train-sharded phase for `arch` (every rank
     runs it): the sharded step through `launch.train.train` (launches,
-    flash heads, peak memory, collective bytes, seconds), the same step
-    with the control's sum left out, rank 0's one-rank step from the same
-    seed and batch (for the moe family the per-shard dispatch, routed as
-    the shards routed with each choice held to its own top_k, and beside
-    it the per-shard dispatch on its own routing and the global
-    dispatch), and the
-    gradients gathered leaf by leaf to rank 0 and compared per leaf
-    group. Returns rank 0's verdict (the others' figures in it)."""
+    each kernel's heads, peak memory, collective bytes, seconds), the same
+    step with the control's sum left out (`sharded_control`), rank 0's
+    one-rank step from the same seed and batch (for the moe family the
+    per-shard dispatch, routed as the shards routed with each choice held
+    to its own top_k, and beside it the per-shard dispatch on its own
+    routing and the global dispatch), and the gradients gathered leaf by
+    leaf to rank 0 and compared per leaf group. For SHARDED_CHECK_F32's
+    families the check's steps (the sharded one again, its control, the
+    one-rank one) run at float32 with the plain attention, and rank 0
+    takes the main path's bf16 step on one rank too: the main path's
+    gradients are compared with it ("rel_bf16") and with the float32
+    one-rank run's ("rel_bf16_vs_f32"), beside the one-rank bf16 run's own
+    distance from the float32 one ("floor_bf16"). Returns rank 0's verdict
+    (the others' figures in it)."""
     import tempfile
 
     import torch
@@ -5567,11 +5785,16 @@ def sharded_arch(arch: str, smoke: bool, world: dict, mesh) -> dict:
     rank0 = world["rank"] == 0
     opt = OptimizerConfig(lr=TRAIN_LR, warmup_steps=1, decay_steps=1)
     moe = cfg.family == "moe"
+    # the gradient check's config and the contexts of its every step
+    ccfg, cctx = cfg, (lambda: ())
+    f32 = arch in SHARDED_CHECK_F32 and cfg.dtype != "float32"
+    if f32:
+        ccfg, cctx = cfg.with_(dtype="float32"), (lambda: (
+            plain_attention(),))
     kw = dict(steps=1, batch=B, seq=Sq, microbatches=M, smoke=False,
-              config=cfg, device=dev, opt=opt, ckpt_every=2,
-              log=lambda *a: None)
+              device=dev, opt=opt, ckpt_every=2, log=lambda *a: None)
 
-    def run(*ctx):
+    def run(config, *ctx):
         grads, choices = {}, {"idx": [], "scores": [], "dropped": []}
         with tempfile.TemporaryDirectory() as d, \
                 contextlib.ExitStack() as st:
@@ -5579,9 +5802,12 @@ def sharded_arch(arch: str, smoke: bool, world: dict, mesh) -> dict:
                 st.enter_context(c)
             if moe:
                 st.enter_context(pinned_routing(record=choices))
-            res = T.train(arch, ckpt_dir=d, grad_hook=grads.update, **kw)
+            res = T.train(arch, ckpt_dir=d, grad_hook=grads.update,
+                          config=config, **kw)
         h = res["history"][0]
         del res
+        if on_card:
+            torch.cuda.empty_cache()
         return h, grads, choices, choices.pop("dropped")
 
     # the main path: counts from 0 just before, read just after
@@ -5592,9 +5818,9 @@ def sharded_arch(arch: str, smoke: bool, world: dict, mesh) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    with counting_plain_routes(plain), flash_heads(heads), \
+    with counting_plain_routes(plain), kernel_heads(heads), \
             step_parts(parts):
-        hist, grads, choices, dropped = run()
+        hist, grads, choices, dropped = run(cfg)
     if on_card:
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -5604,20 +5830,28 @@ def sharded_arch(arch: str, smoke: bool, world: dict, mesh) -> dict:
             "peak_gb": (torch.cuda.max_memory_allocated() / 1e9
                         if on_card else None),
             "launches": {k: c for k, c in n.items() if c},
-            "heads": sorted(heads), "plain": plain,
+            "heads": sorted(map(list, heads)), "plain": plain,
             "traffic": {k: dict(v) for k, v in C.traffic.items()},
             "parts_s": parts,
             "dropped": dropped[:cfg.n_layers]}
-    # the moe family's experts are whole on every rank: its row-parallel
-    # product is attention's output projection
-    control = dropped_row_sum("apply_attention" if moe else "apply_mlp",
-                              cfg.n_layers // 2)
+    # each comparison: (its name, the reference's key), and this rank's
+    # gradients for it by name
+    mine_grads = {"main": grads}
+    comps = [("main", "grads"), ("control", "grads")]
+    if moe:
+        comps.append(("free", "free_grads"))
+        mine_grads["free"] = grads
     t1 = time.perf_counter()
-    hist_c, grads_c, _, _ = run(control)
+    if f32:     # the check's own sharded step; the main path's held apart
+        mine_grads["bf16"] = mine_grads["bf16_vs_f32"] = grads
+        comps += [("bf16", "grads_bf16"), ("bf16_vs_f32", "grads")]
+        hist_k, mine_grads["main"], _, _ = run(ccfg, *cctx())
+        mine["check_loss"] = hist_k["loss"]
+    del grads
+    hist_c, mine_grads["control"], _, _ = run(ccfg, sharded_control(ccfg),
+                                              *cctx())
     mine["control_loss"] = hist_c["loss"]
     mine["control_s"] = time.perf_counter() - t1
-    if on_card:
-        torch.cuda.empty_cache()
     by_shard = C.all_gather_object(choices if mesh.coords["model"] == 0
                                    else None, mesh)
     del choices
@@ -5625,19 +5859,19 @@ def sharded_arch(arch: str, smoke: bool, world: dict, mesh) -> dict:
 
     ref, t2 = {}, time.perf_counter()
     if rank0:                            # the one-rank step
-        dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=Sq,
-                        global_batch=B, n_codebooks=cfg.n_codebooks,
-                        n_patches=cfg.n_patches, d_model=cfg.d_model)
+        dc = DataConfig(vocab_size=ccfg.vocab_size, seq_len=Sq,
+                        global_batch=B, n_codebooks=ccfg.n_codebooks,
+                        n_patches=ccfg.n_patches, d_model=ccfg.d_model)
         batch = {k: torch.from_numpy(v).to(dev)
                  for k, v in batch_for_step(dc, 0).items()}
         shards = [c for c in by_shard if c is not None]
 
-        def one_rank(micro, *ctx):
+        def one_rank(config, micro, *ctx):
             g = {}
             with contextlib.ExitStack() as st:
                 for c in ctx:
                     st.enter_context(c)
-                model = Model(cfg, device=dev)
+                model = Model(config, device=dev)
                 state = init_train_state(
                     model, torch.Generator(device=dev).manual_seed(0), opt)
                 _, met = make_train_step(model, opt, microbatches=micro,
@@ -5660,7 +5894,11 @@ def sharded_arch(arch: str, smoke: bool, world: dict, mesh) -> dict:
                 c = mb * per + within
                 return shards[d]["idx"][c], shards[d]["scores"][c // 2]
             ctx = (pinned_routing(replay=replay, checks=checks),)
-        ref["loss"], ref["grads"] = one_rank(M * n_sh, *ctx)
+        ref["loss"], ref["grads"] = one_rank(ccfg, M * n_sh, *ctx, *cctx())
+        if f32:     # the main path's own route on one rank, and its rounding
+            ref["loss_bf16"], ref["grads_bf16"] = one_rank(cfg, M * n_sh)
+            ref["floor_bf16"] = group_rel_errs(ref["grads_bf16"],
+                                               ref["grads"])
         if moe:
             ref["routing"] = {k: sum(c[k] for c in checks)
                               for k in ("rows", "differ", "beyond")}
@@ -5670,8 +5908,8 @@ def sharded_arch(arch: str, smoke: bool, world: dict, mesh) -> dict:
                 score_rel=max(c["score_rel"] for c in checks))
             # per shard on its own routing; the global dispatch: a
             # microbatch's rows routed together
-            ref["free_loss"], ref["free_grads"] = one_rank(M * n_sh)
-            ref["global_loss"], g_glob = one_rank(M)
+            ref["free_loss"], ref["free_grads"] = one_rank(ccfg, M * n_sh)
+            ref["global_loss"], g_glob = one_rank(ccfg, M)
             ref["global_rel"] = group_rel_errs(g_glob, ref["grads"])
             del g_glob
         if on_card:
@@ -5680,45 +5918,46 @@ def sharded_arch(arch: str, smoke: bool, world: dict, mesh) -> dict:
     ref_s, t3 = time.perf_counter() - t2, time.perf_counter()
     # the references' pieces scattered from rank 0 leaf by leaf; each rank
     # sums its pieces' squared differences per leaf group (a piece that
-    # several ranks hold counted on one of them), then over the mesh:
-    # the step and the control against the reference, and for the moe
-    # family the step against the per-shard run on its own routing
+    # several ranks hold counted on one of them), then over the mesh: row i
+    # for comps[i], then each reference's own sum of squares
     with S.use_mesh(mesh):
         specs = S.param_pspec_tree(Model(cfg, device="meta"))
     groups = sorted(leaf_groups(specs))
     group_of = {n: g for g, names in leaf_groups(specs).items()
                 for n in names}
-    keys = ("grads", "free_grads") if moe else ("grads",)
-    sums = torch.zeros((5, len(groups)), dtype=torch.float64, device=dev)
+    keys = list(dict.fromkeys(key for _, key in comps))
+    sums = torch.zeros((len(comps) + len(keys), len(groups)),
+                       dtype=torch.float64, device=dev)
     for name in specs:
-        mine_, ctl = grads.pop(name), grads_c.pop(name)
+        got = {c: mine_grads[c][name] for c, _ in comps}
         owner = all(mesh.coords[a] == 0 for a in mesh.axis_names
                     if a not in S.spec_axes(specs[name]))
         g = groups.index(group_of[name])
-        for key in keys:
+        for k, key in enumerate(keys):
             parts = ([S.local_slice(ref[key][name], specs[name],
                                     dataclasses.replace(mesh, rank=r))
                       for r in mesh.ranks] if rank0 else None)
-            piece = C.scatter(parts, mine_, mesh, mesh.ranks[0]).double()
+            like = next(got[c] for c, kk in comps if kk == key)
+            piece = C.scatter(parts, like, mesh, mesh.ranks[0]).double()
             del parts
-            if owner and key == "grads":
-                sums[0, g] += (mine_.double() - piece).square().sum()
-                sums[1, g] += (ctl.double() - piece).square().sum()
-                sums[2, g] += piece.square().sum()
-            elif owner:
-                sums[3, g] += (mine_.double() - piece).square().sum()
-                sums[4, g] += piece.square().sum()
+            if owner:
+                sums[len(comps) + k, g] += piece.square().sum()
+                for i, (c, kk) in enumerate(comps):
+                    if kk == key:
+                        sums[i, g] += (got[c].double() - piece).square().sum()
             del piece
-        del mine_, ctl
+        del got
+        for d in {id(v): v for v in mine_grads.values()}.values():
+            del d[name]
     sums = C.all_reduce(sums, mesh, None).cpu()
     compare_s = time.perf_counter() - t3
     if not rank0:
         return {}
-    rel = {k: {g: (float(sums[i, j]) / float(sums[n, j])) ** 0.5
+    rel = {c: {g: (float(sums[i, j]) / float(sums[n, j])) ** 0.5
                if float(sums[n, j]) > 0 else float(float(sums[i, j]) > 0)
                for j, g in enumerate(groups)}
-           for i, n, k in ((0, 2, "main"), (1, 2, "control"),
-                           (3, 4, "free"))}
+           for i, (c, key) in enumerate(comps)
+           for n in (len(comps) + keys.index(key),)}
     shape = ShapeConfig("train_sharded", Sq, B, "train", microbatches=M)
     _, info = lower_cell(cfg.name, shape.name, S.Mesh(mesh.axis_names,
                                                       mesh.axis_sizes),
@@ -5726,14 +5965,17 @@ def sharded_arch(arch: str, smoke: bool, world: dict, mesh) -> dict:
                          zero_stage=2, trace=False)
     return {"arch": cfg.name, "layers": cfg.n_layers, "B": B, "S": Sq,
             "microbatches": M, "transport": world["transport"],
-            "mesh": mesh.shape, "ranks": ranks,
+            "mesh": mesh.shape, "ranks": ranks, "check_dtype": ccfg.dtype,
             "loss_ref": ref["loss"], "rel": rel["main"],
             "rel_control": rel["control"],
             "global_loss": ref.get("global_loss"),
             "global_rel": ref.get("global_rel"),
-            "free_loss": ref.get("free_loss"),
-            "rel_free": rel["free"] if moe else None,
+            "free_loss": ref.get("free_loss"), "rel_free": rel.get("free"),
             "routing": ref.get("routing"),
+            "loss_ref_bf16": ref.get("loss_bf16"),
+            "rel_bf16": rel.get("bf16"),
+            "rel_bf16_vs_f32": rel.get("bf16_vs_f32"),
+            "floor_bf16": ref.get("floor_bf16"),
             "predicted_bytes": info["per_device_bytes"],
             "seconds": {"main": wall, "control": mine["control_s"],
                         "one_rank": ref_s, "compare": compare_s}}
@@ -5775,34 +6017,54 @@ def sharded_rank(out: str, smoke: bool) -> int:
     return 0
 
 
-def phase_train_sharded(dev, detail, smoke=False):
+def phase_train_sharded(dev, detail, smoke=False, kernel_rows=None):
     """Training sharded over a (data 2, model 2) mesh of SHARDED_RANKS
     ranks on the one card (gloo; NCCL refuses two ranks on one device, so
     CUDA tensors are staged through pinned host buffers), each a process
-    of its own started here after the kernels are built: for qwen2.5-3b
-    (GQA 16 / 2) and granite-moe-3b-a800m (GQA 24 / 8, 40 experts top 8)
-    at full width cut to SHARDED_LAYERS blocks, one step of SHARDED_B x
-    SHARDED_S tokens in SHARDED_MICRO microbatches at cfg.dtype through
-    `launch.train.train` (fsdp x tp masters, the ZeRO-2 compute copy,
-    tensor-parallel attention and MLP, the per-shard MoE dispatch), held
-    to the same step on one rank: the first loss within SHARDED_LOSS_REL,
-    the gradients within GRAD_REL_TOL per leaf group, and beyond it with
-    one row-parallel layer's model-axis sum left out (the control). For
-    granite-moe the one-rank reference is the per-shard dispatch routed as
-    the shards routed: the shards' router scores must be the reference's
-    on the same rows within SHARDED_SCORE_REL, and each replayed choice
-    the reference's own top_k on its own inputs but where the two runs'
-    scores reorder it (`routing_gap`); the gaps of the per-shard dispatch
-    on its own routing and of the global dispatch are printed beside
-    it.
-    Each rank's flash launches must run its own heads (8 of 16 q heads and
-    1 of 2 kv heads for qwen, 12 of 24 and 4 of 8 for granite-moe) and no
-    plain attention. Printed: each rank's peak beside `lower_cell`'s
+    of its own started here after the kernels are built: the six families
+    at full width cut to SHARDED_LAYERS blocks (qwen2.5-3b, GQA 16 / 2;
+    granite-moe-3b-a800m, GQA 24 / 8, 40 experts top 8; musicgen-medium,
+    24 heads, 4 codebooks; phi-3-vision-4.2b, 32 heads of 96 over 256
+    patches and the tokens; zamba2-7b, 112 SSD heads and the shared
+    block's 32 heads of 112 windowed; xlstm-1.3b, 4 mLSTM heads of 512 and
+    sLSTM's 2048 channels), one step of SHARDED_B x SHARDED_S tokens in
+    SHARDED_MICRO microbatches at cfg.dtype through `launch.train.train`
+    (fsdp x tp masters, the ZeRO-2 compute copy, each family's layers on
+    the rank's heads or channels, vocabulary-parallel embeddings and
+    cross-entropy, the per-shard MoE dispatch), held to the same step on
+    one rank: the first loss within SHARDED_LOSS_REL, the gradients within
+    GRAD_REL_TOL per leaf group, and beyond it with the control's
+    model-axis sum left out (`sharded_control`). For SHARDED_CHECK_F32's
+    families the gradients are held at float32, and the bf16 main path
+    too: its first loss against the one-rank bf16 run's within
+    SHARDED_LOSS_REL, and for SHARDED_BF16_GRADS' per leaf group its
+    gradients no farther from the one-rank float32 run's than the one-rank
+    bf16 run's are, plus GRAD_REL_TOL, the control beyond that
+    (`sharded_arch`). For granite-moe the one-rank reference
+    is the per-shard dispatch routed as the shards routed: the shards'
+    router scores must be the reference's on the same rows within
+    SHARDED_SCORE_REL, and each replayed choice the reference's own top_k
+    on its own inputs but where the two runs' scores reorder it
+    (`routing_gap`); the gaps of the per-shard dispatch on its own routing
+    and of the global dispatch are printed beside it. Each rank's flash,
+    SSD and pair launches must number `sharded_expected`'s and run on its
+    own heads (SHARDED_HEADS), with no plain attention or scan call.
+    `kernel_rows` are each of those kernels at the rank shapes against its
+    plain version (`phase_sharded_kernels`, which runs first where they
+    are not given), with its ms, the plain version's, the bound and
+    SDPA's. Printed: whether a profile here records device events before
+    and after the ranks ran, each rank's peak beside `lower_cell`'s
     per-device prediction, the bytes each collective moved, the
     transport, the seconds. `smoke` rehearses it on the CPU at
     `smoke_config` (gloo, no kernels)."""
     import tempfile
     t0 = time.perf_counter()
+    faults, seen = [], {}
+    if not smoke:
+        if kernel_rows is None:
+            kernel_rows = phase_sharded_kernels(dev, detail)
+        seen["before the ranks"] = profile_sees_device(dev)
+    t1 = time.perf_counter()
     procs = []
     with tempfile.TemporaryDirectory() as tmp:
         env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
@@ -5820,7 +6082,7 @@ def phase_train_sharded(dev, detail, smoke=False):
                     stdout=logs[r], stderr=subprocess.STDOUT, text=True))
             while any(p.poll() is None for p in procs):
                 failed = any(p.poll() not in (None, 0) for p in procs)
-                if failed or time.perf_counter() - t0 > SHARDED_TIMEOUT_S:
+                if failed or time.perf_counter() - t1 > SHARDED_TIMEOUT_S:
                     break
                 time.sleep(0.1)
         finally:
@@ -5836,32 +6098,76 @@ def phase_train_sharded(dev, detail, smoke=False):
         rcs = [p.returncode for p in procs]
         result = Path(tmp) / "result.json"
         res = json.loads(result.read_text()) if result.exists() else None
-    wall = time.perf_counter() - t0
     print("\n".join(f"  {ln}" for ln in tails[0][-40:]))
     if rcs != [0] * SHARDED_RANKS or res is None:
         for r, t in enumerate(tails):
             print(f"  rank {r} (rc {rcs[r]}): " + " | ".join(t[-12:]))
         raise AssertionError(f"the ranks failed: {rcs}")
-    faults, counts = [], {"flash_attention": 0, "flash_attention_bwd": 0}
+    if not smoke:
+        seen["after the ranks"] = profile_sees_device(dev)
+        print("  a profile here records device events: " + ", ".join(
+            f"{k} {v}" for k, v in seen.items()))
+    counts = dict.fromkeys(("flash_attention", "flash_attention_bwd",
+                            "ssd_scan", "ssd_scan_bwd", "mlstm_scan",
+                            "mlstm_scan_bwd"), 0)
     marks = res.pop("marks")
     print("  rank 0 from its start: " + ", ".join(
         f"{k} {v:.1f} s" for k, v in marks.items()))
     for arch, r in res.items():
         worst = max(r["rel"], key=r["rel"].get)
         worst_c = max(r["rel_control"], key=r["rel_control"].get)
-        rel_loss = abs(r["ranks"][0]["loss"] - r["loss_ref"]) / abs(
-            r["loss_ref"])
+        loss = r["ranks"][0].get("check_loss", r["ranks"][0]["loss"])
+        rel_loss = abs(loss - r["loss_ref"]) / abs(r["loss_ref"])
         mem = r["predicted_bytes"]
         print(f"  {r['arch']}: " + ", ".join(
             f"{k} {v:.1f} s" for k, v in r["seconds"].items()))
         print(f"  {r['arch']} ({r['layers']} blocks) on {r['mesh']} over "
-              f"{r['transport']}: loss {r['ranks'][0]['loss']:.6f}, one "
-              f"rank {r['loss_ref']:.6f} (rel {rel_loss:.2e}, limit "
-              f"{SHARDED_LOSS_REL}); gradients: worst group "
+              f"{r['transport']}: loss {r['ranks'][0]['loss']:.6f}"
+              + (f" (the check's, at {r['check_dtype']}: "
+                 f"{r['ranks'][0]['check_loss']:.6f})"
+                 if "check_loss" in r["ranks"][0] else "")
+              + f", one rank {r['loss_ref']:.6f} (rel {rel_loss:.2e}, "
+              f"limit {SHARDED_LOSS_REL}); gradients at "
+              f"{r['check_dtype']}: worst group "
               f"{r['rel'][worst]:.2e} ({worst}; limit {GRAD_REL_TOL}); "
               f"control (a model-axis sum left out): loss "
               f"{r['ranks'][0]['control_loss']:.6f}, worst group "
               f"{r['rel_control'][worst_c]:.2e} ({worst_c})")
+        if r["loss_ref_bf16"] is not None:      # the bf16 main path, held
+            loss16 = r["ranks"][0]["loss"]
+            rel16 = abs(loss16 - r["loss_ref_bf16"]) / abs(r["loss_ref_bf16"])
+            floor = r["floor_bf16"]
+            # how much farther from the float32 gradients than one rank's
+            # bf16 run: the main path's, and the control's
+            gap = {g: r["rel_bf16_vs_f32"][g] - floor[g] for g in floor}
+            gap_c = {g: r["rel_control"][g] - floor[g] for g in floor}
+            wg, wc = max(gap, key=gap.get), max(gap_c, key=gap_c.get)
+            w16 = max(r["rel_bf16"], key=r["rel_bf16"].get)
+            print(f"    the bf16 main path: loss {loss16:.6f}, one rank's "
+                  f"bf16 {r['loss_ref_bf16']:.6f} (rel {rel16:.2e}, limit "
+                  f"{SHARDED_LOSS_REL}); gradients against one rank's "
+                  f"float32, beyond one rank's bf16: worst "
+                  f"{gap[wg]:.2e} ({wg}: {r['rel_bf16_vs_f32'][wg]:.2e} "
+                  f"against {floor[wg]:.2e}; "
+                  + (f"limit {GRAD_REL_TOL}" if arch in SHARDED_BF16_GRADS
+                     else "printed, not held")
+                  + "), the "
+                  + f"control's {gap_c[wc]:.2e} ({wc}); against one rank's "
+                  f"bf16: worst {r['rel_bf16'][w16]:.2e} ({w16})")
+            print("    per leaf group, main bf16 against one rank's bf16 / "
+                  "against one rank's float32 / one rank's bf16 against "
+                  "its float32 / the float32 check: " + "; ".join(
+                      f"{g} {r['rel_bf16'][g]:.2e} "
+                      f"{r['rel_bf16_vs_f32'][g]:.2e} {floor[g]:.2e} "
+                      f"{r['rel'][g]:.2e}" for g in sorted(floor)))
+            if not rel16 <= SHARDED_LOSS_REL:
+                faults.append(f"{arch}: the bf16 loss off one rank's by "
+                              f"{rel16:.3g}")
+            if arch in SHARDED_BF16_GRADS and not gap[wg] <= GRAD_REL_TOL:
+                faults.append(f"{arch}: bf16 gradients farther from float32 "
+                              f"than one rank's in {wg} by {gap[wg]:.3g}")
+            if arch in SHARDED_BF16_GRADS and gap_c[wc] <= GRAD_REL_TOL:
+                faults.append(f"{arch}: the bf16 check passes the control")
         if r["global_loss"] is not None:
             wg = max(r["global_rel"], key=r["global_rel"].get)
             wf = max(r["rel_free"], key=r["rel_free"].get)
@@ -5897,7 +6203,7 @@ def phase_train_sharded(dev, detail, smoke=False):
                   f", peak "
                   + (f"{k['peak_gb']:.2f} GB" if k["peak_gb"] is not None
                      else "n/a")
-                  + f"; launches {k['launches']}; flash heads {k['heads']}"
+                  + f"; launches {k['launches']}; heads {k['heads']}"
                   f"; bytes received "
                   + ", ".join(f"{op} {t['bytes'] / 1e6:.1f} MB in "
                               f"{t['calls']} ({t['s']:.2f} s)" for op, t in
@@ -5912,22 +6218,24 @@ def phase_train_sharded(dev, detail, smoke=False):
                           f"{r['rel'][worst]:.3g}")
         if r["rel_control"][worst_c] <= GRAD_REL_TOL:
             faults.append(f"{arch}: the check passes the control")
-        want = 2 * SHARDED_LAYERS * SHARDED_MICRO
-        q, kv = SHARDED_HEADS[arch]
+        want, want_heads = sharded_expected(sharded_cell(arch, smoke)[0],
+                                            arch)
         for k in r["ranks"]:
             if not smoke and (
-                    k["plain"]["attention"]
-                    or k["launches"].get("flash_attention") != want
-                    or k["launches"].get("flash_attention_bwd") != want // 2
-                    or k["heads"] != [["bwd", q, kv], ["fwd", q, kv]]):
+                    k["plain"]["attention"] or k["plain"]["ssd"]
+                    or k["launches"] != want or k["heads"] != want_heads):
                 faults.append(f"{arch} rank {k['rank']}: launches "
-                              f"{k['launches']}, heads {k['heads']}, plain "
+                              f"{k['launches']} (want {want}), heads "
+                              f"{k['heads']} (want {want_heads}), plain "
                               f"{k['plain']}")
             for name in counts:
                 counts[name] += k["launches"].get(name, 0)
+    wall = time.perf_counter() - t0
     print(f"  the phase: {wall:.1f} s")
     detail["train_sharded"] = {"archs": res, "seconds": wall,
-                               "rank0_marks": marks, "launches": counts}
+                               "rank0_marks": marks, "launches": counts,
+                               "kernels_at_rank_shapes": kernel_rows,
+                               "profile_sees_device": seen}
     if faults:
         raise AssertionError("; ".join(faults))
     return counts
@@ -6023,6 +6331,7 @@ def main() -> int:
                 [(256, K, L, N_TASKS), (4096, K, L, N_TASKS),
                  (1001, 3, 3, 30)], detail)
     model_entries = run("model-kernels", phase_model_kernels, dev, detail)
+    sharded_rows = run("sharded-kernels", phase_sharded_kernels, dev, detail)
     # host event-core oracles run in a pool of host processes (spawned:
     # they import torch afresh and never touch the card), closed below
     pool = multiprocessing.get_context("spawn").Pool(
@@ -6095,7 +6404,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     # the ranks are processes of their own on the card: nothing of the
     # earlier phases' is kept here but the built kernels
-    sharded_counts = run("train-sharded", phase_train_sharded, dev, detail)
+    sharded_counts = run("train-sharded", phase_train_sharded, dev, detail,
+                         False, sharded_rows)
     dry = run("dryrun", phase_dryrun, dev, detail)
     examples = run("examples", phase_examples, dev, detail)
     out_dir = ROOT / "chiprun_out"
@@ -6126,12 +6436,17 @@ def main() -> int:
             "train-moe": moe_counts["flash_attention_bwd"],
             "train-sharded": sharded_counts["flash_attention_bwd"]},
         "ssd_scan": {"serve": serve_launches["ssd_scan"],
-                     "train-hybrid": hybrid_counts["ssd_scan"]},
+                     "train-hybrid": hybrid_counts["ssd_scan"],
+                     "train-sharded": sharded_counts["ssd_scan"]},
         "ssd_scan_wide": {"serve-xlstm": xlstm_launches["ssd_scan_wide"]},
         "mlstm_scan": {"serve-xlstm": xlstm_launches["mlstm_scan"],
-                       "train-ssm": ssm_counts["mlstm_scan"]},
-        "ssd_scan_bwd": {"train-hybrid": hybrid_counts["ssd_scan_bwd"]},
-        "mlstm_scan_bwd": {"train-ssm": ssm_counts["mlstm_scan_bwd"]}}
+                       "train-ssm": ssm_counts["mlstm_scan"],
+                       "train-sharded": sharded_counts["mlstm_scan"]},
+        "ssd_scan_bwd": {"train-hybrid": hybrid_counts["ssd_scan_bwd"],
+                         "train-sharded": sharded_counts["ssd_scan_bwd"]},
+        "mlstm_scan_bwd": {"train-ssm": ssm_counts["mlstm_scan_bwd"],
+                           "train-sharded": sharded_counts[
+                               "mlstm_scan_bwd"]}}
     for name, counts in by_phase.items():
         model_entries[name]["launches"] = sum(counts.values())
         model_entries[name]["launches_by_phase"] = counts

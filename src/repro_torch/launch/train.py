@@ -16,8 +16,8 @@ as a function.
 
 Sharded: under `python -m torch.distributed.run --nproc-per-node N -m
 repro_torch.launch.train ...` (or in any process that joined a world with
-`parallel.collectives.init_world`) the dense and moe families train on a
-mesh over the world's ranks (`make_debug_mesh`: model 2 where N is even,
+`parallel.collectives.init_world`) every family trains on a mesh over the
+world's ranks (`make_debug_mesh`: model 2 where N is even,
 the rest data), each rank on cuda:(LOCAL_RANK % the cards) or the CPU:
 masters and moments placed by `param_pspec_tree` (fsdp over "data", tp
 over "model"; each rank draws the one-device initial state a block at a
@@ -150,8 +150,10 @@ def train(arch: str, *, steps: int = 100, batch: int = 8, seq: int = 128,
                 max_steps=steps)
     finally:
         batches.close()
-    log(f"[train] done: {n} steps, {restarts} restarts; checkpoints at "
-        f"{ckpt_dir}")
+    peak = (f", peak {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB "
+            f"on {dev}" if dev.type == "cuda" else "")
+    log(f"[train] done: {n} steps, {restarts} restarts{peak}; checkpoints "
+        f"at {ckpt_dir}")
     return {"cfg": cfg, "model": model, "state": state, "steps": n,
             "restarts": restarts, "history": history}
 

@@ -21,8 +21,12 @@ Conventions, as in the reference package:
     heads read), the MLP column- then row-parallel, each closed by a
     fixed-order sum over "model" (`row_parallel_sum`); the MoE block routes
     each data shard's tokens alone (the reference's `shard_map`
-    dispatch). `attention_heads` and `qkv_columns` say which heads and
-    columns a rank holds. Without one, everything is whole.
+    dispatch). Mamba2 and mLSTM run on the rank's heads between the same
+    two sums (Mamba2's gated norm over the split width adds its sums of
+    squares over "model", `norm_sum_over_model`), sLSTM on the rank's channels,
+    gathered after it. `attention_heads`, `qkv_columns`, `mamba_columns`,
+    `mlstm_columns` and `slstm_columns` say which heads and columns a rank
+    holds. Without one, everything is whole.
 """
 from __future__ import annotations
 
@@ -111,9 +115,16 @@ def embedding_rows(w, tok):
     return _EmbeddingRows.apply(w, tok)
 
 
-def rmsnorm(x, w, eps):
+def rmsnorm(x, w, eps, width=None, sum_over=None):
+    """x normalised over its last dimension and scaled by (1 + w). Where x
+    holds a rank's part of a split last dimension of `width` (and w the
+    same part), `sum_over` adds the parts' sums of squares over the ranks
+    (`norm_sum_over_model`, identity off a mesh)."""
     xf = x.float()
-    y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    ss = (xf * xf).sum(-1, keepdim=True)
+    if sum_over is not None:
+        ss = sum_over(ss)
+    y = xf * torch.rsqrt(ss / (width or x.shape[-1]) + eps)
     return (y * (1.0 + w.float())).to(x.dtype)
 
 
@@ -143,6 +154,18 @@ def tp_rank() -> tuple[int, int]:
     return mesh.shape["model"], mesh.coords["model"]
 
 
+def split_heads(cfg: ModelConfig, n: int, tp: int, m: int,
+                what: str) -> tuple[int, int]:
+    """(first, count) of model rank m's share of n heads (or channels)
+    split evenly over tp. Raises, naming the family and the heads, where tp
+    does not divide n."""
+    if n % tp:
+        raise NotImplementedError(
+            f"the {cfg.family} family ({cfg.name}): {n} {what} do not "
+            f"divide over a model axis of {tp}")
+    return m * (n // tp), n // tp
+
+
 def attention_heads(cfg: ModelConfig, tp: int, m: int) -> tuple:
     """(first q head, q heads, first kv head, kv heads) of model rank m of
     tp: the q heads split evenly; the kv heads split the same way where tp
@@ -152,15 +175,13 @@ def attention_heads(cfg: ModelConfig, tp: int, m: int) -> tuple:
     h, kv = cfg.n_heads, cfg.n_kv_heads
     if tp == 1:
         return 0, h, 0, kv
-    if h % tp:
-        raise NotImplementedError(f"{cfg.name}: {h} attention heads over a "
-                                  f"model axis of {tp}")
+    split_heads(cfg, h, tp, m, "attention heads")
     hl, g = h // tp, h // kv
     if kv % tp == 0:
         return m * hl, hl, m * (kv // tp), kv // tp
     if g % hl and hl % g:
-        raise NotImplementedError(f"{cfg.name}: {hl} q heads a rank in "
-                                  f"groups of {g}")
+        raise NotImplementedError(f"the {cfg.family} family ({cfg.name}): "
+                                  f"{hl} q heads a rank in groups of {g}")
     q0 = m * hl
     return q0, hl, q0 // g, max(hl // g, 1)
 
@@ -173,6 +194,68 @@ def qkv_columns(cfg: ModelConfig, tp: int, m: int) -> torch.Tensor:
     return torch.cat([torch.arange(q0 * hd, (q0 + hl) * hd),
                       h * hd + torch.arange(k0 * hd, (k0 + kl) * hd),
                       (h + kv) * hd + torch.arange(k0 * hd, (k0 + kl) * hd)])
+
+
+def mamba_columns(cfg: ModelConfig, tp: int, m: int) -> dict:
+    """The columns of a Mamba2 block's parameters model rank m of tp
+    computes with, over its SSD heads (`split_heads`): of `in_proj` ([z
+    din | xs din | B ds | C ds | dt hs]) its heads' z, xs and dt and all of
+    B and C, which every head reads; of `conv_w` / `conv_b` ([xs | B | C])
+    its xs channels and all of B and C; of `norm_g` ("inner") its heads'
+    d_inner columns."""
+    din, ds, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_head_dim
+    h0, hl = split_heads(cfg, cfg.n_ssm_heads, tp, m, "SSD heads")
+    inner = torch.arange(h0 * hd, (h0 + hl) * hd)
+    bc = torch.arange(2 * ds)
+    return {"in_proj": torch.cat([inner, din + inner, 2 * din + bc,
+                                  2 * din + 2 * ds
+                                  + torch.arange(h0, h0 + hl)]),
+            "conv": torch.cat([inner, din + bc]), "inner": inner}
+
+
+def mlstm_columns(cfg: ModelConfig, tp: int, m: int) -> dict:
+    """The columns of an mLSTM block's parameters model rank m of tp
+    computes with, over its heads: of `wqkv` ([q | k | v]) its heads' q,
+    k and v, of `wif` ([ig h | fg h]) its heads' of each gate, and of
+    `ln_inner` (h, hd) its heads' rows (along dim 0). `w_ogate`'s columns
+    and `wo`'s rows split evenly, which follows the heads."""
+    h, hd = cfg.n_heads, cfg.resolved_head_dim
+    h0, hl = split_heads(cfg, h, tp, m, "mLSTM heads")
+    cols, heads = (torch.arange(h0 * hd, (h0 + hl) * hd),
+                   torch.arange(h0, h0 + hl))
+    return {"wqkv": torch.cat([cols, h * hd + cols, 2 * h * hd + cols]),
+            "wif": torch.cat([heads, h + heads]), "ln_inner": heads}
+
+
+def slstm_columns(cfg: ModelConfig, tp: int, m: int) -> torch.Tensor:
+    """The columns of an sLSTM block's `w_gates` ([ig | fg | zg | og], d
+    each) model rank m of tp computes with: its d / tp channels of each
+    gate."""
+    d = cfg.d_model
+    c0, cl = split_heads(cfg, d, tp, m, "sLSTM channels")
+    ch = torch.arange(c0, c0 + cl)
+    return torch.cat([g * d + ch for g in range(4)])
+
+
+def tp_enter(x, mode: str, want_cache: bool):
+    """(tp, m, x) of a block split over "model" on the ambient mesh of
+    ranks: the axis's size, this rank's index on it, and x entered into
+    the region (`copy_to`: its gradient summed over "model"). Serving
+    there raises: the caches are whole."""
+    tp, m = tp_rank()
+    if tp > 1:
+        if mode == "decode" or want_cache:
+            raise NotImplementedError("serving on a mesh of ranks is not "
+                                      "ported: no local caches")
+        x = S.copy_to(x, "tp")
+    return tp, m, x
+
+
+def norm_sum_over_model(ss):
+    """A split width's partial sums of squares added over "model" (float32,
+    in the ranks' order), their gradient summed over it too: each rank's
+    part of the width feeds the sum, and each reads it for its part."""
+    return S.all_sum(ss, "tp")
 
 
 def row_parallel_sum(y):
@@ -224,13 +307,8 @@ def apply_attention(p: Attention, x, cfg: ModelConfig, *, positions,
     """
     b, s, d = x.shape
     hd = cfg.resolved_head_dim
-    tp, m = tp_rank()
+    tp, m, x = tp_enter(x, mode, want_cache)
     _, h, _, kv = attention_heads(cfg, tp, m)
-    if tp > 1:
-        if mode == "decode" or want_cache:
-            raise NotImplementedError("serving on a mesh of ranks is not "
-                                      "ported: no local caches")
-        x = S.copy_to(x, "tp")
     dt = _dtype(cfg)
     qkv = x @ p.wqkv.to(dt)
     if p.bqkv is not None:
@@ -587,10 +665,19 @@ def _causal_conv_full(u, w, b):
 def apply_mamba(p: Mamba, x, cfg: ModelConfig, *, mode="full", cache=None,
                 want_cache=False):
     """Mamba2 (SSD) block. cache: {"state": (B,Hs,ds,hd) f32,
-    "conv": (B, W-1, conv_ch)}."""
+    "conv": (B, W-1, conv_ch)}.
+
+    On a mesh of ranks with a model axis, `p` holds this rank's columns of
+    `in_proj`, `conv_w`, `conv_b` and `norm_g` (`mamba_columns`), its
+    heads' `A_log`, `Dskip`, `dt_bias` and rows of `out_proj`: the rank
+    scans its heads (B and C whole), normalises over the whole d_inner
+    (`norm_sum_over_model`) and adds the output's partial sums over
+    "model"."""
     b, s, d = x.shape
-    din, ds, hs, hd = (cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads,
-                       cfg.ssm_head_dim)
+    ds, hd = cfg.ssm_state, cfg.ssm_head_dim
+    tp, m, x = tp_enter(x, mode, want_cache)
+    _, hs = split_heads(cfg, cfg.n_ssm_heads, tp, m, "SSD heads")
+    din = hs * hd
     W = cfg.ssm_conv_width
     dt = _dtype(cfg)
     proj = x @ p.in_proj.to(dt)
@@ -633,8 +720,9 @@ def apply_mamba(p: Mamba, x, cfg: ModelConfig, *, mode="full", cache=None,
 
     y = y + p.Dskip.to(dt)[None, None, :, None] * xh
     y = y.reshape(b, s, din)
-    y = rmsnorm(y * F.silu(z), p.norm_g, cfg.norm_eps)
-    return y @ p.out_proj.to(dt), new_cache
+    y = rmsnorm(y * F.silu(z), p.norm_g, cfg.norm_eps, cfg.d_inner,
+                sum_over=norm_sum_over_model)
+    return row_parallel_sum(y @ p.out_proj.to(dt)), new_cache
 
 
 def mamba_cache_spec(cfg: ModelConfig, batch: int, device=None):
@@ -679,9 +767,16 @@ def apply_mlstm(p: MLSTM, x, cfg: ModelConfig, *, mode="full", cache=None,
     gates. cache: {"C": (B,H,hd,hd) f32, "n": (B,H,hd,1) f32}. The memory
     and its normaliser are two SSD scans (a 512 x 512 and a 512 x 1 state
     per head at xlstm-1.3b's width), one `ops.mlstm_scan` call over the
-    full sequence."""
+    full sequence.
+
+    On a mesh of ranks with a model axis, `p` holds this rank's heads'
+    columns of `wqkv` and `wif` and rows of `ln_inner` (`mlstm_columns`),
+    its columns of `w_ogate` and rows of `wo`: the rank scans its heads
+    and adds the output's partial sums over "model"."""
     b, s, d = x.shape
-    h, hd = cfg.n_heads, cfg.resolved_head_dim
+    hd = cfg.resolved_head_dim
+    tp, m, x = tp_enter(x, mode, want_cache)
+    _, h = split_heads(cfg, cfg.n_heads, tp, m, "mLSTM heads")
     dt = _dtype(cfg)
     qkv = x @ p.wqkv.to(dt)
     q, k, v = (t.reshape(b, s, h, hd)
@@ -711,7 +806,7 @@ def apply_mlstm(p: MLSTM, x, cfg: ModelConfig, *, mode="full", cache=None,
     y = rmsnorm(y, p.ln_inner, cfg.norm_eps)
     og = torch.sigmoid(x @ p.w_ogate.to(dt)).reshape(b, s, h, hd)
     y = (y * og).reshape(b, s, h * hd)
-    return y @ p.wo.to(dt), new_cache
+    return row_parallel_sum(y @ p.wo.to(dt)), new_cache
 
 
 def mlstm_cache_spec(cfg: ModelConfig, batch: int, device=None):
@@ -755,8 +850,16 @@ def apply_slstm(p: SLSTM, x, cfg: ModelConfig, *, mode="full", cache=None,
                 want_cache=False):
     """sLSTM with per-channel scalar memory and no recurrent hidden-to-gate
     weights (the reference's adaptation), so c and n are linear recurrences
-    (`gated_cumsum`). cache: {"c", "n": (B, D) f32}."""
-    b, s, d = x.shape
+    (`gated_cumsum`). cache: {"c", "n": (B, D) f32}.
+
+    On a mesh of ranks with a model axis, `p` holds this rank's channels of
+    each gate's columns of `w_gates` (`slstm_columns`): the gates and the
+    recurrences are per channel, so the rank computes its channels, and
+    the output is gathered over "model" (its backward takes the rank's
+    channels)."""
+    b, s, _ = x.shape
+    tp, m, x = tp_enter(x, mode, want_cache)
+    _, d = split_heads(cfg, cfg.d_model, tp, m, "sLSTM channels")
     dt = _dtype(cfg)
     pre = (x @ p.w_gates.to(dt)).float()
     ig, fg, zg, og = torch.split(pre, d, dim=-1)                # (B,S,D)
@@ -777,6 +880,9 @@ def apply_slstm(p: SLSTM, x, cfg: ModelConfig, *, mode="full", cache=None,
     hseq = o * c / torch.clamp(n, min=1.0)
     new_cache = ({"c": c[:, -1].clone(), "n": n[:, -1].clone()}
                  if want_cache else None)
+    if tp > 1:
+        return S.constrain(hseq.to(dt), "dp", None, None,
+                           src=("dp", None, "tp")), new_cache
     return hseq.to(dt), new_cache
 
 

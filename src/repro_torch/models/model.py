@@ -44,18 +44,21 @@ the backward (`torch.utils.checkpoint`, the reference's per-block
 `jax.checkpoint`), so a block's activations and one chunk's float32
 logits live at a time.
 
-On a mesh of ranks (`parallel.sharding.live`) the dense and moe families
-run sharded as the reference places them (the other four raise,
-`check_mesh`): each rank holds its data shard's rows and its pieces of the
+On a mesh of ranks (`parallel.sharding.live`) every family trains
+sharded as the reference places it (`check_mesh` raises, naming the
+family and its heads, where they do not divide the model axis; serving
+there raises): each rank holds its data shard's rows and its pieces of the
 weights, the layers split over "model" (`models.layers`), the embedding
 and the logits over the vocabulary where it divides (a lookup in this
-rank's rows summed over "model"; the cross-entropy from this rank's piece
-of the logits, its max, sum of exponentials and target logit reduced over
-"model", `_vocab_parallel_nll`; `forward` gathers the pieces), and the
-loss's mean taken over every data shard's positions (`reduce_from` over "dp": each rank's gradients are
-its share of the global loss's). `init(generator, sink=...)` draws the
-parameters a block at a time for the train step to keep only its pieces;
-`compute_views` says which of them the compute copy regroups or gathers.
+rank's rows summed over "model", each of audio's codebooks alike; the
+cross-entropy from this rank's piece of the logits, its max, sum of
+exponentials and target logit reduced over "model", `_vocab_parallel_nll`;
+`forward` gathers the pieces), vlm's `patch_proj` column-parallel and
+gathered, and the loss's mean taken over every data shard's positions
+(`reduce_from` over "dp": each rank's gradients are its share of the
+global loss's). `init(generator, sink=...)` draws the parameters a block
+at a time for the train step to keep only its pieces; `compute_views`
+says which of them the compute copy regroups or gathers.
 """
 from __future__ import annotations
 
@@ -73,41 +76,60 @@ from repro_torch.parallel import sharding as S
 
 _FAMILIES = ("dense", "moe", "audio", "vlm", "hybrid", "ssm")
 _ATTENTION_STACKS = ("dense", "moe", "audio", "vlm")
-# the families that run on a mesh of ranks; the others raise there
-MESH_FAMILIES = ("dense", "moe")
 
 
 def check_mesh(cfg: ModelConfig, mesh=None) -> None:
-    """Raise NotImplementedError, naming the family, where `cfg`'s family
-    is to run on a mesh of several ranks and is not ported there."""
+    """On a mesh of several ranks, raise NotImplementedError where `cfg`'s
+    heads (or sLSTM's channels) do not divide the model axis, naming the
+    family and the heads. Every family runs there otherwise."""
     mesh = mesh or S.current_mesh()
-    if S.live(mesh) and cfg.family not in MESH_FAMILIES:
-        raise NotImplementedError(
-            f"the {cfg.family} family ({cfg.name}) on a mesh of "
-            f"{mesh.size} ranks is not ported: only "
-            f"{' and '.join(MESH_FAMILIES)} run sharded")
+    if not S.live(mesh):
+        return
+    tp = mesh.shape.get("model", 1)
+    if cfg.family in _ATTENTION_STACKS or cfg.family == "hybrid":
+        L.attention_heads(cfg, tp, 0)
+    if cfg.family == "hybrid":
+        L.mamba_columns(cfg, tp, 0)
+    if cfg.family == "ssm":
+        L.mlstm_columns(cfg, tp, 0)
+        L.slstm_columns(cfg, tp, 0)
 
 
 def compute_views(cfg: ModelConfig, shapes: dict, mesh) -> dict:
     """{parameter name: view} of the parameters whose compute copy on a
     mesh of ranks is not the TP-only piece of `compute_param_specs`:
-    ("columns", index) for attention's `wqkv` and `bqkv`, whose pieces by
-    columns do not follow the heads (the rank's q, k and v heads' columns,
-    `layers.qkv_columns`, gathered over "model"), and ("whole", dim) for
-    the experts' `w_in` and `w_out`, which the MoE block uses whole (the
-    reference's `shard_map` takes them replicated). Empty off a mesh of
-    ranks or with a model axis of one."""
+    ("columns", dim, index) where the rank's pieces along `dim` do not
+    follow its heads (gathered over "model" where split, then picked):
+    attention's `wqkv` and `bqkv` (the rank's q, k and v heads' columns,
+    `layers.qkv_columns`), mLSTM's `wqkv`, `wif` and `ln_inner`, sLSTM's
+    `w_gates`, Mamba2's `in_proj`, `conv_w`, `conv_b` and `norm_g`
+    (`layers.mlstm_columns`, `slstm_columns`, `mamba_columns`); and
+    ("whole", 0, None) for the experts' `w_in` and `w_out`, which the MoE
+    block uses whole (the reference's `shard_map` takes them replicated).
+    Empty off a mesh of ranks or with a model axis of one."""
     tp = mesh.shape.get("model", 1) if S.live(mesh) else 1
     if tp == 1:
         return {}
-    cols = L.qkv_columns(cfg, tp, mesh.coords["model"])
+    m = mesh.coords["model"]
+    by_block = {}
+    if cfg.family in _ATTENTION_STACKS or cfg.family == "hybrid":
+        cols = L.qkv_columns(cfg, tp, m)
+        by_block["attn"] = {"wqkv": cols, "bqkv": cols}
+    if cfg.family == "hybrid":
+        mc = L.mamba_columns(cfg, tp, m)
+        by_block["mamba"] = {"in_proj": mc["in_proj"], "conv_w": mc["conv"],
+                             "conv_b": mc["conv"], "norm_g": mc["inner"]}
+    if cfg.family == "ssm":
+        by_block["mlstm"] = L.mlstm_columns(cfg, tp, m)
+        by_block["slstm"] = {"w_gates": L.slstm_columns(cfg, tp, m)}
     out = {}
-    for name in shapes:
-        leaf = name.split(".")[-1]
-        if leaf in ("wqkv", "bqkv"):
-            out[name] = ("columns", cols)
+    for name, shape in shapes.items():
+        *_, block, leaf = ("",) + tuple(name.split("."))
+        if leaf in by_block.get(block, {}):
+            dim = 0 if leaf == "ln_inner" else len(shape) - 1
+            out[name] = ("columns", dim, by_block[block][leaf])
         elif leaf in ("w_in", "w_out"):
-            out[name] = ("whole", 0)
+            out[name] = ("whole", 0, None)
     return out
 
 
@@ -314,16 +336,24 @@ class Model(nn.Module):
         dt = L._dtype(cfg)
         tok = batch["tokens"]
         if cfg.family == "audio":                  # (B, K, S): summed rows
-            x = self.embed[0][tok[:, 0]]
-            for k in range(1, cfg.n_codebooks):
-                x = x + self.embed[k][tok[:, k]]
-            x = x.to(dt)
+            # each codebook's rows in float32, added in codebook order;
+            # split over "model", this rank's rows' sum is summed over it
+            split = self.embed.shape[1] != cfg.vocab_size
+            x = None
+            for k in range(cfg.n_codebooks):
+                e = (_vocab_rows(self.embed[k], tok[:, k]) if split
+                     else L.embedding_rows(self.embed[k], tok[:, k]))
+                x = e.float() if x is None else x + e.float()
+            x = (S.reduce_from(x, "tp") if split else x).to(dt)
         elif self.embed.shape[0] != cfg.vocab_size:   # rows over "model"
-            x = _vocab_parallel_lookup(self.embed, tok).to(dt)
+            x = S.reduce_from(_vocab_rows(self.embed, tok), "tp").to(dt)
         else:
             x = L.embedding_rows(self.embed, tok).to(dt)
         if self.patch_proj is not None and "patch_embeds" in batch:
-            pe = batch["patch_embeds"].to(dt) @ self.patch_proj.to(dt)
+            w = self.patch_proj.to(dt)
+            pe = batch["patch_embeds"].to(dt) @ w
+            if w.shape[1] != cfg.d_model:   # column-parallel, gathered
+                pe = S.constrain(pe, "dp", None, None, src=("dp", None, "tp"))
             x = torch.cat([pe, x], dim=1)
         return x
 
@@ -334,20 +364,23 @@ class Model(nn.Module):
         cfg = self.cfg
         dt = L._dtype(cfg)
         x = L.rmsnorm(x, self.ln_f, cfg.norm_eps)
+        w = (self.heads if self.heads is not None else
+             self.embed.T if self.lm_head is None else self.lm_head)
+        split = w.shape[-1] != cfg.vocab_size  # this rank's vocabulary piece
+        if split:
+            x = S.copy_to(x, "tp")
         if self.heads is not None:                 # (B, S, K, V)
-            return torch.einsum("bsd,kdv->bskv", x, self.heads.to(dt)), False
-        w = self.embed.T if self.lm_head is None else self.lm_head
-        if w.shape[-1] != cfg.vocab_size:     # this rank's vocabulary piece
-            return S.copy_to(x, "tp") @ w.to(dt), True
-        return x @ w.to(dt), False
+            return torch.einsum("bsd,kdv->bskv", x, w.to(dt)), split
+        return x @ w.to(dt), split
 
     def _head(self, x):
         """float32 logits over the whole vocabulary (a split one's pieces
         gathered over "model")."""
         logits, split = self._head_piece(x)
         if split:
-            logits = S.constrain(logits, "dp", None, None,
-                                 src=("dp", None, "tp"))
+            logits = S.constrain(logits, "dp", *[None] * (logits.dim() - 1),
+                                 src=("dp", *[None] * (logits.dim() - 2),
+                                      "tp"))
         return logits.float()
 
     # ---------------- stack application ----------------
@@ -415,12 +448,18 @@ class Model(nn.Module):
         (audio (B, S, K, V); vlm over the patches and the tokens), and with
         `with_aux` also the summed load-balancing loss: (logits, aux)."""
         check_mesh(self.cfg)
+        x, aux = self._hidden(batch)
+        logits = self._head(x)
+        return (logits, aux) if with_aux else logits
+
+    def _hidden(self, batch: dict):
+        """(the stack's output over the whole sequence, the summed
+        load-balancing loss)."""
         x = self._embed(batch)
         positions = torch.arange(x.shape[1], device=x.device)
         x, _, aux = self._run_stack(x, positions=positions, mode="full",
                                     caches=None, want_cache=False)
-        logits = self._head(x)
-        return (logits, aux) if with_aux else logits
+        return x, aux
 
     def loss(self, batch: dict):
         """Mean next-token cross-entropy plus the MoE load-balancing loss:
@@ -433,16 +472,18 @@ class Model(nn.Module):
         check_mesh(cfg)
         if cfg.loss_chunk and cfg.family != "audio":
             return self._loss_chunked(batch)
-        logits, aux = self.forward(batch, with_aux=True)
+        x, aux = self._hidden(batch)
+        logits, split = self._head_piece(x)
+        nll_of = _vocab_parallel_nll if split else _nll
         targets = batch["targets"]
         if cfg.family == "audio":
             # logits (B, S, K, V), targets (B, K, S)
-            nll = _nll(logits, targets.transpose(1, 2))
+            nll = nll_of(logits.float(), targets.transpose(1, 2))
             mask = torch.ones_like(nll)
         else:
             if cfg.family == "vlm":
                 logits = logits[:, logits.shape[1] - targets.shape[1]:]
-            nll = _nll(logits, targets)
+            nll = nll_of(logits.float(), targets)
             mask = batch.get("loss_mask")
             mask = torch.ones_like(nll) if mask is None else mask.float()
         ce = _mean_over_shards((nll * mask).sum(), mask)
@@ -462,10 +503,7 @@ class Model(nn.Module):
         chunk's (B, chunk, V) float32 logits are made, reduced and (under
         grad) dropped, and remade in the backward."""
         cfg = self.cfg
-        x = self._embed(batch)
-        positions = torch.arange(x.shape[1], device=x.device)
-        x, _, aux = self._run_stack(x, positions=positions, mode="full",
-                                    caches=None, want_cache=False)
+        x, aux = self._hidden(batch)
         targets = batch["targets"]
         if cfg.family == "vlm":
             x = x[:, x.shape[1] - targets.shape[1]:]
@@ -538,17 +576,17 @@ def _no_serving_on_a_mesh() -> None:
                                   "ported: the caches are whole")
 
 
-def _vocab_parallel_lookup(w, tok):
-    """The embedding rows of `tok` where this rank holds rows
+def _vocab_rows(w, tok):
+    """This rank's part of the embedding rows of `tok` where it holds rows
     [m V / tp, (m + 1) V / tp) of the table `w` (its piece over "model"):
-    its own rows looked up, zeros for the others, summed over "model" (in
-    float32: one nonzero term, so the row exactly)."""
+    its own rows looked up (`embedding_rows`), zeros for the others. Their
+    sum over "model" (`reduce_from`, float32) is the rows exactly: one
+    nonzero term."""
     rows = w.shape[0]
     local = tok.long() - L.tp_rank()[1] * rows
     inside = (local >= 0) & (local < rows)
-    x = torch.where(inside[..., None],
-                    L.embedding_rows(w, local.clamp(0, rows - 1)), 0.0)
-    return S.reduce_from(x, "tp")
+    return torch.where(inside[..., None],
+                       L.embedding_rows(w, local.clamp(0, rows - 1)), 0.0)
 
 
 def _vocab_parallel_nll(logits, targets):

@@ -20,7 +20,8 @@ takes). The collectives are `parallel.collectives`'. Autograd sees the
 re-layouts as the Megatron-style pairs: a gather's backward takes this
 rank's slice, a slice's backward gathers; `copy_to` (identity, summed in
 the backward) and `reduce_from` (summed, identity in the backward) open
-and close a tensor-parallel region.
+and close a tensor-parallel region, and `all_sum` (summed both ways)
+reduces inside one.
 """
 from __future__ import annotations
 
@@ -253,6 +254,22 @@ class _ReduceFrom(torch.autograd.Function):
         return g, None, None
 
 
+class _AllSum(torch.autograd.Function):
+    """The sum over `axes`; backward: the sum over `axes` too (a reduction
+    each rank's part of a split width feeds, whose result each rank reads
+    for its own part only: a norm's sum of squares over a split
+    dimension)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return C.all_reduce(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return C.all_reduce(g, ctx.mesh, ctx.axes), None, None
+
+
 def mesh_axes(axis, mesh=None):
     """(the live mesh, its axes bound to the logical `axis`) or (None,
     ())."""
@@ -283,6 +300,13 @@ def reduce_from(x, axis: str):
     sums, a data shard's share of a loss."""
     mesh, axes = mesh_axes(axis)
     return _ReduceFrom.apply(x, mesh, axes) if axes else x
+
+
+def all_sum(x, axis: str):
+    """The sum of the ranks' x over the logical `axis` (fixed order,
+    float32), with its gradient summed over the axis too (`_AllSum`)."""
+    mesh, axes = mesh_axes(axis)
+    return _AllSum.apply(x, mesh, axes) if axes else x
 
 
 def constrain(x, *axes, src=None):

@@ -12,19 +12,22 @@ which installs it in the model for the forward and the backward together
 gradients are summed in float32 and divided by their count, and
 `apply_updates` updates the masters and the optimizer state in place.
 
-On a mesh of ranks (the dense and moe families) the state is sharded as
-the reference's launcher places it: each rank holds its pieces of the
-float32 masters and moments by `param_pspec_tree` (fsdp over "data", tp
-over "model"; `TrainState.mesh` and the whole `shapes` say how). Once a
-step the compute copy is cast and gathered over "data" into the TP-only
-pieces of `compute_param_specs` (ZeRO-2), with attention's `wqkv` and
-`bqkv` regrouped into the rank's heads and the experts gathered whole
+On a mesh of ranks (every family) the state is sharded as the
+reference's launcher places it: each rank holds its pieces of the float32
+masters and moments by `param_pspec_tree` (fsdp over "data", tp over
+"model"; `TrainState.mesh` and the whole `shapes` say how). Once a step
+the compute copy is cast and gathered over "data" into the TP-only pieces
+of `compute_param_specs` (ZeRO-2), with the leaves whose pieces do not
+follow the rank's heads regrouped into them (attention's `wqkv` and
+`bqkv`, mLSTM's, sLSTM's and Mamba2's, a replicated norm's rows or
+columns picked) and the experts gathered whole
 (`models.model.compute_views`); each data rank takes its rows of each
 microbatch; the gradients are mapped back (the regrouped columns summed
 over "model") and reduce-scattered over "data" into each master's piece
 (`reduce_grads_to_masters`), every sum in a fixed rank order, and the
-clipping norm counts each element once over the mesh. `zero_stage=3` (the
-masters used directly, gathered a layer at a time) is not ported.
+clipping norm counts each element once over the mesh. Not ported there:
+`zero_stage=3` (the masters used directly, gathered a layer at a time;
+nor off a mesh) and int8 gradient compression.
 """
 from __future__ import annotations
 
@@ -66,9 +69,7 @@ def init_train_state(model, generator: torch.Generator,
         return TrainState(params=params,
                           opt=init_opt_state(params, opt_cfg), step=0)
     check_mesh(model.cfg, mesh)
-    if opt_cfg.compress_grads:
-        raise NotImplementedError("int8 gradient compression on a mesh of "
-                                  "ranks is not ported")
+    _no_compression_on_a_mesh(opt_cfg)
     shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
     with S.use_mesh(mesh):
         specs = S.param_pspec_tree(shapes)
@@ -80,6 +81,13 @@ def init_train_state(model, generator: torch.Generator,
     params = {n: pieces[n] for n in shapes}
     return TrainState(params=params, opt=init_opt_state(params, opt_cfg),
                       step=0, mesh=mesh, shapes=shapes)
+
+
+def _no_compression_on_a_mesh(opt_cfg: OptimizerConfig) -> None:
+    if opt_cfg.compress_grads:
+        raise NotImplementedError("int8 gradient compression "
+                                  "(compress_grads) on a mesh of ranks is "
+                                  "not ported")
 
 
 class _LossAndGrads(nn.Module):
@@ -136,19 +144,17 @@ def sharded_compute_copy(state: TrainState, dtype: torch.dtype,
                          views: dict) -> dict:
     """This rank's compute copy on the state's mesh, requiring grad: the
     TP-only pieces (`cast_and_reshard_compute_params`), then the `views`
-    (`compute_views`): columns gathered over "model" and picked, or a
-    piece gathered whole."""
+    (`compute_views`): columns along a dimension gathered over "model"
+    where split there and picked, or a piece gathered whole."""
     mesh, shapes = state.mesh, state.shapes
     out = S.cast_and_reshard_compute_params(state.params, shapes, dtype,
                                             mesh)
-    for n, (kind, arg) in views.items():
+    for n, (kind, dim, idx) in views.items():
         x = out[n]
+        if x.shape[dim] != shapes[n][dim]:
+            x = C.all_gather(x, mesh, "model", dim)
         if kind == "columns":
-            if x.shape[-1] != shapes[n][-1]:
-                x = C.all_gather(x, mesh, "model", x.dim() - 1)
-            x = x.index_select(-1, arg.to(x.device))
-        elif x.shape[arg] != shapes[n][arg]:
-            x = C.all_gather(x, mesh, "model", arg)
+            x = x.index_select(dim, idx.to(x.device))
         out[n] = x
     return {n: x.requires_grad_() for n, x in out.items()}
 
@@ -162,16 +168,18 @@ def sharded_grads(grads: dict, state: TrainState, views: dict) -> dict:
     mesh, shapes = state.mesh, state.shapes
     with S.use_mesh(mesh):
         cspecs = S.compute_param_specs(shapes)
-    for n, (kind, arg) in views.items():
+    for n, (kind, dim, idx) in views.items():
         g = grads[n]
         if kind == "columns":
-            full = g.new_zeros(g.shape[:-1] + (shapes[n][-1],))
-            full.index_copy_(-1, arg.to(g.device), g)
-            g = (C.reduce_scatter(full, mesh, "model", g.dim() - 1)
-                 if cspecs[n][-1] is not None
+            size = list(g.shape)
+            size[dim] = shapes[n][dim]
+            full = g.new_zeros(size)
+            full.index_copy_(dim, idx.to(g.device), g)
+            g = (C.reduce_scatter(full, mesh, "model", dim)
+                 if cspecs[n][dim] is not None
                  else C.all_reduce(full, mesh, "model"))
-        elif cspecs[n][arg] is not None:
-            g = S.local_slice(g, S.Spec(*([None] * arg + ["model"])), mesh)
+        elif cspecs[n][dim] is not None:
+            g = S.local_slice(g, S.Spec(*([None] * dim + ["model"])), mesh)
         grads[n] = g
     return S.reduce_grads_to_masters(grads, shapes, mesh)
 
@@ -208,8 +216,9 @@ def make_train_step(model, opt_cfg: OptimizerConfig, microbatches: int = 1,
     gradients of the masters (this rank's pieces) before the update."""
     if zero_stage != 2:
         raise ValueError(
-            f"zero_stage={zero_stage}: only 2 (a compute copy cast and "
-            f"gathered once a step) is ported")
+            f"zero_stage={zero_stage} is not ported, on a mesh of ranks or "
+            f"off one: only 2 (a compute copy cast and gathered once a "
+            f"step)")
     dtype = L._dtype(model.cfg)
 
     def train_step(state: TrainState, batch: dict):
@@ -221,6 +230,7 @@ def make_train_step(model, opt_cfg: OptimizerConfig, microbatches: int = 1,
         views = {}
         if mesh is not None:
             check_mesh(model.cfg, mesh)
+            _no_compression_on_a_mesh(opt_cfg)
             views = compute_views(model.cfg, state.shapes, mesh)
             params_c = sharded_compute_copy(state, dtype, views)
         else:

@@ -17,8 +17,9 @@ step to the reference's `make_train_step`).
     microbatch a microbatch of their own), and the masters' and moments'
     bytes a rank against the dry-run's;
   * `launch.train.train` on the mesh with an injected failure, and the
-    elastic re-mesh of the survivors of a lost rank;
-  * the other four families raise on a mesh of ranks.
+    elastic re-mesh of the survivors of a lost rank.
+
+The other four families on a mesh: `tests/test_torch_sharded_families.py`.
 
 Two rank launches, each with a timeout of 120 s.
 """
@@ -284,23 +285,6 @@ def test_elastic_reshard_of_the_survivors_matches_one_device(moe_run):
     assert got["mesh"] == {"data": 3, "model": 1}
     assert got["loss"] == pytest.approx(met["loss"], rel=LOSS_REL)
     assert _max_diff(got["params"], state.params) < PARAM_DIFF
-
-
-@pytest.mark.parametrize("arch", ["musicgen-medium", "phi-3-vision-4.2b",
-                                  "zamba2-7b", "xlstm-1.3b"])
-def test_other_families_raise_on_a_mesh_of_ranks(arch):
-    """On a 2-rank mesh the audio, vlm, hybrid and ssm families raise,
-    naming the family (before any collective)."""
-    cfg = smoke_config(get_arch(arch))
-    mesh = S.Mesh(("data", "model"), (1, 2), ranks=(0, 1), rank=0)
-    model = Model(cfg, device="meta")
-    with pytest.raises(NotImplementedError, match=cfg.family):
-        init_train_state(model, torch.Generator().manual_seed(0), R.OPT,
-                         mesh=mesh)
-    with S.use_mesh(mesh), pytest.raises(NotImplementedError,
-                                         match=cfg.family):
-        Model(cfg, device="cpu").loss({"tokens": torch.zeros(2, 4).long(),
-                                       "targets": torch.zeros(2, 4).long()})
 
 
 def test_local_slices_and_constrain_without_collectives():

@@ -1,4 +1,5 @@
-"""Rank programs of `tests/test_torch_sharded.py`.
+"""Rank programs of `tests/test_torch_sharded.py` and
+`tests/test_torch_sharded_families.py`.
 
     python tests/torch_sharded_ranks.py SCENARIO OUT N
 
@@ -13,10 +14,12 @@ from __future__ import annotations
 
 import sys
 import traceback
+import types
 from pathlib import Path
 
 import torch
 import torch.multiprocessing as mp
+from torch import nn
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
@@ -25,13 +28,14 @@ from repro_torch.configs import get_arch, smoke_config  # noqa: E402
 from repro_torch.launch import train as T  # noqa: E402
 from repro_torch.launch.mesh import make_debug_mesh, mesh_over_ranks  # noqa
 from repro_torch.models import layers as L  # noqa: E402
-from repro_torch.models.model import Model  # noqa: E402
+from repro_torch.models.model import Model, compute_views  # noqa: E402
 from repro_torch.parallel import collectives as C  # noqa: E402
 from repro_torch.parallel import sharding as S  # noqa: E402
 from repro_torch.train import checkpoint as ckpt  # noqa: E402
 from repro_torch.train.data import DataConfig, batch_for_step  # noqa: E402
 from repro_torch.train.fault_tolerance import ElasticMeshManager  # noqa
-from repro_torch.train.optimizer import OptimizerConfig  # noqa: E402
+from repro_torch.train.optimizer import (OptimizerConfig,  # noqa: E402
+                                         init_opt_state)
 from repro_torch.train.train_step import (TrainState,  # noqa: E402
                                           init_train_state, make_train_step)
 
@@ -46,7 +50,8 @@ def config(arch: str):
 
 def batch(cfg, rows: int, index: int = 0) -> dict:
     dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=SEQ,
-                    global_batch=rows)
+                    global_batch=rows, n_codebooks=cfg.n_codebooks,
+                    n_patches=cfg.n_patches, d_model=cfg.d_model)
     return {k: torch.from_numpy(v) for k, v in
             batch_for_step(dc, index).items()}
 
@@ -199,8 +204,162 @@ def elastic(rank: int, out: Path) -> None:
                     "loss": met["loss"]}, out / "elastic.pt")
 
 
+# the four families of `tests/test_torch_sharded_families.py`, and the
+# blocks each holds to the reference's layer function
+FAMILY_ARCHS = ("musicgen-medium", "phi-3-vision-4.2b", "zamba2-7b",
+                "xlstm-1.3b")
+FAMILY_BLOCKS = {"zamba2-7b": ("mamba",), "xlstm-1.3b": ("mlstm", "slstm")}
+FAMILY_MICRO = 2
+
+
+def rank_pieces(cfg, whole: dict, mesh) -> dict:
+    """This rank's compute-copy pieces of the `whole` tensors (named as
+    the model's parameters), cut from them directly: the TP-only pieces of
+    `compute_param_specs`, or the `compute_views` columns."""
+    shapes = {n: tuple(t.shape) for n, t in whole.items()}
+    with S.use_mesh(mesh):
+        cspecs = S.compute_param_specs(shapes)
+    views = compute_views(cfg, shapes, mesh)
+    out = {}
+    for n, t in whole.items():
+        kind, dim, idx = views.get(n, (None, None, None))
+        out[n] = (t.index_select(dim, idx) if kind == "columns"
+                  else t if kind == "whole"
+                  else S.local_slice(t, cspecs[n], mesh).clone())
+    return out
+
+
+def install(model, tensors: dict):
+    """`model` holding `tensors` (its parameters' names) as its parameters,
+    whatever their shapes."""
+    for n, t in tensors.items():
+        owner, _, leaf = n.rpartition(".")
+        setattr(model.get_submodule(owner) if owner else model, leaf,
+                nn.Parameter(t, requires_grad=False))
+    return model
+
+
+def state_from_whole(whole: dict, mesh) -> TrainState:
+    """A fresh train state on `mesh` whose masters are this rank's pieces
+    of the `whole` parameters."""
+    shapes = {n: tuple(t.shape) for n, t in whole.items()}
+    with S.use_mesh(mesh):
+        specs = S.param_pspec_tree(shapes)
+    params = {n: S.local_slice(t, specs[n], mesh).clone()
+              for n, t in whole.items()}
+    return TrainState(params, init_opt_state(params, OPT), 0, mesh, shapes)
+
+
+def _shard_rows(x, mesh):
+    """This data rank's rows of x (the whole batch on every rank)."""
+    return S.constrain(x, "dp", *[None] * (x.dim() - 1),
+                       src=(None,) * x.dim())
+
+
+def _rows_whole(y, mesh):
+    return C.all_gather(y, mesh, "data", 0)
+
+
+def families(rank: int, out: Path) -> None:
+    """The audio, vlm, hybrid and ssm families' smoke configs at float32 on
+    a 2 x 2 mesh, from the test's inputs (`families_in.pt`: the
+    reference's parameters carried across, a batch, layer inputs): for
+    each, one sharded step (its loss, the masters' gradients gathered,
+    the masters after it), its masters' and moments' bytes a rank; each
+    Mamba2, mLSTM and sLSTM block on this rank's heads or channels (and
+    Mamba2's with its norm's sum over "model" left out: the control); the
+    audio and vlm embedding and head on this rank's pieces; zamba2's
+    state checkpointed (gathered)."""
+    mesh = make_debug_mesh()
+    assert mesh.shape == {"data": 2, "model": 2}, mesh.shape
+    inp = torch.load(out / "families_in.pt")
+    res = {}
+    for arch in FAMILY_ARCHS:
+        cfg, got = config(arch), {}
+        case = inp[arch]
+        with S.use_mesh(mesh):
+            state = state_from_whole(case["params"], mesh)
+            grads = {}
+            model = Model(cfg, device="meta")
+            state, met = make_train_step(
+                model, OPT, microbatches=FAMILY_MICRO,
+                grad_hook=grads.update)(state, case["batch"])
+            got["loss"] = met["loss"]
+            got["grads"] = S.gather_params(grads, state.shapes, mesh)
+            got["params"] = S.gather_params(state.params, state.shapes, mesh)
+            if arch == "zamba2-7b":
+                ckpt.save(str(out / "ckpt_hybrid"), 1, state)
+                got["m"] = S.gather_params(state.opt["m"], state.shapes,
+                                           mesh)
+            for blk in FAMILY_BLOCKS.get(arch, ()):
+                w = rank_pieces(cfg, {f"{blk}.0.{blk}.{n}": t for n, t in
+                                      case[blk]["weights"].items()}, mesh)
+                p = types.SimpleNamespace(**{n.rsplit(".", 1)[1]: t
+                                             for n, t in w.items()})
+                fn = getattr(L, f"apply_{blk}")
+                x = _shard_rows(case[blk]["x"], mesh)
+                with torch.no_grad():
+                    got[blk] = _rows_whole(fn(p, x, cfg)[0], mesh)
+                    if blk == "mamba":
+                        real = L.norm_sum_over_model
+                        L.norm_sum_over_model = lambda ss: ss
+                        try:
+                            got["mamba_control"] = _rows_whole(
+                                fn(p, x, cfg)[0], mesh)
+                        finally:
+                            L.norm_sum_over_model = real
+            if cfg.family in ("audio", "vlm"):
+                pm = install(Model(cfg, device="cpu"),
+                             rank_pieces(cfg, case["params"], mesh))
+                with torch.no_grad():
+                    got["embed"] = _rows_whole(pm._embed(
+                        {k: _shard_rows(v, mesh) for k, v in
+                         case["batch"].items() if k != "targets"}), mesh)
+                    got["head"] = _rows_whole(pm._head(
+                        _shard_rows(case["head_x"], mesh)), mesh)
+        mine = {"params": sum(t.numel() * t.element_size()
+                              for t in state.params.values()),
+                "opt_moments": sum(t.numel() * t.element_size()
+                                   for k in ("m", "v")
+                                   for t in state.opt[k].values())}
+        got["bytes_by_rank"] = C.all_gather_object(mine, mesh)
+        res[arch] = got
+    if rank == 0:
+        torch.save(res, out / "families.pt")
+
+
+def recovery_hybrid(rank: int, out: Path) -> None:
+    """`launch.train.train` of zamba2-7b's smoke config on a 2 x 2 mesh,
+    uninterrupted and with a failure injected at the same call on every
+    rank: the recovery scenario for the hybrid family."""
+    kw = dict(steps=3, batch=4, seq=SEQ, microbatches=2, smoke=True,
+              ckpt_every=2, device="cpu", log=lambda *a: None,
+              opt=OptimizerConfig(warmup_steps=1, decay_steps=3))
+    calls = {"n": 0}
+
+    def flaky(step_fn):
+        def run(s, b):
+            calls["n"] += 1
+            if calls["n"] == 3:
+                raise RuntimeError("injected node failure")
+            return step_fn(s, b)
+        return run
+    runs = []
+    for i, wrap in enumerate((None, flaky)):
+        r = T.train("zamba2-7b", ckpt_dir=str(out / f"rec_hybrid_{i}"),
+                    step_wrapper=wrap, **kw)
+        st = r["state"]
+        runs.append({"params": S.gather_params(st.params, st.shapes,
+                                               st.mesh),
+                     "restarts": r["restarts"], "steps": r["steps"],
+                     "mesh": st.mesh.shape})
+    if rank == 0:
+        torch.save(runs, out / "recovery_hybrid.pt")
+
+
 SCENARIOS = {"dense": dense, "moe": moe, "recovery": recovery,
-             "elastic": elastic}
+             "elastic": elastic, "families": families,
+             "recovery_hybrid": recovery_hybrid}
 
 
 def _rank(rank: int, scenarios: list, out: str, n: int) -> None:
